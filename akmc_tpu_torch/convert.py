@@ -1,0 +1,105 @@
+"""Carry objects of ``akmc_tpu`` across to this package.
+
+Each function takes the JAX package's object, reads its fields as numpy
+arrays (``np.asarray`` works on JAX arrays without importing JAX), and
+returns this package's counterpart with tensors on ``device``. The tests use
+it to feed both packages exactly the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from akmc_tpu_torch.config import KMCParameters, Layer
+from akmc_tpu_torch.lattice import Lattice
+from akmc_tpu_torch.models.vcm import StaticTables
+from akmc_tpu_torch.solvers.dia import make_dia
+from akmc_tpu_torch.state import DeviceState
+
+
+def tensor(a, device="cpu") -> torch.Tensor:
+    """numpy view of ``a`` as a tensor; integer index arrays widen to int64
+    (PyTorch indexes with int64), int8 and bool keep their type."""
+    arr = np.asarray(a)
+    if arr.dtype in (np.int16, np.int32, np.uint8):
+        arr = arr.astype(np.int64)
+    return torch.as_tensor(np.array(arr), device=device)
+
+
+def params(p) -> KMCParameters:
+    out = {f.name: getattr(p, f.name) for f in dataclasses.fields(KMCParameters)}
+    out["layers"] = [
+        Layer(**{f.name: getattr(l, f.name) for f in dataclasses.fields(Layer)})
+        for l in p.layers
+    ]
+    for name in ("shifts", "lattice", "metals", "V_switch", "t_switch", "alpha"):
+        out[name] = list(out[name])
+    return KMCParameters(**out)
+
+
+def lattice(lat) -> Lattice:
+    return Lattice(
+        element0=np.asarray(lat.element0, np.int32).copy(),
+        x=np.asarray(lat.x, np.float64).copy(),
+        y=np.asarray(lat.y, np.float64).copy(),
+        z=np.asarray(lat.z, np.float64).copy(),
+        lattice=np.asarray(lat.lattice, np.float64).copy(),
+        pbc=bool(lat.pbc),
+        nn_dist=float(lat.nn_dist),
+        neigh_idx=np.asarray(lat.neigh_idx).copy(),
+        k_neigh_idx=np.asarray(lat.k_neigh_idx).copy(),
+        site_layer=np.asarray(lat.site_layer).copy(),
+        grid=None if lat.grid is None else tuple(lat.grid),
+    )
+
+
+def state(s, device="cpu") -> DeviceState:
+    def t(a, dtype):
+        return torch.as_tensor(np.array(np.asarray(a)), dtype=dtype, device=device)
+
+    return DeviceState(
+        element=t(s.element, torch.int32),
+        charge=t(s.charge, torch.int32),
+        potential_boundary=t(s.potential_boundary, torch.float64),
+        potential_charge=t(s.potential_charge, torch.float64),
+        power=t(s.power, torch.float64),
+        temperature=t(s.temperature, torch.float64),
+        cb_edge=t(s.cb_edge, torch.float64),
+        T_bg=t(s.T_bg, torch.float64),
+        kmc_time=t(s.kmc_time, torch.float64),
+    )
+
+
+def dia(d, meta, device="cpu"):
+    """(DiaK, DiaMeta) from akmc_tpu's DiaK NamedTuple and DiaMeta."""
+    dk, dm = make_dia(
+        np.asarray(d.diags), np.asarray(d.deg_static), np.asarray(d.lsum),
+        np.asarray(d.rsum), np.asarray(d.pos), np.asarray(d.active_row),
+        meta.offsets, meta.val_low, meta.val_high,
+    )
+    return dk.to(torch.device(device)), dm
+
+
+def tables(t, device="cpu") -> StaticTables:
+    """StaticTables from akmc_tpu's (full-f64 pair table storage)."""
+    if t.pair_gT is None or t.pair_gT.full is None:
+        raise ValueError("only the full-f64 static pair table carries across")
+    return StaticTables(
+        pos=tensor(t.pos, device),
+        neigh_idx=tensor(t.neigh_idx, device),
+        any_metal_nbr=tensor(t.any_metal_nbr, device),
+        E_gen=tensor(t.E_gen, device),
+        E_rec=tensor(t.E_rec, device),
+        E_Vdiff=tensor(t.E_Vdiff, device),
+        E_Odiff=tensor(t.E_Odiff, device),
+        act_idx=tensor(t.act_idx, device),
+        abs2act=tensor(t.abs2act, device),
+        act_neigh=tensor(t.act_neigh, device),
+        act_self2=tensor(t.act_self2, device),
+        act_layer=tensor(t.act_layer, device),
+        act_zero_rows=tensor(t.act_zero_rows, device),
+        pair_table=tensor(t.pair_gT.full, device),
+    )

@@ -1,0 +1,108 @@
+"""Golden trajectories: a driver run's work directory reduced to what two
+runs of the same deck must share, and the comparison of two such records.
+
+Both drivers (``akmc_tpu`` and this port) write the same files, so the
+record can be taken from either:
+
+    python -m akmc_tpu_torch.runtime.golden <workdir> > golden.json
+    python -m akmc_tpu_torch.runtime.golden <golden> <other>
+
+The second form takes two records (a ``.json`` record or a workdir each)
+and prints how far the other is from the golden: the largest relative KMC
+time difference, the supersteps whose CG iteration counts differ, and the
+mismatches ``compare`` finds apart from KMC times.
+
+It holds, per superstep, the bias, the event count, the CG iterations and
+the KMC time (from ``metrics.jsonl``), and the element column of the final
+snapshot as one digit per site.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import sys
+
+from akmc_tpu_torch.lattice import NAME_TO_ELEMENT
+
+
+def _final_snapshot(workdir: str) -> str:
+    with open(os.path.join(workdir, "output1_0.txt")) as f:
+        folders = re.findall(r"^Created folder: (\S+)$", f.read(), re.M)
+    folder = os.path.join(workdir, folders[-1])
+    steps = [
+        int(m.group(1))
+        for name in os.listdir(folder)
+        if (m := re.fullmatch(r"snapshot_(\d+)\.xyz", name))
+    ]
+    return os.path.join(folder, f"snapshot_{max(steps)}.xyz")
+
+
+def summarize(workdir: str) -> dict:
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    with open(_final_snapshot(workdir)) as f:
+        lines = f.read().splitlines()[2:]
+    elements = "".join(str(int(NAME_TO_ELEMENT[ln.split()[0]])) for ln in lines if ln)
+    return {
+        "supersteps": [
+            {k: r[k] for k in ("bias", "n_events", "cg_iterations", "kmc_time")}
+            for r in rows
+        ],
+        "final_elements": elements,
+    }
+
+
+def compare(golden: dict, got: dict, kmc_rtol: float) -> list:
+    """Mismatches of ``got`` against ``golden`` (empty when they agree):
+    superstep count, per-superstep bias and events and the final elements
+    exactly, KMC times to ``kmc_rtol``. CG iteration counts are not
+    compared: a last-ulp change of the reduction order may move them."""
+    bad = []
+    gs, hs = golden["supersteps"], got["supersteps"]
+    if len(gs) != len(hs):
+        bad.append(f"superstep count {len(hs)} != golden {len(gs)}")
+    for i, (g, h) in enumerate(zip(gs, hs)):
+        if g["bias"] != h["bias"] or g["n_events"] != h["n_events"]:
+            bad.append(f"superstep {i}: (bias, events) {h['bias'], h['n_events']} "
+                       f"!= golden {g['bias'], g['n_events']}")
+        if not math.isclose(h["kmc_time"], g["kmc_time"], rel_tol=kmc_rtol, abs_tol=0.0):
+            bad.append(f"superstep {i}: kmc_time {h['kmc_time']!r} != golden "
+                       f"{g['kmc_time']!r} (rtol {kmc_rtol})")
+    ge, he = golden["final_elements"], got["final_elements"]
+    if ge != he:
+        diff = sum(a != b for a, b in zip(ge, he)) + abs(len(ge) - len(he))
+        bad.append(f"final elements differ at {diff} of {len(ge)} sites")
+    return bad
+
+
+def load(path: str) -> dict:
+    """A record from a ``.json`` file, or summarized from a workdir."""
+    if os.path.isdir(path):
+        return summarize(path)
+    with open(path) as f:
+        return json.load(f)
+
+
+def distance(golden: dict, got: dict) -> dict:
+    gs, hs = golden["supersteps"], got["supersteps"]
+    rel = [abs(h["kmc_time"] - g["kmc_time"]) / abs(g["kmc_time"]) for g, h in zip(gs, hs)]
+    return {
+        "kmc_time_max_rel": max(rel) if rel else None,
+        "cg_iterations_differ": [
+            (i, g["cg_iterations"], h["cg_iterations"])
+            for i, (g, h) in enumerate(zip(gs, hs))
+            if g["cg_iterations"] != h["cg_iterations"]
+        ],
+        "mismatches": compare(golden, got, math.inf),
+    }
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3:
+        json.dump(distance(load(sys.argv[1]), load(sys.argv[2])), sys.stdout)
+    else:
+        json.dump(summarize(sys.argv[1]), sys.stdout, indent=1)
+    sys.stdout.write("\n")

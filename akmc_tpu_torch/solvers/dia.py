@@ -1,0 +1,172 @@
+"""DIA (diagonal-offset) K operator for grid-native structures.
+
+When the structure lives on a regular slot enumeration
+(models/crossbar.py::grid_stack), the index offset j - i of every K edge
+takes values in a small static set {o_1..o_D}, so the matvec decomposes by
+offset:
+
+    (K x)_i = diag_i x_i - sum_d w_d[i] x[i + o_d]
+
+The static part (low_G adjacency + metal-metal high_G upgrades) is stored as
+int8 codes per offset diagonal; the dynamic conductive-vacancy correction is
+a second masked sum over the same diagonals. Both run in one call of the
+combined matvec (ops/dia_matvec.py: the CUDA kernel on the card, its plain
+twin on the CPU) once per CG iteration. Reference semantics:
+background_potential_gpu_sparse, potential_solver_gpu.cu:846-1128.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from akmc_tpu_torch.lattice import ELEM
+from akmc_tpu_torch.ops.dia_matvec import dia_combined_matvec
+from akmc_tpu_torch.solvers.cg import CGResult, f64_vdot, jacobi_cg
+
+
+@dataclass
+class DiaK:
+    """Static pieces of the DIA-format K operator (site order = file order)."""
+
+    diags: torch.Tensor        # (D, N) int8 edge codes: 0 none, 1 low_G, 2 high_G
+    offsets: torch.Tensor      # (D,) int64 ascending offsets (the kernel's argument)
+    deg_static: torch.Tensor   # (N,) f64 static diagonal (all-neighbor G sums)
+    lsum: torch.Tensor         # (N,) f64 static left-contact row sums
+    rsum: torch.Tensor         # (N,) f64 static right-contact row sums
+    pos: torch.Tensor          # (N, 3) f64
+    active_row: torch.Tensor   # (N,) bool: row has any edge (null slots -> False)
+
+    def to(self, device: torch.device) -> "DiaK":
+        return DiaK(**{k: v.to(device) for k, v in vars(self).items()})
+
+
+class DiaMeta(NamedTuple):
+    offsets: Tuple[int, ...]   # the same offsets as Python ints
+    val_low: float = 0.0       # decode constants of the int8 codes
+    val_high: float = 0.0
+
+
+def make_dia(diags, deg_static, lsum, rsum, pos, active_row, offsets,
+             low_G, high_G) -> Tuple[DiaK, DiaMeta]:
+    """(DiaK, DiaMeta) on the CPU from host arrays."""
+    dia = DiaK(
+        diags=torch.tensor(np.asarray(diags, np.int8)),
+        offsets=torch.tensor(np.asarray(offsets, np.int64)),
+        deg_static=torch.tensor(np.asarray(deg_static, np.float64)),
+        lsum=torch.tensor(np.asarray(lsum, np.float64)),
+        rsum=torch.tensor(np.asarray(rsum, np.float64)),
+        pos=torch.tensor(np.asarray(pos, np.float64)),
+        active_row=torch.tensor(np.asarray(active_row, bool)),
+    )
+    meta = DiaMeta(
+        offsets=tuple(int(o) for o in offsets),
+        val_low=float(low_G), val_high=float(high_G),
+    )
+    return dia, meta
+
+
+def build_dia_k(
+    pos: np.ndarray,
+    k_neigh_idx: np.ndarray,
+    is_metal: np.ndarray,
+    num_atoms_first_layer: int,
+    high_G: float,
+    low_G: float,
+    max_diags: int = 160,
+) -> Optional[Tuple[DiaK, DiaMeta]]:
+    """Host-side construction from the K adjacency table. Returns None when
+    the structure's offset set is larger than ``max_diags`` (disordered
+    structures such as the 5 nm device, which use the banded operator)."""
+    n = pos.shape[0]
+    valid = k_neigh_idx >= 0
+    if not valid.any():
+        return None
+    rows_v, cols_v = np.nonzero(valid)
+    jc_v = k_neigh_idx[rows_v, cols_v].astype(np.int64)
+    offs_v = jc_v - rows_v
+    uniq = np.unique(offs_v)
+    if len(uniq) > max_diags:
+        return None
+
+    mm_v = is_metal[rows_v] & is_metal[jc_v]
+    vals_v = np.where(mm_v, high_G, low_G)
+
+    diags = np.zeros((len(uniq), n), np.int8)
+    d_idx = np.searchsorted(uniq, offs_v)
+    np.add.at(diags, (d_idx, rows_v), np.int8(1))
+    # no two edges may share a (row, offset) slot: code 2 is reserved for
+    # the metal-metal value
+    if int(diags.max()) > 1:
+        raise ValueError("duplicate (row, offset) edge in k_neigh_idx")
+    np.add.at(diags, (d_idx[mm_v], rows_v[mm_v]), np.int8(1))
+
+    deg_static = np.bincount(rows_v, weights=vals_v, minlength=n)
+    L = R = num_atoms_first_layer
+    in_left = jc_v < L
+    in_right = jc_v >= n - R
+    lsum = np.bincount(rows_v[in_left], weights=vals_v[in_left], minlength=n)
+    rsum = np.bincount(rows_v[in_right], weights=vals_v[in_right], minlength=n)
+    return make_dia(diags, deg_static, lsum, rsum, pos, valid.any(axis=1),
+                    uniq, low_G, high_G)
+
+
+def solve_potential_boundary_dia(
+    dia: DiaK,
+    meta: DiaMeta,
+    element: torch.Tensor,
+    charge: torch.Tensor,
+    potential_boundary_prev: torch.Tensor,
+    Vd: float,
+    high_G: float,
+    low_G: float,
+    num_atoms_first_layer: int,
+    rtol_coeff: float = 1e-14,
+    max_iterations: int = 10000,
+) -> Tuple[torch.Tensor, CGResult]:
+    """Boundary-potential K solve: same matrix entries, right-hand side,
+    zero-outside-interior start and CG stop rule as
+    ``akmc_tpu/solvers/dia.py::solve_potential_boundary_dia``. Each CG
+    iteration makes one combined-matvec call, and the solve one more for
+    the conductive-vacancy degrees."""
+    n = element.shape[0]
+    L = R = num_atoms_first_layer
+    n_int = n - L - R
+    dG = high_G - low_G
+    f64 = torch.float64
+
+    # conductive vacancies couple through the same nn_dist adjacency: the
+    # combined matvec's V half on the vacancy indicator counts each site's
+    # conductive-vacancy neighbours (one extra kernel launch per solve)
+    cvac = (element == int(ELEM.VACANCY)) & (charge == 0)
+    cv = cvac.to(f64)
+    vdeg = dia_combined_matvec(dia.diags, dia.offsets, meta.val_low, meta.val_high, cv, cv)[1]
+    diag = dia.deg_static + dG * torch.where(cvac, vdeg, 0.0)
+
+    idxs = torch.arange(n, device=element.device)
+    is_int = (idxs >= L) & (idxs < n - R) & dia.active_row
+
+    rhs = (dia.lsum * (-Vd / 2.0) + dia.rsum * (Vd / 2.0)) * is_int
+
+    # CG keeps every iterate exactly zero outside the interior (x0 and rhs
+    # are masked, A passes exterior rows through), so the masks fold into
+    # these once-per-solve vectors
+    diag_i = torch.where(is_int, diag, 1.0)
+    dgc = torch.where(cvac, torch.tensor(dG, dtype=f64, device=diag.device), 0.0)
+
+    def A(x):
+        xv = torch.where(cvac, x, 0.0)
+        mv, corr = dia_combined_matvec(
+            dia.diags, dia.offsets, meta.val_low, meta.val_high, x, xv
+        )
+        return torch.where(is_int, diag_i * x - mv - dgc * corr, x)
+
+    x0 = torch.where(is_int, potential_boundary_prev, 0.0)
+    inv_diag = torch.where(is_int, 1.0 / diag_i, 1.0)
+    res = jacobi_cg(
+        A, rhs, x0, inv_diag, rtol_coeff * n_int, max_iterations, dot_fn=f64_vdot
+    )
+    return torch.where(is_int, res.x, 0.0), res
