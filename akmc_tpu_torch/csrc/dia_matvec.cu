@@ -1,4 +1,4 @@
-// DIA (offset-diagonal) combined matvec of the boundary-potential K-CG,
+// DIA (offset-diagonal) combined matvec of the boundary-potential K solve,
 // written for Hopper (sm_90a).
 //
 // Replaces akmc_tpu/ops/pallas_dia.py::dia_combined_matvec_pallas (the TPU
@@ -7,17 +7,30 @@
 // edge):
 //     y_i = sum_{d: c_d[i] != 0} w(c_d[i]) * x[i + o_d],  w(1) = val_low, w(2) = val_high
 //     v_i = sum_{d: c_d[i] != 0} xv[i + o_d]
-// Columns i + o_d outside [0, N) contribute nothing.
+// Columns i + o_d outside [0, N) contribute nothing. The K solve calls it once
+// per solve for the conductive-vacancy degrees; the CG's own matvecs are fused
+// into dia_cg.cu, which computes the same sums in the same order.
 //
 // Design. The TPU kernel carried f64 as hi/lo f32 pairs with a twoSum chain
 // and clustered the offsets into sliding windows staged through VMEM; both
-// were TPU workarounds. Here f64 is native, and one thread owns one row
-// (grid-stride): for each d in ascending order it reads the code
-// diags[d*N + i] (consecutive threads read consecutive bytes: coalesced) and,
-// where the code is nonzero and the column is in range, x[i+o_d] and
-// xv[i+o_d] (consecutive threads again read consecutive addresses; the
-// windows of neighbouring offsets overlap and hit in L1/L2). No shared
-// memory, no windows, no padding.
+// were TPU workarounds. Here f64 is native, one thread owns one row, and a
+// bounds check on i + o_d replaces the padded buffer. The working set (codes
+// and four vectors, 3.76 MB at N = 58,752, D = 32) sits in L2 between calls,
+// and with one row per thread the card holds only N threads, a fraction of
+// what it can keep resident, so the kernel is bound by the latency of its
+// dependent loads, not by bytes: a first version that walked the diagonals
+// one by one (load a code, branch, load x, add) took 8.6 us on an H100, a
+// chain of 32 round trips to L2. What this design does about it:
+//  * a block of 128 rows stages its 32 x 128 tile of codes in shared memory
+//    with two 16-byte loads per thread (byte loads where N or the pointer is
+//    not 16-byte aligned, or at the ragged edge), and the group's offsets
+//    beside it, so no thread waits on a chain of code loads;
+//  * each thread packs its 32 codes into two masks (edge, high_G), then walks
+//    the set bits in ascending d, sixteen at a time: the gathers x[i+o_d]
+//    and xv[i+o_d] of sixteen edges are issued together (neighbouring rows
+//    read neighbouring addresses, and the windows of nearby offsets overlap
+//    in L1/L2), and only then the ordered adds run. A crossbar row has about
+//    9 edges among its 32 diagonals, so most rows need one round.
 //
 // Order of the sums. Each row adds w*x term by term in ascending d with
 // explicit round-to-nearest multiplies and adds, the order of the plain twin
@@ -27,24 +40,25 @@
 // its CG reacts to how W x is rounded: the factored form val_low*A +
 // val_high*B, which nvcc contracts into an FMA, moved one K solve of the
 // n_yz=24 crossbar sweep from 161 to 228 CG iterations and its potentials by
-// 11% (measured on an H100); the same form without the FMA, or this order,
-// stays within 1e-5 of the CPU.
+// 11% (measured on an H100). Hence the intrinsics, and -fmad=false for the
+// whole file.
 //
 // Bound. Per call the kernel must move D*N code bytes plus two f64 vectors
-// in and two out: at the crossbar's N = 58,752, D = 32 that is
-// 1.88 MB + 1.88 MB = 3.76 MB, about 1.1 us at 3.35 TB/s. The arithmetic
-// (2 flops per nonzero code) is far below the f64 rate, so the kernel is
-// bound by bytes, and at this size in practice by its launch. That is why
-// the simple design is enough for now: tiling the codes through shared
-// memory, fusing the CG's elementwise ops into the kernel, or capturing the
-// CG iteration in a CUDA graph is later work.
+// in and two out: 3.76 MB at the crossbar's size, about 1.1 us at 3.35 TB/s.
+// The arithmetic (2 flops per nonzero code) is far below the f64 rate, so the
+// bound is bytes, and it lies below what one launch of an empty kernel on
+// this grid takes (dia_empty_launch measures that floor).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void dia_combined_matvec_kernel(
+constexpr int kThreads = 128;  // rows per block
+constexpr int kGroup = 32;     // diagonals packed into one pair of masks
+constexpr int kGather = 16;    // edges whose gathers are in flight together
+
+__global__ void __launch_bounds__(kThreads) dia_combined_matvec_kernel(
     const int8_t* __restrict__ diags,      // (D, N) codes, row-major
     const int64_t* __restrict__ offsets,   // (D,) ascending offsets
     int D,
@@ -55,42 +69,136 @@ __global__ void dia_combined_matvec_kernel(
     double val_high,
     double* __restrict__ y,                // (N,) out
     double* __restrict__ v) {              // (N,) out
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < N; i += stride) {
+  __shared__ __align__(16) int8_t s_codes[kGroup * kThreads];
+  __shared__ int64_t s_off[kGroup];
+  __shared__ int64_t s_span[2];              // least and largest offset of the group (or 0)
+  const int t = threadIdx.x;
+  const bool aligned = (N & 15) == 0 && (reinterpret_cast<uintptr_t>(diags) & 15) == 0;
+  const int64_t tiles = (N + kThreads - 1) / kThreads;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t r0 = tile * kThreads;
+    const int64_t i = r0 + t;
     double acc = 0.0, s = 0.0;
-    for (int d = 0; d < D; ++d) {
-      const int8_t c = diags[static_cast<int64_t>(d) * N + i];
-      if (c == 0) continue;
-      const int64_t j = i + offsets[d];
-      if (j < 0 || j >= N) continue;
-      // explicit round-to-nearest multiply and add: no FMA contraction
-      acc = __dadd_rn(acc, __dmul_rn(c == 2 ? val_high : val_low, x[j]));
-      s = __dadd_rn(s, xv[j]);
+    for (int d0 = 0; d0 < D; d0 += kGroup) {
+      const int nd = D - d0 < kGroup ? D - d0 : kGroup;
+      // ---- stage the group's offsets and this tile's codes
+      if (t < 32) {                          // warp 0; kGroup is one warp wide
+        const int64_t o = t < nd ? offsets[d0 + t] : 0;
+        if (t < nd) s_off[t] = o;
+        long long lo = o, hi = o;
+#pragma unroll
+        for (int w = 16; w > 0; w >>= 1) {
+          const long long lo2 = __shfl_xor_sync(0xffffffffu, lo, w);
+          const long long hi2 = __shfl_xor_sync(0xffffffffu, hi, w);
+          lo = lo2 < lo ? lo2 : lo;
+          hi = hi2 > hi ? hi2 : hi;
+        }
+        if (t == 0) {
+          s_span[0] = lo;
+          s_span[1] = hi;
+        }
+      }
+      if (aligned && r0 + kThreads <= N) {
+        constexpr int kWords = kThreads / 16;          // 16-byte words per diagonal
+        uint4* dst = reinterpret_cast<uint4*>(s_codes);
+        for (int q = t; q < nd * kWords; q += kThreads) {
+          const int d = q / kWords, w = q % kWords;
+          dst[q] = *(reinterpret_cast<const uint4*>(
+                         diags + static_cast<int64_t>(d0 + d) * N + r0) + w);
+        }
+      } else {
+        for (int d = 0; d < nd; ++d)
+          s_codes[d * kThreads + t] =
+              i < N ? diags[static_cast<int64_t>(d0 + d) * N + i] : int8_t(0);
+      }
+      __syncthreads();
+      // ---- this row's edges of the group, as masks
+      // (a tile whose every column i + o_d lies in [0, N) skips the range checks)
+      const bool inside = r0 + s_span[0] >= 0 && r0 + kThreads - 1 + s_span[1] < N;
+      uint32_t edge = 0u, high = 0u;
+      if (i < N) {
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          if (u < nd) {
+            const int8_t c = s_codes[u * kThreads + t];
+            bool on = c != 0;
+            if (!inside) {
+              const int64_t j = i + s_off[u];
+              on = on && j >= 0 && j < N;
+            }
+            edge |= static_cast<uint32_t>(on) << u;
+            high |= static_cast<uint32_t>(c == 2) << u;   // read only where edge is set
+          }
+        }
+      }
+      // ---- set bits in ascending d, kGather gathers in flight, then the adds
+      while (edge != 0u) {
+        double gx[kGather], gv[kGather];
+        uint32_t m = edge;
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {
+          const bool on = m != 0u;
+          const int d = on ? __ffs(m) - 1 : 0;
+          m &= m - 1u;                       // clears the lowest set bit; 0 stays 0
+          gx[u] = on ? x[i + s_off[d]] : 0.0;
+          gv[u] = on ? xv[i + s_off[d]] : 0.0;
+        }
+#pragma unroll
+        for (int u = 0; u < kGather; ++u) {
+          if (edge != 0u) {
+            const int d = __ffs(edge) - 1;
+            edge &= edge - 1u;
+            // explicit round-to-nearest multiply and add: no FMA contraction
+            acc = __dadd_rn(acc, __dmul_rn(((high >> d) & 1u) ? val_high : val_low, gx[u]));
+            s = __dadd_rn(s, gv[u]);
+          }
+        }
+      }
+      __syncthreads();                       // the tile is staged again for the next group
     }
-    y[i] = acc;
-    v[i] = s;
+    if (i < N) {
+      y[i] = acc;
+      v[i] = s;
+    }
   }
+}
+
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
+unsigned grid_for(long long N) {
+  long long blocks = (N + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks > 65535 ? 65535 : blocks);   // grid-stride covers the rest
 }
 
 }  // namespace
 
+// The static operator, validated and filled in once by the wrapper.
+struct DiaOp {
+  const int8_t* diags;
+  const int64_t* offsets;
+  int D;
+  long long N;
+  double val_low, val_high;
+};
+
 // Launches on `stream` (a cudaStream_t passed as a pointer) and returns the
-// cudaGetLastError() code, 0 on success. Allocates nothing and does not
-// synchronise.
+// cudaGetLastError() code, 0 on success. y and v are the two halves of one
+// (2, N) output. Allocates nothing and does not synchronise.
 extern "C" int dia_combined_matvec_launch(
-    const void* diags, const void* offsets, int D, long long N,
-    const void* x, const void* xv, double val_low, double val_high,
-    void* y, void* v, void* stream) {
+    const DiaOp* op, const void* x, const void* xv, void* out, void* stream) {
+  if (op->N <= 0) return 0;
+  double* y = static_cast<double*>(out);
+  dia_combined_matvec_kernel<<<grid_for(op->N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      op->diags, op->offsets, op->D, static_cast<int64_t>(op->N),
+      static_cast<const double*>(x), static_cast<const double*>(xv),
+      op->val_low, op->val_high, y, y + op->N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel on the grid the matvec uses for N rows: the floor that a
+// single launch cannot go below, measured beside the matvec.
+extern "C" int dia_empty_launch(long long N, void* stream) {
   if (N <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (N + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;   // grid-stride covers the rest
-  dia_combined_matvec_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(diags), static_cast<const int64_t*>(offsets),
-      D, static_cast<int64_t>(N), static_cast<const double*>(x),
-      static_cast<const double*>(xv), val_low, val_high,
-      static_cast<double*>(y), static_cast<double*>(v));
+  empty_kernel<<<grid_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

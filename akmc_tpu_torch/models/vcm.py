@@ -2,8 +2,8 @@
 
 One KMC superstep (reference module sequence, kmc_main.cpp:328-540):
 
-    charge update -> K-system CG boundary potential (DIA operator, CUDA
-    matvec kernel) -> pairwise Coulomb potential (static table) ->
+    charge update -> K-system CG boundary potential (DIA operator, the
+    whole CG as one CUDA kernel) -> pairwise Coulomb potential (static table) ->
     potential sum -> rate table -> residence-time event loop
 
 ``VCMModel`` owns the static tables as tensors on its device;

@@ -4,7 +4,13 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into a shared library under ``build/akmc_tpu_torch/`` beside
 the package, keyed by a hash of the source, then loaded with ``ctypes``.
 Nothing is built at import time: the first launch builds (a few seconds),
-later launches reuse the loaded library.
+later launches reuse the loaded library. ``build`` compiles several sources
+at once, one ``nvcc`` each.
+
+``-fmad=false``: the kernels feed the K-system CG, whose trajectory reacts to
+the last bit of every product (see ``csrc/dia_matvec.cu``), so no multiply-add
+may be contracted behind the source's back; the sources also spell every
+rounding out with intrinsics.
 """
 
 from __future__ import annotations
@@ -15,14 +21,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "akmc_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",    # registers, shared memory and spills, kept in the build log
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -45,24 +52,41 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, out: Path) -> None:
-    """``nvcc`` on ``csrc/<name>.cu``; raises with the compiler's output."""
+def log_path(name: str) -> Path:
+    """What ``nvcc`` and ``ptxas -v`` printed when ``csrc/<name>.cu`` was built."""
+    return library_path(name).with_suffix(".log")
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` that has no library yet, all at the
+    same time; raises with the compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)     # atomic: concurrent builders never see a partial file
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in running:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{text}")
+            continue
+        log_path(name).write_text(text)
+        os.replace(tmp, out)     # atomic: concurrent builders never see a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        out = library_path(name)
-        if not out.exists():
-            _compile(name, out)
-        lib = ctypes.CDLL(str(out))
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

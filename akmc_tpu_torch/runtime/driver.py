@@ -168,7 +168,11 @@ def run(
         if snap_sel.all():
             snap_sel = slice(None)
 
+        snapshot_s = 0.0     # host time in the snapshots, device-to-host copies included
+
         def snapshot(path):
+            nonlocal snapshot_s
+            t_snap = time.perf_counter()
             write_xyz_snapshot(
                 path,
                 state.element.cpu().numpy()[snap_sel], lat.x[snap_sel],
@@ -176,8 +180,10 @@ def run(
                 state.potential_charge.cpu().numpy()[snap_sel],
                 state.power.cpu().numpy()[snap_sel],
             )
+            snapshot_s += time.perf_counter() - t_snap
 
         total_steps = 0
+        supersteps_s = 0.0
         t_code_start = time.perf_counter()
         visited_biases = set()
 
@@ -205,6 +211,7 @@ def run(
                 t0 = time.perf_counter()
                 state, stats = model.superstep(state, Vd, kmc_stream)
                 dt = time.perf_counter() - t0
+                supersteps_s += dt
 
                 kmc_time += stats["event_time"]
                 # one fused superstep: each module's timing line carries
@@ -245,6 +252,10 @@ def run(
     return {
         "total_steps": total_steps,
         "total_time_s": total_time,
+        # where the loop's time went: the supersteps, the xyz snapshots, and
+        # (the rest) the text log, the metrics file and the folders
+        "supersteps_s": supersteps_s,
+        "snapshot_s": snapshot_s,
         "final_kmc_time": float(state.kmc_time),
     }
 

@@ -1,0 +1,202 @@
+"""The whole Jacobi-CG of one boundary-potential K solve: the fused CUDA
+kernel (``csrc/dia_cg.cu``, one cooperative launch per solve) and its plain
+PyTorch twin.
+
+``dia_cg_solve(op, cvac, is_int, diag_i, dgc, inv_diag, rhs, x0, rtol, max_it)``
+is ``solvers/cg.py::jacobi_cg`` with the operator of ``solvers/dia.py``,
+
+    A(v) = is_int ? diag_i*v - W v - dgc*(adjacency (cvac ? v : 0)) : v,
+
+where ``W`` and ``adjacency`` are the two halves of the DIA combined matvec
+(``ops/dia_matvec.py``). ``akmc_tpu`` keeps this loop on the device
+(``lax.while_loop`` around ``akmc_tpu/ops/pallas_dia.py``'s kernel); on the
+card the port runs it as one kernel, with no host read per iteration.
+
+Kernel and twin agree bit for bit: the same products and sums in the same
+order, and the same order inside the dot products (``blocked_vdot`` below
+repeats the kernel's reduction tree). Dispatch is by the device of the
+tensors: CUDA tensors launch the kernel or raise, CPU tensors take the twin.
+There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from akmc_tpu_torch.ops import cuda_build
+from akmc_tpu_torch.ops.dia_matvec import (
+    DiaOperator,
+    current_raw_stream,
+    dia_combined_matvec_plain,
+    require_tensor,
+)
+from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg
+
+_KERNEL = "dia_cg"
+CHUNK = 256      # rows per first-level reduction: kChunk of csrc/dia_cg.cu
+_WARP = 32
+_ERRORS = {
+    -1: "more offset diagonals than the kernel stages",
+    -2: "the device does not support cooperative launches",
+    -3: "no block of the kernel can be resident on the device",
+    -4: "bad argument",
+}
+
+
+def _halve(t: torch.Tensor) -> torch.Tensor:
+    """Halving tree over the last axis (a power of two): t[i] += t[i + n/2]
+    until one value is left."""
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
+
+
+def _tree(t: torch.Tensor) -> torch.Tensor:
+    """(..., CHUNK) -> (...): the halving tree inside each run of 32 values,
+    then over the 8 run sums: a warp's shuffles, then the block's warp sums."""
+    return _halve(_halve(t.reshape(*t.shape[:-1], CHUNK // _WARP, _WARP)))
+
+
+def _chunked(t: torch.Tensor) -> torch.Tensor:
+    """(n,) -> (ceil(n / CHUNK), CHUNK), padded with +0.0."""
+    rows = -(-t.shape[0] // CHUNK)
+    return F.pad(t, (0, rows * CHUNK - t.shape[0])).reshape(rows, CHUNK)
+
+
+def blocked_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b in the fixed order of the fused kernel, which depends on the
+    length alone: rounded products; per chunk of 256 consecutive entries the
+    tree of ``_tree``; then, over the chunk sums laid out as rows of 256
+    (padded with +0.0), the rows added in ascending order and the same tree
+    over the 256 column sums."""
+    rows = _chunked(_tree(_chunked(a * b)))
+    acc = rows[0]
+    for m in range(1, rows.shape[0]):
+        acc = acc + rows[m]
+    return _tree(acc)
+
+
+def dia_cg_solve_plain(
+    op: DiaOperator,
+    cvac: torch.Tensor,
+    is_int: torch.Tensor,
+    diag_i: torch.Tensor,
+    dgc: torch.Tensor,
+    inv_diag: torch.Tensor,
+    rhs: torch.Tensor,
+    x0: torch.Tensor,
+    relative_tolerance: float,
+    max_iterations: int,
+) -> CGResult:
+    """Plain PyTorch twin on any device: the host-loop ``jacobi_cg`` over the
+    plain matvec with ``blocked_vdot``. It repeats the kernel bit for bit."""
+    offsets = op.offsets_list
+
+    def A(x):
+        xv = torch.where(cvac, x, 0.0)
+        mv, corr = dia_combined_matvec_plain(op.diags, offsets, op.val_low, op.val_high, x, xv)
+        return torch.where(is_int, diag_i * x - mv - dgc * corr, x)
+
+    return jacobi_cg(A, rhs, x0, inv_diag, relative_tolerance, max_iterations,
+                     dot_fn=blocked_vdot)
+
+
+def _launcher():
+    """The library's C entry point, built and typed on first use."""
+    lib = cuda_build.load(_KERNEL)
+    fn = lib.dia_cg_solve_launch
+    if fn.argtypes is None:
+        if lib.dia_cg_chunk() != CHUNK:
+            raise RuntimeError("csrc/dia_cg.cu and solvers/dia_cg.py disagree on the chunk size")
+        v, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
+        fn.argtypes = [v, v, i, ctypes.c_longlong, d, d, v, v, v, v, v, v, v, d, i,
+                       v, v, v, v, v, v, v, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
+    return fn
+
+
+_iteration_totals: Dict[int, torch.Tensor] = {}
+
+
+def _iterations_total(dev: torch.device) -> torch.Tensor:
+    """The device's running sum of iteration counts, which the kernel adds
+    to itself: a run can total its solves without a host read per solve."""
+    total = _iteration_totals.get(dev.index)
+    if total is None:
+        total = _iteration_totals[dev.index] = torch.zeros((), dtype=torch.int64, device=dev)
+    return total
+
+
+def dia_cg_solve(
+    op: DiaOperator,
+    cvac: torch.Tensor,       # (N,) bool: conductive vacancy
+    is_int: torch.Tensor,     # (N,) bool: interior row of the K system
+    diag_i: torch.Tensor,     # (N,) f64: K diagonal, 1 outside the interior
+    dgc: torch.Tensor,        # (N,) f64: high_G - low_G on conductive vacancies, else 0
+    inv_diag: torch.Tensor,   # (N,) f64: the Jacobi preconditioner
+    rhs: torch.Tensor,        # (N,) f64
+    x0: torch.Tensor,         # (N,) f64
+    relative_tolerance: float,
+    max_iterations: int,
+) -> CGResult:
+    """The solve in one kernel launch on CUDA tensors, the plain twin on CPU
+    tensors. On the card nothing is read back: ``iterations`` and
+    ``residual_sq`` of the result are 0-d tensors on the device."""
+    dev = op.device
+    if dev.type == "cpu":
+        return dia_cg_solve_plain(op, cvac, is_int, diag_i, dgc, inv_diag, rhs, x0,
+                                  relative_tolerance, max_iterations)
+    n = op.n
+    for name, t in (("cvac", cvac), ("is_int", is_int)):
+        require_tensor(name, t, torch.bool, (n,), dev)
+    for name, t in (("diag_i", diag_i), ("dgc", dgc), ("inv_diag", inv_diag),
+                    ("rhs", rhs), ("x0", x0)):
+        require_tensor(name, t, torch.float64, (n,), dev)
+    launch = _launcher()
+    chunks = -(-n // CHUNK)
+    out = torch.empty((2, n), dtype=torch.float64, device=dev)        # x, r
+    work = torch.empty(2 * n + 3 * chunks, dtype=torch.float64, device=dev)
+    iterations = torch.empty((), dtype=torch.int32, device=dev)
+    residual_sq = torch.empty((), dtype=torch.float64, device=dev)
+    info = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        err = launch(
+            op.diags.data_ptr(), op.offsets.data_ptr(), op.D, n, op.val_low, op.val_high,
+            cvac.data_ptr(), is_int.data_ptr(), diag_i.data_ptr(), dgc.data_ptr(),
+            inv_diag.data_ptr(), rhs.data_ptr(), x0.data_ptr(),
+            float(relative_tolerance) ** 2, int(max_iterations),
+            out[0].data_ptr(), out[1].data_ptr(), work.data_ptr(), iterations.data_ptr(),
+            residual_sq.data_ptr(), _iterations_total(dev).data_ptr(),
+            current_raw_stream(dev.index), info,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"dia_cg_solve kernel launch failed: {_ERRORS.get(err, f'CUDA error {err}')}"
+        )
+    dia_cg_solve.launches += 1
+    dia_cg_solve.last_grid = (info[0], bool(info[1]))
+    return CGResult(x=out[0], iterations=iterations, residual_sq=residual_sq, r=out[1])
+
+
+dia_cg_solve.launches = 0
+dia_cg_solve.last_grid = None    # (blocks, rows held in registers) of the last launch
+
+
+def _indexed(device) -> torch.device:
+    dev = torch.device(device)
+    return dev if dev.index is not None else torch.device(dev.type, torch.cuda.current_device())
+
+
+def iterations_total(device) -> int:
+    """Sum of the iteration counts of every fused solve on ``device`` since
+    ``reset_iterations_total`` (one host read)."""
+    return int(_iterations_total(_indexed(device)))
+
+
+def reset_iterations_total(device) -> None:
+    _iterations_total(_indexed(device)).zero_()

@@ -5,22 +5,38 @@
 Phases, each of which must pass (any failure exits non-zero before the last
 line is printed):
 
-1. build   the hand-written kernel from its source in ``akmc_tpu_torch/csrc``
-           (``nvcc`` for sm_90a, then loaded with ctypes);
+1. build   the hand-written kernels from their sources in
+           ``akmc_tpu_torch/csrc`` (one ``nvcc`` per source, started together,
+           for sm_90a; loaded with ctypes);
 2. kernels each kernel's wrapper on tensors on the card at the main path's
-           shapes, held against its plain PyTorch twin on the same inputs
-           (the DIA matvec: the n_yz=24 crossbar's operator, N = 58,752 and
-           D = 32, plus three random offset sets; bound 1e-12 relative to the
-           largest entry), then timed beside the twin and beside one PyTorch
-           sparse product computing the same function (a yardstick only);
+           shapes, held against its plain PyTorch twin on the same inputs.
+           ``dia_combined_matvec``: the n_yz=24 crossbar's operator
+           (N = 58,752, D = 32) plus three random offset sets, bit-equal (and
+           within 1e-12 of the largest entry), then timed beside the twin,
+           beside one PyTorch sparse product computing the same function (a
+           yardstick only) and beside an empty kernel on the same grid, with
+           the host side of a call split into its parts.
+           ``dia_cg_solve`` (the whole K-solve CG in one cooperative launch):
+           the crossbar's K system from a cold start at two of the deck's
+           biases, a warm start, a solve cut off by ``max_iterations``, and
+           two random symmetric systems (a small one with far offsets; one
+           with D = 36 > 32 and N = 300,000, which takes the kernel's general
+           case with several chunks per block): iteration count equal and
+           ``x``, ``r``, ``residual_sq`` bit-equal to ``dia_cg_solve_plain``;
+           then timed per solve and per iteration beside the host-loop CG
+           (``jacobi_cg`` over the kernel matvec, one host read per iteration)
+           and beside the same number of grid syncs with no work between them;
 3. sweep   the port's main path through its driver: the whole 15-point I-V
            sweep of ``decks/iv_sweep_5nm.txt`` on a synthesized grid-native
            crossbar at n_yz=24 (58,752 slots), with every launch counter set
-           to 0 just before and read just after. The DIA kernel must have run
-           once per CG matvec plus once per K solve (the conductive-vacancy
-           degrees), every superstep must be finite, and events,
+           to 0 just before and read just after. Each K solve must have
+           launched the fused CG once and the matvec once (the
+           conductive-vacancy degrees), the iterations the fused kernel
+           counted on the device must sum to the ``cg_iterations`` of
+           ``metrics.jsonl``, every superstep must be finite, and events,
            superstep count and final elements must equal the committed golden
-           of ``akmc_tpu`` on the same command; KMC times within GOLDEN_KMC_RTOL.
+           of ``akmc_tpu`` on the same command; KMC times within
+           GOLDEN_KMC_RTOL.
 
 Output: a ``kernels`` JSON line, a ``sweep`` JSON line, the card's name and
 power limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
@@ -46,14 +62,17 @@ DECK = os.path.join(HERE, "decks", "iv_sweep_5nm.txt")
 GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24.json")
 WORKDIR = os.path.join(HERE, "build", "chip_smoke", "iv_sweep_n24")
 N_YZ = 24
+KERNELS = ("dia_matvec", "dia_cg")
 MATVEC_RTOL = 1e-12
+CG_BIASES = (1.0, 8.0)           # the deck's first and highest bias
 # Each KMC time is an exponential of potentials the CG returns only to its
 # stop tolerance (rtol 1e-14 * n_int on a kappa ~ 1e8 system), so any change
 # of reduction order moves it: akmc_tpu's own f64 XLA and two-f32 Pallas
-# formulations are 2.8e-4 apart on this sweep. The port reads 5.7e-5 from
-# the golden on the H100 (bit-identical run to run) and 1.4e-4 on the CPU;
-# the bound sits above both and below akmc_tpu's own spread.
-GOLDEN_KMC_RTOL = 2e-4
+# formulations are 2.78e-4 apart on this sweep, and that spread is the bound.
+# The port reads 2.75e-4 from the golden on the H100 with the fused CG's
+# blocked dot products (bit-identical run to run); with torch.sum dots in a
+# host-loop CG it read 5.7e-5 on the card and 1.4e-4 on the CPU.
+GOLDEN_KMC_RTOL = 2.78e-4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 F64_FLOP_PER_S = 34e12           # H100 SXM, f64 outside the tensor cores
 
@@ -105,7 +124,8 @@ def device_ms(fn, reps: int = 200):
 
 
 def crossbar_dia(n_yz: int):
-    """The DIA operator the driver builds for the deck at ``n_yz``."""
+    """The DIA operator that ``runtime/driver.py`` builds for the deck at ``n_yz``, with the
+    parameters and the lattice it came from."""
     from akmc_tpu_torch.config import KMCParameters
     from akmc_tpu_torch.lattice import build_lattice, metal_mask
     from akmc_tpu_torch.models.crossbar import mask_null_slots, synthesize_deck_structure
@@ -123,7 +143,7 @@ def crossbar_dia(n_yz: int):
                         p.high_G, p.low_G)
     if built is None:
         fail(f"the n_yz={n_yz} crossbar has no DIA operator")
-    return built
+    return built[0], built[1], p, lat
 
 
 def library_product(diags, offsets, val_low, val_high, dev):
@@ -151,11 +171,25 @@ def library_product(diags, offsets, val_low, val_high, dev):
         ).to(dev)
 
 
-def check_dia_kernel(dev) -> dict:
+def host_us(fn, reps: int = 2000) -> float:
+    """Host time of one call of ``fn`` in microseconds (the device is idle
+    before and drained after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def check_dia_kernel(dev, dia, meta) -> dict:
+    import ctypes
+
+    from akmc_tpu_torch.ops import cuda_build
     from akmc_tpu_torch.ops import dia_matvec as mv
 
     rng = np.random.default_rng(2024)
-    dia, meta = crossbar_dia(N_YZ)
     diags, offsets = dia.diags.to(dev), dia.offsets.to(dev)
     D, n = diags.shape
     cases = [("n_yz=24 crossbar", diags, offsets, meta.val_low, meta.val_high)]
@@ -163,6 +197,7 @@ def check_dia_kernel(dev) -> dict:
         ("clustered", [-136, -129, -128, -127, -64, -9, -1, 1, 9, 64, 127, 128, 129, 136]),
         ("far", [-5000, -4999, -3, -1, 1, 3, 4999, 5000]),
         ("tight", [-2, -1, 1, 2]),
+        ("D=40", [o for o in range(-20, 21) if o]),      # more than one group of 32 diagonals
     ):
         c = np.where(rng.random((len(offs), 4000)) < 0.6, rng.integers(1, 3, (len(offs), 4000)), 0)
         cases.append((name, torch.tensor(c, dtype=torch.int8, device=dev),
@@ -202,9 +237,21 @@ def check_dia_kernel(dev) -> dict:
     lib_err = float((yl - torch.cat([y, v])).abs().max() / torch.cat([y, v]).abs().max())
     if lib_err > MATVEC_RTOL:
         fail(f"the library yardstick computes another function (rel err {lib_err:.3e})")
+    op = mv.DiaOperator(diags, offsets, meta.val_low, meta.val_high)
+    out = torch.empty((2, n), dtype=torch.float64, device=dev)
+    empty = cuda_build.load("dia_matvec").dia_empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_longlong, ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if empty(n, stream) != 0:
+        fail("the empty kernel did not launch")
     calls = {
+        # one call of the function: the operator is checked every time
         "kernel": lambda: mv.dia_combined_matvec(diags, offsets, meta.val_low,
                                                  meta.val_high, x, xv),
+        # the operator checked once, as the K solve holds it
+        "operator": lambda: op.matvec(x, xv),
+        "operator_out": lambda: op.matvec(x, xv, out=out),
+        "empty": lambda: empty(n, stream),
         "plain": lambda: mv.dia_combined_matvec_plain(diags, offs_list, meta.val_low,
                                                       meta.val_high, x, xv),
         "library": lambda: lib @ xcat,
@@ -212,6 +259,34 @@ def check_dia_kernel(dev) -> dict:
     call_ms = {k: cuda_time_ms(f, reps=50 if k == "plain" else 1000) for k, f in calls.items()}
     dev_ms = {k: device_ms(f) for k, f in calls.items()}
     times = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in calls}
+
+    def enter_device():
+        with torch.cuda.device(dev):
+            pass
+
+    # the host side of one operator call, part by part (microseconds)
+    op_arg, launch = op._op_ref, op._launch
+    px, pv, po = x.data_ptr(), xv.data_ptr(), out.data_ptr()
+    host_path_us = {
+        "check x and xv": host_us(lambda: (
+            mv.require_tensor("x", x, torch.float64, (n,), dev),
+            mv.require_tensor("xv", xv, torch.float64, (n,), dev))),
+        "torch.empty((2, N))": host_us(lambda: torch.empty((2, n), dtype=torch.float64,
+                                                           device=dev)),
+        "three data_ptr()": host_us(lambda: (x.data_ptr(), xv.data_ptr(), out.data_ptr())),
+        "current_device()": host_us(torch.cuda.current_device),
+        "current_stream().cuda_stream": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "with torch.cuda.device(dev)": host_us(enter_device),
+        "ctypes call + launch, matvec": host_us(lambda: launch(op_arg, px, pv, po, stream)),
+        "ctypes call + launch, empty kernel": host_us(lambda: empty(n, stream)),
+        "out.unbind(0)": host_us(lambda: out.unbind(0)),
+        "current_raw_stream()": host_us(lambda: mv.current_raw_stream(dev.index)),
+        "whole op.matvec(x, xv)": host_us(calls["operator"]),
+        "whole dia_combined_matvec(...)": host_us(calls["kernel"]),
+        "library: lib @ xcat": host_us(calls["library"]),
+    }
+    print("host_path_us " + json.dumps(host_path_us))
 
     nnz = int((diags != 0).sum())
     n_bytes = D * n + D * 8 + 2 * n * 8 + 2 * n * 8   # codes + offsets + x, xv in + y, v out
@@ -233,19 +308,216 @@ def check_dia_kernel(dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": times["library"],
         "library": "torch.sparse_csr_tensor @ vector, block-diagonal [[W, 0], [0, adjacency]]",
+        "empty_kernel_ms": times["empty"],     # the floor of one launch on this grid
         "time_source": "profiler device time" if dev_ms["kernel"] is not None else "CUDA events",
         "call_ms": call_ms,                    # back-to-back calls, host launch gaps included
+        "host_path_us": host_path_us,
         "shape": {"D": D, "N": n, "nnz": nnz, "bytes": n_bytes, "ops": n_ops},
     }
 
 
-def run_sweep() -> dict:
-    """The main path through the driver on the card."""
+def crossbar_state(p, lat, dev):
+    """Elements and charges of the crossbar as the first superstep's K solve
+    sees them."""
+    from akmc_tpu_torch.lattice import ELEM, metal_mask
+    from akmc_tpu_torch.ops.charge import update_charge_compact
+
+    element = torch.as_tensor(lat.element0, dtype=torch.int32, device=dev)
+    nbr = torch.as_tensor(lat.neigh_idx, dtype=torch.int64, device=dev)
+    is_metal = metal_mask(lat.element0, p.metals)
+    any_metal = torch.as_tensor(
+        (is_metal[np.clip(lat.neigh_idx, 0, None)] & (lat.neigh_idx >= 0)).any(axis=1), device=dev)
+    n_vac = int((lat.element0 == int(ELEM.VACANCY)).sum())
+    charge = update_charge_compact(element, torch.zeros_like(element), nbr, any_metal,
+                                   vmax=2 * n_vac + 256)
+    return element, charge
+
+
+def random_k_system(rng, n, positive_offsets, dev):
+    """A random symmetric, diagonally dominant system in the K solve's form:
+    (operator, KSystem). Edge (i, i+o) and its mirror carry the same code."""
+    from akmc_tpu_torch.ops.dia_matvec import DiaOperator
+    from akmc_tpu_torch.solvers.dia import KSystem
+
+    offs = sorted([-o for o in positive_offsets] + list(positive_offsets))
+    codes = np.zeros((len(offs), n), np.int8)
+    for o in positive_offsets:
+        c = np.where(rng.random(n - o) < 0.5, rng.integers(1, 3, n - o), 0)
+        codes[offs.index(o), : n - o] = c
+        codes[offs.index(-o), o:] = c
+    lo, hi = 1e-3, 1.0
+    op = DiaOperator(torch.tensor(codes, device=dev),
+                     torch.tensor(offs, dtype=torch.int64, device=dev), lo, hi)
+    cvac = torch.tensor(rng.random(n) < 0.05, device=dev)
+    cv = cvac.to(torch.float64)
+    deg, vdeg = op.matvec(torch.ones(n, dtype=torch.float64, device=dev), cv)
+    idx = torch.arange(n, device=dev)
+    is_int = (idx >= 100) & (idx < n - 100)
+    diag_i = torch.where(is_int, deg + (hi - lo) * torch.where(cvac, vdeg, 0.0) + 0.05, 1.0)
+    dgc = torch.where(cvac, torch.tensor(hi - lo, dtype=torch.float64, device=dev), 0.0)
+    rhs = torch.tensor(rng.standard_normal(n), device=dev) * is_int
+    x0 = torch.tensor(rng.standard_normal(n), device=dev) * is_int
+    return op, KSystem(cvac=cvac, is_int=is_int, diag_i=diag_i, dgc=dgc,
+                       inv_diag=torch.where(is_int, 1.0 / diag_i, 1.0), rhs=rhs, x0=x0)
+
+
+def check_dia_cg(dev, dia, meta, p, lat) -> dict:
+    import ctypes
+
+    from akmc_tpu_torch.ops import cuda_build
+    from akmc_tpu_torch.ops.dia_matvec import dia_combined_matvec
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers.cg import f64_vdot, jacobi_cg
+    from akmc_tpu_torch.solvers.dia import k_system
+
+    rng = np.random.default_rng(7)
+    dia = dia.to(dev)
+    op = dia.operator(meta)
+    n, D = op.n, op.D
+    element, charge = crossbar_state(p, lat, dev)
+    geom = (p.high_G, p.low_G, p.num_atoms_first_layer)
+    rtol = 1e-14 * (n - 2 * p.num_atoms_first_layer)     # the K solve's stop tolerance
+    zeros = torch.zeros(n, dtype=torch.float64, device=dev)
+
+    def compare(name, op_c, ks, tol, max_it, want_regs):
+        got = dia_cg.dia_cg_solve(op_c, *ks, tol, max_it)
+        blocks, regs = dia_cg.dia_cg_solve.last_grid
+        torch.cuda.synchronize()
+        ref = dia_cg.dia_cg_solve_plain(op_c, *ks, tol, max_it)
+        k = int(got.iterations)
+        if regs != want_regs:
+            fail(f"dia_cg_solve on {name}: rows in registers = {regs}, expected {want_regs}")
+        if k != ref.iterations:
+            fail(f"dia_cg_solve on {name}: {k} iterations, twin {ref.iterations}")
+        err = float((got.x - ref.x).abs().max())
+        same = (torch.equal(got.x, ref.x) and torch.equal(got.r, ref.r)
+                and torch.equal(got.residual_sq, ref.residual_sq))
+        if not same or not math.isfinite(err):
+            fail(f"dia_cg_solve is not bit-equal to its twin on {name}: max |x - x_twin| "
+                 f"{err:.3e}, max |r - r_twin| {float((got.r - ref.r).abs().max()):.3e}")
+        print(f"chip_smoke: dia_cg_solve == twin on {name} (D={op_c.D}, N={op_c.n}, "
+              f"{k} iterations, {blocks} blocks, rows in registers: {regs})")
+        return got, k, blocks
+
+    systems = {Vd: k_system(dia, meta, element, charge, zeros, Vd, *geom) for Vd in CG_BIASES}
+    cold = {Vd: compare(f"n_yz={N_YZ} crossbar, cold, Vd={Vd}", op, ks, rtol, 10000, True)
+            for Vd, ks in systems.items()}
+    warm_ks = k_system(dia, meta, element, charge, cold[CG_BIASES[0]][0].x, 2.0, *geom)
+    compare(f"n_yz={N_YZ} crossbar, warm from Vd={CG_BIASES[0]}, Vd=2.0", op, warm_ks,
+            rtol, 10000, True)
+    _, k_cut, _ = compare(f"n_yz={N_YZ} crossbar, max_iterations=10", op,
+                          systems[CG_BIASES[0]], rtol, 10, True)
+    if k_cut != 11:
+        fail(f"a solve cut at max_iterations=10 must return k=11, got {k_cut}")
+    compare("random, far offsets", *random_k_system(rng, 4000, [1, 3, 1999, 2000], dev),
+            1e-10, 500, True)
+    big = [1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610, 987, 1597, 2584, 150000]
+    compare("random, D=36, several chunks per block", *random_k_system(rng, 300_000, big, dev),
+            1e-10, 500, False)
+
+    # timing on the first cold solve of the sweep's operator
+    Vd = CG_BIASES[0]
+    ks, (_, k, blocks) = systems[Vd], cold[Vd]
+
+    def fused():
+        return dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
+
+    def host_loop():
+        """The K-CG as it ran before the fused kernel: one matvec launch,
+        about a dozen small PyTorch kernels and one host read per iteration."""
+        def A(v):
+            mv, corr = dia_combined_matvec(op.diags, op.offsets, op.val_low, op.val_high,
+                                           v, torch.where(ks.cvac, v, 0.0))
+            return torch.where(ks.is_int, ks.diag_i * v - mv - ks.dgc * corr, v)
+        return jacobi_cg(A, ks.rhs, ks.x0, ks.inv_diag, rtol, 10000, dot_fn=f64_vdot)
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, res
+
+    call_ms = cuda_time_ms(fused, reps=20, warmup=2)
+    dev_ms = device_ms(fused, reps=20)
+    host_ms, host_res = wall_ms(host_loop, 2)
+    plain_ms, _ = wall_ms(lambda: dia_cg.dia_cg_solve_plain(op, *ks, rtol, 10000), 1)
+    ms = dev_ms if dev_ms is not None else call_ms
+    one_it_ms = cuda_time_ms(lambda: dia_cg.dia_cg_solve(op, *ks, rtol, 0), reps=200)
+
+    # the floor under an iteration: grid syncs alone on the solve's grid, the
+    # difference of a long and an empty run of them
+    sync_floor = cuda_build.load("dia_cg").dia_cg_sync_floor_launch
+    sync_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    sync_floor.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def syncs_only(count):
+        if sync_floor(blocks, count, stream) != 0:
+            fail("the grid-sync kernel did not launch")
+
+    n_syncs = 3 * k
+    sync_ms = (cuda_time_ms(lambda: syncs_only(n_syncs), reps=20, warmup=2)
+               - cuda_time_ms(lambda: syncs_only(0), reps=20, warmup=2)) / n_syncs
+
+    nnz = int((op.diags != 0).sum())
+    cv_f = ks.cvac.to(torch.float64)
+    nnz_cv = int(op.matvec(cv_f, cv_f)[1].sum())      # edges into a conductive vacancy
+    # in: codes, offsets, two masks, five vectors; out: x and r
+    n_bytes = D * n + D * 8 + 2 * n + 5 * n * 8 + 2 * n * 8
+    # A is applied k times (2 flops per edge, 1 per conductive-vacancy edge, 4
+    # per row), and each of the k - 1 iterations adds 11 flops per row
+    n_ops = k * (2 * nnz + nnz_cv + 4 * n) + (k - 1) * 11 * n
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F64_FLOP_PER_S * 1e3
+    # what an iteration streams if nothing stays on the chip: the codes, two
+    # masks, and eleven passes over f64 vectors
+    iter_bytes = D * n + 2 * n + 11 * n * 8
+    return {
+        "name": "dia_cg_solve",
+        "route": "cuda",
+        "source": "akmc_tpu_torch/csrc/dia_cg.cu",
+        "replaces": "akmc_tpu/ops/pallas_dia.py:196",
+        "launches": None,                      # filled in from the sweep
+        "max_abs_err": 0.0,
+        "bitwise_equal_to_twin": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "library": None,                       # no single PyTorch call computes a CG
+        "host_loop_ms": host_ms,               # jacobi_cg over the kernel matvec, same inputs
+        "host_loop_iterations": host_res.iterations,
+        "iterations": k,
+        "ms_per_iteration": ms / k,
+        "host_loop_ms_per_iteration": host_ms / host_res.iterations,
+        "iteration_bytes_bound_ms": iter_bytes / HBM_BYTES_PER_S * 1e3,
+        "call_ms": call_ms,                    # back-to-back solves, wrapper included
+        "launch_only_call_ms": one_it_ms,      # max_iterations=0: start, two dots, no iteration
+        "grid_blocks": blocks,
+        "grid_syncs_per_iteration": 3,
+        "grid_sync_ms": sync_ms,               # one sync of this grid with no work around it
+        "time_source": "profiler device time" if dev_ms is not None else "CUDA events",
+        "timed_case": f"n_yz={N_YZ} crossbar, cold start, Vd={Vd}",
+        "shape": {"D": D, "N": n, "nnz": nnz, "nnz_into_cvac": nnz_cv, "bytes": n_bytes,
+                  "ops": n_ops, "iteration_bytes": iter_bytes},
+    }
+
+
+def run_sweep():
+    """The main path through ``runtime.driver.run`` on the card: (sweep line, what is
+    wrong with it or None)."""
     from akmc_tpu_torch.ops import dia_matvec as mv
     from akmc_tpu_torch.runtime import driver, golden
+    from akmc_tpu_torch.solvers import dia_cg
 
     shutil.rmtree(WORKDIR, ignore_errors=True)
     mv.dia_combined_matvec.launches = 0
+    dia_cg.dia_cg_solve.launches = 0
+    dia_cg.reset_iterations_total("cuda")
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as syncs:
         warnings.simplefilter("always")
@@ -258,17 +530,23 @@ def run_sweep() -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = mv.dia_combined_matvec.launches
+    cg_launches = dia_cg.dia_cg_solve.launches
+    cg_counted = dia_cg.iterations_total("cuda")
     n_syncs = sum("synchroniz" in str(w.message) for w in syncs)
 
     with open(os.path.join(WORKDIR, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f if line.strip()]
     cg = sum(r["cg_iterations"] for r in rows)
     # one K solve per superstep (the q/v caps never grow on this sweep; a
-    # growth would redo the solve): one launch per CG matvec plus the
-    # solve's conductive-vacancy degree product
-    expected = cg + len(rows)
-    if launches != expected:
-        fail(f"DIA kernel launches {launches} != CG matvecs {cg} + K solves {len(rows)}")
+    # growth would redo the solve): one launch of the fused CG per solve, one
+    # of the matvec for the solve's conductive-vacancy degrees, and the
+    # iterations the kernel counted on the device are those in metrics.jsonl
+    if cg_launches != len(rows):
+        fail(f"dia_cg_solve launches {cg_launches} != K solves {len(rows)}")
+    if launches != len(rows):
+        fail(f"dia_combined_matvec launches {launches} != K solves {len(rows)}")
+    if cg_counted != cg:
+        fail(f"the fused solves counted {cg_counted} iterations, metrics.jsonl {cg}")
     for r in rows:
         if not all(math.isfinite(r[k]) for k in ("kmc_time", "event_time", "superstep_s")):
             fail(f"non-finite superstep: {r}")
@@ -286,21 +564,30 @@ def run_sweep() -> dict:
         "supersteps": len(rows), "events": sum(r["n_events"] for r in rows),
         "cg_iterations": cg, "cg_iterations_golden": sum(g["cg_iterations"] for g in gold["supersteps"]),
         "cg_iterations_differ_from_golden": dist["cg_iterations_differ"],
-        "dia_launches": launches,
+        "dia_launches": launches, "dia_cg_launches": cg_launches,
+        "cg_iterations_counted_on_device": cg_counted,
         "wall_s": wall_s, "driver_total_s": summary["total_time_s"],
+        # the sweep loop's time: supersteps, xyz snapshots, and the rest (log,
+        # metrics file, folders)
+        "driver_supersteps_s": summary["supersteps_s"],
+        "driver_snapshot_s": summary["snapshot_s"],
+        "driver_other_s": summary["total_time_s"] - summary["supersteps_s"] - summary["snapshot_s"],
         "superstep_s": [r["superstep_s"] for r in rows],
         "cg_per_superstep": [r["cg_iterations"] for r in rows],
         "kmc_time": [r["kmc_time"] for r in rows],
-        "host_syncs": n_syncs,
+        "host_syncs": n_syncs, "host_syncs_per_superstep": n_syncs / len(rows),
         "kmc_time_max_rel_vs_golden": dist["kmc_time_max_rel"],
         "golden_kmc_rtol": GOLDEN_KMC_RTOL,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    if bad or not pot_ok:
-        print("sweep " + json.dumps(sweep))
-        fail("sweep disagrees with the golden: " + "; ".join(bad[:10])
-             if bad else "non-finite potentials in the final snapshot")
-    return sweep
+    with open(WORKDIR + ".record.json", "w") as f:
+        json.dump(got, f)       # for ``python -m akmc_tpu_torch.runtime.golden A B``
+    problem = None
+    if bad:
+        problem = "sweep disagrees with the golden: " + "; ".join(bad[:10])
+    elif not pot_ok:
+        problem = "non-finite potentials in the final snapshot"
+    return sweep, problem
 
 
 def _final_potentials_finite(workdir: str) -> bool:
@@ -317,23 +604,34 @@ def main() -> int:
     import_port()
     from akmc_tpu_torch.ops import cuda_build
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    cuda_build.load("dia_matvec")
-    print(f"chip_smoke: built and loaded dia_matvec in {time.perf_counter() - t0:.1f} s")
+    cuda_build.build(KERNELS)
+    for name in KERNELS:
+        cuda_build.load(name)
+        for line in cuda_build.log_path(name).read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"chip_smoke: {name}: {line.strip()}")
+    print(f"chip_smoke: built and loaded {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
 
-    kern = check_dia_kernel(dev)
+    dia, meta, p, lat = crossbar_dia(N_YZ)
+    kern = check_dia_kernel(dev, dia, meta)
+    kern_cg = check_dia_cg(dev, dia, meta, p, lat)
     torch.cuda.reset_peak_memory_stats()
-    sweep = run_sweep()
+    sweep, problem = run_sweep()
     kern["launches"] = sweep["dia_launches"]
-    kern["launches_per_superstep"] = sweep["dia_launches"] / sweep["supersteps"]
+    kern_cg["launches"] = sweep["dia_cg_launches"]
+    for k in (kern, kern_cg):
+        k["launches_per_superstep"] = k["launches"] / sweep["supersteps"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": [kern, kern_cg]}))
     print("sweep " + json.dumps(sweep))
+    if problem:
+        fail(problem)
     print(smi[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

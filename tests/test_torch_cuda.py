@@ -73,3 +73,69 @@ def test_dia_kernel_refuses_what_it_does_not_take(card):
             mv.dia_combined_matvec(d, o, lo, hi, bad, x)
     with pytest.raises(ValueError):
         mv.dia_combined_matvec(d.cpu(), o, lo, hi, x, x)
+
+
+@pytest.mark.cuda
+def test_dia_operator_writes_into_a_given_output(card):
+    _, diags, offsets, lo, hi = next(_cases())
+    n = diags.shape[1]
+    op = mv.DiaOperator(diags.to(card), offsets.to(card), lo, hi)
+    x = torch.tensor(np.random.default_rng(2).standard_normal(n), device=card)
+    out = torch.empty((2, n), dtype=torch.float64, device=card)
+    y, v = op.matvec(x, x, out=out)
+    y0, v0 = mv.dia_combined_matvec(diags, offsets, lo, hi, x.cpu(), x.cpu())
+    assert y.data_ptr() == out.data_ptr()
+    assert torch.equal(y.cpu(), y0) and torch.equal(v.cpu(), v0)
+    with pytest.raises(ValueError):
+        op.matvec(x, x, out=out[:, :-1])
+
+
+def _k_solve_inputs(dev):
+    """The toy crossbar's K system at Vd = 5 from a zero start, on ``dev``."""
+    from akmc_tpu_torch.solvers.dia import k_system
+
+    p, lat = build_grid_crossbar(n_yz=6, contact_slices=2, oxide_slices=6, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    dia, meta = build_dia_k(np.stack([lat.x, lat.y, lat.z], 1), lat.k_neigh_idx,
+                            metal_mask(lat.element0, p.metals), p.num_atoms_first_layer,
+                            p.high_G, p.low_G)
+    dia = dia.to(dev)
+    element = torch.as_tensor(lat.element0, dtype=torch.int32, device=dev)
+    ks = k_system(dia, meta, element, torch.zeros_like(element),
+                  torch.zeros(lat.N, dtype=torch.float64, device=dev), 5.0,
+                  p.high_G, p.low_G, p.num_atoms_first_layer)
+    return dia.operator(meta), ks, 1e-14 * (lat.N - 2 * p.num_atoms_first_layer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iterations", [10000, 5, 0])
+def test_fused_cg_matches_twin(card, max_iterations):
+    from akmc_tpu_torch.solvers import dia_cg
+
+    op, ks, rtol = _k_solve_inputs(card)
+    before = dia_cg.dia_cg_solve.launches
+    got = dia_cg.dia_cg_solve(op, *ks, rtol, max_iterations)
+    torch.cuda.synchronize()
+    assert dia_cg.dia_cg_solve.launches == before + 1
+    ref = dia_cg.dia_cg_solve_plain(op, *ks, rtol, max_iterations)
+    # same products, sums and reduction trees in the same order: equal bit for bit
+    assert int(got.iterations) == ref.iterations
+    assert torch.equal(got.x, ref.x) and torch.equal(got.r, ref.r)
+    assert torch.equal(got.residual_sq, ref.residual_sq)
+
+
+@pytest.mark.cuda
+def test_fused_cg_refuses_what_it_does_not_take(card):
+    from akmc_tpu_torch.solvers import dia_cg
+
+    op, ks, rtol = _k_solve_inputs(card)
+    n = op.n
+    for field, bad in (
+        ("rhs", ks.rhs.cpu()),                                        # another device
+        ("rhs", ks.rhs.float()),                                      # another type
+        ("cvac", ks.cvac.to(torch.uint8)),
+        ("x0", ks.x0[:-1]),                                           # another shape
+        ("inv_diag", torch.ones(2 * n, dtype=torch.float64, device=card)[::2]),   # strided
+    ):
+        with pytest.raises(ValueError):
+            dia_cg.dia_cg_solve(op, *ks._replace(**{field: bad}), rtol, 100)
