@@ -16,6 +16,8 @@ import torch
 from akmc_tpu_torch.config import KMCParameters, Layer
 from akmc_tpu_torch.lattice import Lattice
 from akmc_tpu_torch.models.vcm import StaticTables
+from akmc_tpu_torch.ops.pairwise import PairTiling
+from akmc_tpu_torch.solvers.banded import BandedK, BandMeta, KCarry
 from akmc_tpu_torch.solvers.dia import make_dia
 from akmc_tpu_torch.state import DeviceState
 
@@ -83,14 +85,31 @@ def dia(d, meta, device="cpu"):
     return dk.to(torch.device(device)), dm
 
 
+def banded(bk, meta, device="cpu"):
+    """(BandedK, BandMeta) from akmc_tpu's BandedK NamedTuple and BandMeta."""
+    out = BandedK(**{name: tensor(getattr(bk, name), device) for name in bk._fields})
+    return out, BandMeta(*meta)
+
+
+def k_carry(c, device="cpu") -> KCarry:
+    """KCarry from akmc_tpu's (the residual of a previous banded solve)."""
+    return KCarry(*(tensor(a, device) for a in c))
+
+
+def pair_tiling(t, device="cpu") -> PairTiling:
+    return PairTiling(*(tensor(a, device) for a in t))
+
+
 def tables(t, device="cpu") -> StaticTables:
-    """StaticTables from akmc_tpu's (full-f64 pair table storage)."""
-    if t.pair_gT is None or t.pair_gT.full is None:
+    """StaticTables from akmc_tpu's (full-f64 pair table storage, or none)."""
+    if t.pair_gT is not None and t.pair_gT.full is None:
         raise ValueError("only the full-f64 static pair table carries across")
     return StaticTables(
         pos=tensor(t.pos, device),
         neigh_idx=tensor(t.neigh_idx, device),
+        k_neigh_idx=tensor(t.k_neigh_idx, device),
         any_metal_nbr=tensor(t.any_metal_nbr, device),
+        metal_edge=tensor(t.metal_edge, device),
         E_gen=tensor(t.E_gen, device),
         E_rec=tensor(t.E_rec, device),
         E_Vdiff=tensor(t.E_Vdiff, device),
@@ -101,5 +120,6 @@ def tables(t, device="cpu") -> StaticTables:
         act_self2=tensor(t.act_self2, device),
         act_layer=tensor(t.act_layer, device),
         act_zero_rows=tensor(t.act_zero_rows, device),
-        pair_table=tensor(t.pair_gT.full, device),
+        pair_table=None if t.pair_gT is None else tensor(t.pair_gT.full, device),
+        pair_tiling=None if t.pair_tiling is None else pair_tiling(t.pair_tiling, device),
     )

@@ -10,8 +10,9 @@ Reference behavior reproduced exactly (same rules as ``akmc_tpu.lattice``):
     NON-PBC Euclidean distance < nn_dist, -1 padded
     (neighbor_lists_gpu.cu:55-78).
 
-Open boundaries only: a deck with ``pbc = 1`` raises (ROADMAP queue 1,
-"the banded and ELL K operators with the 5 nm main path").
+With ``pbc = 1`` the K sparsity wraps y/z (``build_k_adjacency``,
+iterative_solvers_gpu.cu:96-124) while the event and pairwise tables never do
+(kmc_events.cu:154-155): the asymmetry is the reference's and is kept.
 """
 
 from __future__ import annotations
@@ -113,30 +114,70 @@ def translate_cell(x, y, z, lattice: Sequence[float], shifts: Sequence[float]):
     return center_coords(*out, dims)
 
 
+def site_dist(
+    p1: np.ndarray, p2: np.ndarray, lattice: Sequence[float], pbc: bool
+) -> np.ndarray:
+    """Distance between position rows, PBC in y/z only (utils.cpp:100-174).
+
+    p1: (..., 3), p2: (..., 3) broadcastable.
+    """
+    d = p1 - p2
+    if pbc:
+        dy = d[..., 1] / lattice[1]
+        dy = (dy - np.round(dy)) * lattice[1]
+        dz = d[..., 2] / lattice[2]
+        dz = (dz - np.round(dz)) * lattice[2]
+        return np.sqrt(d[..., 0] ** 2 + dy**2 + dz**2)
+    return np.sqrt((d**2).sum(-1))
+
+
+def _candidate_pairs(pos, radius, lattice, pbc) -> np.ndarray:
+    """(M, 2) index pairs i < j that can lie within ``radius``: a superset
+    from a k-d tree, periodic in y/z when ``pbc``."""
+    if not pbc:
+        return cKDTree(pos).query_pairs(radius, output_type="ndarray")
+    # the periodic tree wants every coordinate in [0, box): wrap y and z,
+    # and give the open x axis a box no pair can reach across
+    w = np.array(pos, dtype=np.float64)
+    w[:, 0] -= w[:, 0].min()
+    box = np.array([2.0 * w[:, 0].max() + 4.0 * radius + 1.0, lattice[1], lattice[2]])
+    w[:, 1:] = np.mod(w[:, 1:], box[1:])
+    w[w >= box] = 0.0
+    return cKDTree(w, boxsize=box).query_pairs(radius, output_type="ndarray")
+
+
 def build_neighbor_list(
     pos: np.ndarray,
     nn_dist: float,
     max_num_neighbors: int,
+    lattice: Optional[Sequence[float]] = None,
+    pbc: bool = False,
     strict: bool = True,
 ) -> np.ndarray:
     """Padded neighbor table: for each site i, ascending indices j != i with
-    dist(i, j) < nn_dist (non-PBC), -1 padded to ``max_num_neighbors``.
+    dist(i, j) < nn_dist, -1 padded to ``max_num_neighbors``. The reference's
+    neighbor kernel uses the non-PBC distance: pass ``pbc=False`` for parity
+    (populate_neighbor_list, neighbor_lists_gpu.cu:55-78).
 
     Candidate pairs come from a k-d tree searched slightly beyond nn_dist;
     each is then kept by the reference's own distance expression
-    (``sqrt(sum((p_i - p_j)**2))``, evaluated in the same order), so the table
-    equals the exhaustive blocked scan of ``akmc_tpu.lattice`` entry for
-    entry at a fraction of its host time.
+    (``site_dist``, evaluated in the same order), so the table equals the
+    exhaustive blocked scan of ``akmc_tpu.lattice`` entry for entry at a
+    fraction of its host time.
 
     ``strict=True`` raises if any site exceeds ``max_num_neighbors`` (the
     reference silently truncates — pass strict=False to reproduce that).
     """
     n = pos.shape[0]
-    pairs = cKDTree(pos).query_pairs(nn_dist * (1.0 + 1e-9), output_type="ndarray")
+    lat = lattice if lattice is not None else (0.0, 1.0, 1.0)
+    pairs = _candidate_pairs(pos, nn_dist * (1.0 + 1e-9), lat, pbc)
     a, b = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
-    d = pos[a] - pos[b]
-    keep = np.sqrt((d**2).sum(-1)) < nn_dist
+    # the expression is even in p_i - p_j (np.round is odd), so one test
+    # decides both directions
+    keep = site_dist(pos[a], pos[b], lat, pbc) < nn_dist
     a, b = a[keep], b[keep]
+    rows = np.concatenate([a, b])
+    cols = np.concatenate([b, a])
     rows = np.concatenate([a, b])
     cols = np.concatenate([b, a])
     order = np.lexsort((cols, rows))
@@ -156,6 +197,21 @@ def build_neighbor_list(
     return out
 
 
+def build_k_adjacency(
+    pos: np.ndarray,
+    nn_dist: float,
+    max_num_neighbors: int,
+    lattice: Sequence[float],
+    pbc: bool,
+) -> np.ndarray:
+    """Neighbor table for the K matrix sparsity, PBC-aware distance
+    (calc_nnz_per_row, iterative_solvers_gpu.cu:96-124). Ascending j order =
+    ascending CSR column order, so matrix-free row sums reproduce the
+    reference's CSR accumulation order. Identical to build_neighbor_list when
+    pbc=False."""
+    return build_neighbor_list(pos, nn_dist, max_num_neighbors, lattice, pbc)
+
+
 @dataclass
 class Lattice:
     """Static geometry + connectivity of a device (immutable during a run)."""
@@ -168,7 +224,7 @@ class Lattice:
     pbc: bool
     nn_dist: float
     neigh_idx: np.ndarray           # (N, NN) neighbor table (non-PBC dist)
-    k_neigh_idx: np.ndarray         # (N, NN) table for the K sparsity
+    k_neigh_idx: np.ndarray         # (N, NN) PBC-aware table for the K sparsity
     site_layer: np.ndarray          # (N,) layer id per site
     # grid-native descriptor (n_yz, nx_total, a) for structures on the
     # two-sublattice slot enumeration (models/crossbar.py)
@@ -207,17 +263,18 @@ def build_lattice(
     """Construct connectivity. ``precomputed_lists``: (neigh_idx,
     k_neigh_idx) from a structure-aware generator (the grid-native crossbar
     builds them analytically — models/crossbar.py::grid_neighbor_list)."""
-    if params.pbc:
-        raise NotImplementedError(
-            "pbc = 1 (PBC-aware K adjacency) is not ported yet: ROADMAP "
-            "queue 1, 'the banded and ELL K operators with the 5 nm main path'"
-        )
     if precomputed_lists is not None:
         neigh_idx, k_neigh_idx = precomputed_lists
     else:
         pos = np.stack([x, y, z], axis=1)
         neigh_idx = build_neighbor_list(pos, params.nn_dist, params.max_num_neighbors)
-        k_neigh_idx = neigh_idx          # open boundaries: same table
+        if params.pbc:
+            k_neigh_idx = build_k_adjacency(
+                pos, params.nn_dist, params.max_num_neighbors,
+                np.asarray(params.lattice, dtype=np.float64), True,
+            )
+        else:
+            k_neigh_idx = neigh_idx      # open boundaries: same table
     return Lattice(
         element0=element.astype(np.int32),
         x=np.asarray(x, np.float64),

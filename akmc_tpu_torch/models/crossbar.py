@@ -1,17 +1,116 @@
-"""Grid-native crossbar structures (TiN | HfO2 | Ti | TiN stacks on a
-two-sublattice slot enumeration) and their analytic neighbor list and DIA
-K operator — the host-side generators of ``akmc_tpu/models/crossbar.py``.
+"""Structure generators — the host-side generators of
+``akmc_tpu/models/crossbar.py``.
 
-The reference's crossbar decks ship without their structure files, so the
-driver's ``--synthesize-crossbar N_YZ`` builds a stand-in stack from the
-deck's parameters (``synthesize_deck_structure``).
+* ``tile_device`` tiles any device cell periodically in y/z;
+  ``synthetic_stack`` builds a disordered TiN | HfO2 | Ti | TiN stack with
+  prescribed slice counts (its defaults are the 5 nm device's).
+* Grid-native crossbar structures (the same stack on a two-sublattice slot
+  enumeration) with their analytic neighbor list and DIA K operator. The
+  reference's crossbar decks ship without their structure files, so the
+  driver's ``--synthesize-crossbar N_YZ`` builds a stand-in stack from the
+  deck's parameters (``synthesize_deck_structure``).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from akmc_tpu_torch.lattice import ELEM
+
+
+def tile_device(
+    element: np.ndarray,
+    x: np.ndarray,
+    y: np.ndarray,
+    z: np.ndarray,
+    unit_lattice: Tuple[float, float, float],
+    ny: int,
+    nz: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Tile a unit device ny x nz times along y/z.
+
+    Returns (element, x, y, z, lattice), sites in lexicographic (x, y, z)
+    order.
+    """
+    ey, ez = unit_lattice[1], unit_lattice[2]
+    shifts = [(iy * ey, iz * ez) for iy in range(ny) for iz in range(nz)]
+    e_out = np.concatenate([element] * len(shifts))
+    x_out = np.concatenate([x] * len(shifts))
+    y_out = np.concatenate([y + sy for sy, _ in shifts])
+    z_out = np.concatenate([z + sz for _, sz in shifts])
+    order = np.lexsort((z_out, y_out, x_out))
+    lattice = np.array([unit_lattice[0], ny * ey, nz * ez])
+    return e_out[order], x_out[order], y_out[order], z_out[order], lattice
+
+
+def synthetic_stack(
+    n_yz: int = 24,
+    a: float = 2.131255,
+    contact_slices: int = 10,
+    oxide_slices: int = 20,
+    ti_slices: int = 8,
+    vacancy_defect_fraction: float = 0.3,
+    seed: int = 0,
+):
+    """Generate a TiN | HfO2 | Ti | TiN stack on a simple lattice.
+
+    x-slice layout (matching the 5 nm device's element profile):
+      contact_slices of alternating Ti/N  |  oxide_slices of Hf+O (+ DEFECT
+      interstitial sites at cell centers, a random subset per slice)  |
+      ti_slices of Ti  |  contact_slices of alternating Ti/N.
+
+    Returns (element, x, y, z, lattice, params_patch) where params_patch
+    holds num_atoms_first_layer / num_layers_contact / lattice consistent
+    with the structure. One ``RandomState(seed).choice`` per oxide slice, in
+    slice order, as ``akmc_tpu`` draws them.
+    """
+    rng = np.random.RandomState(seed)
+    nx_total = 2 * contact_slices + oxide_slices + ti_slices
+    iy, iz = (g.ravel() for g in np.meshgrid(np.arange(n_yz), np.arange(n_yz), indexing="ij"))
+    elems, xs, ys, zs = [], [], [], []
+
+    def add_slice(e, ix, jy, jz, off=0.0):
+        elems.append(np.broadcast_to(np.asarray(e, np.int32), jy.shape))
+        xs.append(np.full(jy.shape, ix * a + off))
+        ys.append(jy * a + off)
+        zs.append(jz * a + off)
+
+    def checker(odd, even, s):
+        return np.where((iy + iz + s) % 2, int(odd), int(even))
+
+    x_cursor = 0
+    for s in range(contact_slices):                      # left contact
+        add_slice(checker(ELEM.Ti, ELEM.N, s), x_cursor, iy, iz)
+        x_cursor += 1
+    n_def = int(vacancy_defect_fraction * n_yz * n_yz)
+    for s in range(oxide_slices):                        # Hf + O rocksalt
+        add_slice(checker(ELEM.Hf, ELEM.O, s), x_cursor, iy, iz)
+        # interstitial DEFECT sites at cell centers (sparse random subset)
+        picks = rng.choice(n_yz * n_yz, n_def, replace=False)
+        add_slice(int(ELEM.DEFECT), x_cursor, picks // n_yz, picks % n_yz, off=a / 2)
+        x_cursor += 1
+    for s in range(ti_slices):                           # Ti scavenging layer
+        add_slice(int(ELEM.Ti), x_cursor, iy, iz)
+        x_cursor += 1
+    for s in range(contact_slices):                      # right contact
+        add_slice(checker(ELEM.Ti, ELEM.N, s), x_cursor, iy, iz)
+        x_cursor += 1
+
+    e, x, y, z = (np.concatenate(v) for v in (elems, xs, ys, zs))
+    order = np.lexsort((z, y, x))
+    e, x, y, z = e[order].astype(np.int32), x[order], y[order], z[order]
+
+    lattice = np.array([nx_total * a, n_yz * a, n_yz * a])
+    params_patch = dict(
+        lattice=list(lattice),
+        num_atoms_first_layer=n_yz * n_yz,
+        num_layers_contact=contact_slices,
+        num_atoms_contact=contact_slices * n_yz * n_yz,
+        metals=["Ti", "N"],
+    )
+    return e, x, y, z, lattice, params_patch
 
 
 def grid_stack(

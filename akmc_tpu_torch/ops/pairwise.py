@@ -1,5 +1,4 @@
-"""Pairwise screened-Coulomb potential of the charged defects, from a
-static interaction table.
+"""Pairwise screened-Coulomb potential of the charged defects.
 
 Reference: poisson_gridless_gpu / calculate_pairwise_interaction_indexed
 (potential_solver_gpu.cu:1525-1655):
@@ -7,23 +6,93 @@ Reference: poisson_gridless_gpu / calculate_pairwise_interaction_indexed
     potential[i] = sum_{j within cutoff, j != i, charge_j != 0}
                    charge_j * erfc(d_ij / (sigma*sqrt(2))) * k * e / d_ij
 
-with d_ij = 1e-10 * the non-PBC Euclidean distance. Charged sites are always
-drawn from the static possibly-charged (active) class and positions never
-change, so the kernel g(d_iq) is tabulated once for every (active site q,
-site i) pair; each superstep then gathers the rows of the charged sites and
-takes one multiply-reduce (``akmc_tpu/ops/pairwise.py``, full f64 storage).
+with d_ij = 1e-10 * the non-PBC Euclidean distance. The summand is nonzero
+only for currently charged sites, so every path sums over a compacted
+charged-site list of at most ``qmax`` entries (``compact_mask``; an overflow
+flag tells the caller to grow the cap). Three paths, the same pair set and
+per-pair operations in each (``akmc_tpu/ops/pairwise.py``):
+
+* ``pairwise_potential_table``: charged sites are always drawn from the
+  static possibly-charged (active) class and positions never change, so the
+  kernel g(d_iq) is tabulated once for every (active site q, site i) pair
+  (full f64 storage); each superstep gathers the rows of the charged sites
+  and takes one multiply-reduce.
+* ``pairwise_potential_tiled``: for structures whose table does not fit.
+  Sites are binned into cubic tiles; per solve each tile gets a compacted
+  list of the charged sites within reach (cutoff + tile circumradius) and
+  the erfc plane shrinks from (N, qmax) to (T, S, C).
+* ``pairwise_potential``: the on-the-fly (N, qmax) plane, row-blocked.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from akmc_tpu_torch.ops.compact import compact_mask
 
 Q_E = 1.60217663e-19
+
+
+class PairTiling(NamedTuple):
+    """Static spatial tiling for the tiled pairwise solve."""
+
+    tile_sites: torch.Tensor    # (T, S) int64 site ids, -1 pad
+    pos_tiles: torch.Tensor     # (T, S, 3) f64 site positions (pad -> 1e30)
+    tile_center: torch.Tensor   # (T, 3) f64 tile centers
+
+    def to(self, device) -> "PairTiling":
+        return PairTiling(*(t.to(device) for t in self))
+
+
+def _charged_list(pos, charge, qmax):
+    """The compacted charged-site list every path sums over:
+    (q_idx, valid, positions (Q, 3), charges (Q,) as f64, overflow flag)."""
+    charged = charge != 0
+    q_idx, qv = compact_mask(charged, qmax)
+    qi = q_idx.clamp(min=0)
+    q_val = torch.where(qv, charge[qi], 0).to(pos.dtype)
+    return q_idx, qv, pos[qi], q_val, charged.sum() > qmax
+
+
+def pairwise_potential(
+    pos: torch.Tensor,         # (N, 3) f64 [Angstrom]
+    charge: torch.Tensor,      # (N,) int32
+    cutoff_radius: float,      # [Angstrom]
+    sigma: float,              # [m]
+    k: float,                  # [N m^2 / C^2]
+    qmax: int = 2048,
+    row_block: Optional[int] = None,
+    plane_budget: int = 512 * 1024 * 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """On-the-fly solve. Returns ((N,) potential [V], overflow flag).
+
+    Rows are independent, so any partition into row blocks gives the same
+    values; planes past ``plane_budget`` bytes are cut into blocks of 4096
+    rows."""
+    n = pos.shape[0]
+    if row_block is None:
+        row_block = n if n * qmax * 8 <= plane_budget else 4096
+    q_idx, qv, q_pos, q_val, overflow = _charged_list(pos, charge, qmax)
+
+    inv_sig = 1.0 / (sigma * math.sqrt(2.0))
+    cut2 = cutoff_radius * cutoff_radius
+    kq = k * Q_E
+    rows = torch.arange(n, device=pos.device)
+    out = torch.empty(n, dtype=pos.dtype, device=pos.device)
+    for s in range(0, n, row_block):
+        r = rows[s : s + row_block]
+        # exact difference-based d^2 (same rounding class as the reference's
+        # site_dist_gpu)
+        d2 = torch.sum((pos[r][:, None, :] - q_pos[None, :, :]) ** 2, dim=-1)
+        valid = (d2 < cut2) & (r[:, None] != q_idx[None, :]) & qv[None, :]
+        d = 1e-10 * torch.sqrt(torch.where(valid, d2, 1.0))
+        v = q_val[None, :] * torch.special.erfc(d * inv_sig) * kq / d
+        out[s : s + row_block] = torch.sum(torch.where(valid, v, 0.0), dim=1)
+    return out, overflow
 
 
 def build_pair_table(
@@ -82,3 +151,169 @@ def pairwise_potential_table(
     rows = table[cols]                                   # (Q, N) contiguous rows
     pot = torch.sum(rows.T * q_val[None, :], dim=1)      # (N, Q) -> (N,)
     return pot, charged.sum() > qmax
+
+
+def build_pair_tiling(
+    pos: np.ndarray,           # (N, 3) f64 [Angstrom], host
+    cutoff_radius: float,
+    tile_edge: Optional[float] = None,
+) -> Tuple[PairTiling, float]:
+    """Host-side tile construction (tensors on the CPU). Returns (tiling,
+    r_tile) where r_tile is the tile circumradius."""
+    h = float(tile_edge if tile_edge is not None else cutoff_radius)
+    mins = pos.min(axis=0)
+    idx3 = np.floor((pos - mins) / h).astype(np.int64)
+    dims = idx3.max(axis=0) + 1
+    tid = (idx3[:, 0] * dims[1] + idx3[:, 1]) * dims[2] + idx3[:, 2]
+    uniq, inv = np.unique(tid, return_inverse=True)
+    T = len(uniq)
+    order = np.argsort(inv, kind="stable")
+    counts = np.bincount(inv, minlength=T)
+    S = int(counts.max())
+    tile_sites = np.full((T, S), -1, np.int64)
+    col = np.concatenate([np.arange(c) for c in counts])
+    tile_sites[inv[order], col] = order
+    pos_tiles = np.where(
+        (tile_sites >= 0)[:, :, None], pos[tile_sites.clip(0)], 1e30
+    )
+    # centers of the occupied tiles, in the same grid frame
+    t3 = np.stack(
+        [uniq // (dims[1] * dims[2]), (uniq // dims[2]) % dims[1], uniq % dims[2]],
+        axis=1,
+    )
+    centers = mins[None, :] + (t3 + 0.5) * h
+    r_tile = h * float(np.sqrt(3.0)) / 2.0
+    return (
+        PairTiling(
+            tile_sites=torch.from_numpy(tile_sites),
+            pos_tiles=torch.from_numpy(pos_tiles),
+            tile_center=torch.from_numpy(centers),
+        ),
+        r_tile,
+    )
+
+
+def tile_candidates(
+    tiling: PairTiling,
+    r_tile: float,
+    q_pos: torch.Tensor,       # (Q, 3) f64 positions of the charged list
+    qv: torch.Tensor,          # (Q,) bool valid entries of the charged list
+    cutoff_radius: float,
+    cand_cap: int,
+    plane_budget: int = 512 * 1024 * 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per tile, the first ``cand_cap`` entries of the charged list within
+    reach of the tile: (selected (T, C) bool, list positions (T, C) int64,
+    overflow flag). Candidates keep the list's order: it is the summation
+    order of the plane, and what makes any two devices agree.
+
+    The filter runs in f32, blocked over tile chunks. It selects only: the
+    reach is padded against rounding proportionally to the coordinate
+    magnitude, the exact f64 ``d2 < cutoff^2`` test still runs in the
+    compute plane, and over-inclusion is harmless."""
+    T = tiling.tile_center.shape[0]
+    f32 = torch.float32
+    dev = q_pos.device
+    cen32 = tiling.tile_center.to(f32)
+    qp32 = q_pos.to(f32)
+    coord_scale = torch.max(torch.abs(cen32))
+    pad = torch.tensor(1e-3, dtype=f32, device=dev) + 64.0 * torch.tensor(
+        1.2e-7, dtype=f32, device=dev) * coord_scale
+    reach = (torch.tensor(cutoff_radius + r_tile, dtype=f32, device=dev) + pad) ** 2
+    fblk = max(1, min(T, plane_budget // max(1, 4 * qv.shape[0])))
+    sel, cand, cnt = [], [], []
+    for s in range(0, T, fblk):
+        cen_b = cen32[s : s + fblk]
+        d2c = torch.sum((cen_b[:, None, :] - qp32[None, :, :]) ** 2, dim=-1)
+        mask = (d2c < reach) & qv[None, :]
+        # in-reach entries first, each group in ascending list position: a
+        # stable sort, because top-k selection does not keep ties in order
+        ci = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices[:, :cand_cap]
+        sel.append(torch.gather(mask, 1, ci))
+        cand.append(ci)
+        cnt.append(mask.sum(dim=1))
+    return torch.cat(sel), torch.cat(cand), torch.cat(cnt).max() > cand_cap
+
+
+def pairwise_potential_tiled(
+    tiling: PairTiling,
+    r_tile: float,             # tile circumradius [Angstrom]
+    pos: torch.Tensor,         # (N, 3) f64 (charged-site position source)
+    charge: torch.Tensor,      # (N,) int32
+    cutoff_radius: float,
+    sigma: float,
+    k: float,
+    qmax: int,
+    cand_cap: int,             # per-tile candidate cap (grown by the caller
+    #                            on overflow like qmax)
+    tile_block: Optional[int] = None,
+    plane_budget: int = 512 * 1024 * 1024,
+    plane_f32: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns ((N,) potential, q_overflow, cand_overflow).
+
+    Same pair set as ``pairwise_potential`` (the extra tile filter only
+    removes pairs beyond the cutoff); per-site summation order follows the
+    per-tile candidate list instead of the global charged list, so values
+    agree to summation-order reassociation.
+
+    ``plane_f32``: evaluate the (B, S, C) distance/erfc plane in f32; the f64
+    path stays the default and the oracle. Error model: coordinates are exact
+    in f32 to ~1e-5 relative, the difference-first d2 has no cancellation,
+    and the per-site sum over <= C terms lands ~1e-6 relative on the
+    potential. The in-cutoff membership test also rounds in f32, so a pair
+    within ~1e-5 relative of the cutoff shell may classify differently from
+    the f64 path: a real pair-set difference, not just rounding."""
+    n = pos.shape[0]
+    dt = pos.dtype
+    T, S = tiling.tile_sites.shape
+    # a tile can never hold more than qmax candidates (the list has qmax
+    # slots); at cand_cap == qmax overflow is impossible
+    cand_cap = min(cand_cap, qmax)
+
+    q_idx, qv, q_pos, q_val, q_overflow = _charged_list(pos, charge, qmax)
+    sel, candq, cand_overflow = tile_candidates(
+        tiling, r_tile, q_pos, qv, cutoff_radius, cand_cap, plane_budget
+    )
+    pdt = torch.float32 if plane_f32 else dt
+    q_posc = q_pos.to(pdt)[candq]                                   # (T, C, 3)
+    q_valc = torch.where(sel, q_val[candq], 0.0).to(pdt)
+    q_sitec = torch.where(sel, q_idx[candq], -1)                    # absolute site ids
+
+    if tile_block is None:
+        tile_block = (
+            T if T * S * cand_cap * 8 <= plane_budget
+            else max(1, plane_budget // (S * cand_cap * 8))
+        )
+    dev = pos.device
+    cut2_p = torch.tensor(cutoff_radius * cutoff_radius, dtype=dt, device=dev).to(pdt)
+    inv_sig_p = torch.tensor(1.0 / (sigma * math.sqrt(2.0)), dtype=pdt, device=dev)
+    kq_p = torch.tensor(k * Q_E, dtype=pdt, device=dev)
+    ang = torch.tensor(1e-10, dtype=pdt, device=dev)
+    one = torch.ones((), dtype=pdt, device=dev)
+    zero = torch.zeros((), dtype=pdt, device=dev)
+    pos_tiles = tiling.pos_tiles.to(pdt)
+
+    vals = torch.empty((T, S), dtype=dt, device=dev)
+    for s in range(0, T, tile_block):
+        b = slice(s, s + tile_block)
+        ts, qs = tiling.tile_sites[b], q_sitec[b]
+        d2 = torch.sum(
+            (pos_tiles[b][:, :, None, :] - q_posc[b][:, None, :, :]) ** 2, dim=-1
+        )                                                           # (B, S, C)
+        valid = (
+            (d2 < cut2_p)
+            & (ts[:, :, None] != qs[:, None, :])
+            & (qs[:, None, :] >= 0)
+        )
+        d = ang * torch.sqrt(torch.where(valid, d2, one))
+        v = q_valc[b][:, None, :] * torch.special.erfc(d * inv_sig_p) * kq_p / d
+        vals[b] = torch.sum(torch.where(valid, v, zero), dim=2).to(dt)
+
+    # every site lies in exactly one tile slot and pad slots add exact zeros
+    # at index 0, so the scatter-add has one order only
+    pot = torch.zeros(n, dtype=dt, device=dev).index_add_(
+        0, tiling.tile_sites.clamp(min=0).reshape(-1),
+        torch.where(tiling.tile_sites >= 0, vals, 0.0).reshape(-1),
+    )
+    return pot, q_overflow, cand_overflow

@@ -7,7 +7,12 @@ plot_IV.py:26-38, extract_data.py:17-31), byte for byte the same lines as
 
 Usage:
     python -m akmc_tpu_torch.runtime.driver <parameters.txt> \
-        [--synthesize-crossbar N_YZ] [--workdir DIR] [--device cuda|cpu]
+        [--synthesize-crossbar N_YZ] [--pair-f32] [--workdir DIR] [--device cuda|cpu]
+
+Without ``--synthesize-crossbar`` the deck's structure files are read
+(``restart_xyz_file``, or the atom and interstitial files), with ``pbc = 1``
+decks included; the model then picks the K operator and the pairwise path the
+structure supports (models/vcm.py).
 """
 
 from __future__ import annotations
@@ -43,7 +48,6 @@ _NOT_PORTED = {
     "concern_split": (None, "torch.distributed scale-out"),
     "checkpoint_every": (0, "checkpoints"),
     "resume_from": (None, "checkpoints"),
-    "pair_f32": (False, "pairwise_potential and the tiled pairwise path"),
     "wkb_f32": (False, "full physics"),
     "warmup": (False, "an on-device event/CG loop"),
 }
@@ -98,6 +102,7 @@ def run(
     rate_normalize: Optional[bool] = None,
     dia_stacked: bool = False,
     dia_pallas: bool = False,
+    pair_f32: bool = False,
     device=None,
     **not_ported,
 ) -> dict:
@@ -106,7 +111,8 @@ def run(
 
     ``dia_stacked`` / ``dia_pallas`` are accepted for command-line parity
     with akmc_tpu and select nothing: the port has one f64 DIA matvec (the
-    CUDA kernel on the card, its plain twin on the CPU). The other options
+    CUDA kernel on the card, its plain twin on the CPU). ``pair_f32``: the
+    tiled pairwise plane in f32 (large structures only). The other options
     of akmc_tpu's ``run`` raise NotImplementedError unless left off."""
     del dia_stacked, dia_pallas
     device = resolve_device(device)
@@ -159,7 +165,8 @@ def run(
         if rate_normalize is None:
             # shifted-exponent rates at high bias, as akmc_tpu's driver selects
             rate_normalize = bool(p.V_switch) and max(abs(v) for v in p.V_switch) >= 8.0
-        model = VCMModel(p, lat, device=device, rate_normalize=rate_normalize)
+        model = VCMModel(p, lat, device=device, rate_normalize=rate_normalize,
+                         pair_f32=pair_f32)
         state = make_device_state(lat, p.background_temp, model.device)
         kmc_stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
 
@@ -257,6 +264,7 @@ def run(
         "supersteps_s": supersteps_s,
         "snapshot_s": snapshot_s,
         "final_kmc_time": float(state.kmc_time),
+        "model": model.describe(),
     }
 
 
@@ -283,6 +291,9 @@ def main(argv=None):
                          "(one f64 DIA matvec: the CUDA kernel)")
     ap.add_argument("--dia-stacked", action="store_true",
                     help="accepted for parity with akmc_tpu; selects nothing")
+    ap.add_argument("--pair-f32", action="store_true",
+                    help="evaluate the tiled-pairwise plane in f32 (large "
+                         "structures; the f64 plane is the default)")
     ap.add_argument("--full-physics", action="store_true", help="not ported yet")
     # akmc_tpu options this port does not run yet: accepted, and refused
     # with the ROADMAP item that ports them
@@ -293,7 +304,6 @@ def main(argv=None):
     ap.add_argument("--concern-split", default=None, help="not ported yet")
     ap.add_argument("--checkpoint-every", type=int, default=0, help="not ported yet")
     ap.add_argument("--resume-from", default=None, help="not ported yet")
-    ap.add_argument("--pair-f32", action="store_true", help="not ported yet")
     ap.add_argument("--wkb-f32", action="store_true", help="not ported yet")
     ap.add_argument("--warmup", action="store_true", help="not ported yet")
     args = ap.parse_args(argv)
@@ -305,6 +315,7 @@ def main(argv=None):
         synthesize_crossbar=args.synthesize_crossbar,
         dia_stacked=args.dia_stacked,
         dia_pallas=args.dia_pallas,
+        pair_f32=args.pair_f32,
         device=args.device,
         **{name: getattr(args, name) for name in _NOT_PORTED},
     )

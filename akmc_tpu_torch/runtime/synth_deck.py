@@ -1,0 +1,77 @@
+"""A disordered 5 nm-sized stand-in deck, written from this package's own
+generator.
+
+The 5 nm device's structure file is not in the repository;
+``models/crossbar.py::synthetic_stack`` with its defaults (n_yz=24, 10
+contact / 20 oxide / 8 Ti / 10 contact slices, the numbers of
+``decks/iv_sweep_5nm.txt``) stands in for it: N = 31,088, no DIA form, a
+narrow band. ``write_synth_deck`` writes
+
+    <workdir>/synth5nm_n<N_YZ>.xyz   the stack, x shifted by -10 a so that
+                                     ``config.default_layers()`` covers it
+    <workdir>/deck.txt               the template deck with ``restart_xyz_file``
+                                     pointing at that file and the generator's
+                                     lattice and contact counts
+
+byte for byte as ``tools/synth5nm_deck.py`` writes them from ``akmc_tpu``, so
+both drivers run the same sweep from the same files:
+
+    python -m akmc_tpu_torch.runtime.synth_deck W [--n-yz 24]
+    python -m akmc_tpu_torch.runtime.driver W/deck.txt --workdir W/out
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+
+import numpy as np
+
+from akmc_tpu_torch.lattice import write_xyz_snapshot
+from akmc_tpu_torch.models.crossbar import synthetic_stack
+
+SHIFT_SLICES = 10
+
+
+def write_synth_deck(template: str, workdir: str, n_yz: int = 24) -> str:
+    """Write the xyz file and the deck into ``workdir``; returns the deck's
+    path. ``template`` is the deck to copy (``decks/iv_sweep_5nm.txt``)."""
+    a = 2.131255
+    element, x, y, z, lattice, patch = synthetic_stack(n_yz=n_yz, a=a)
+    x = x - SHIFT_SLICES * a
+    os.makedirs(workdir, exist_ok=True)
+    xyz_name = f"synth5nm_n{n_yz}.xyz"
+    zeros = np.zeros(len(element))
+    write_xyz_snapshot(os.path.join(workdir, xyz_name), element, x, y, z, zeros, zeros)
+
+    values = {
+        "restart_xyz_file": xyz_name,
+        "lattice": " ".join(f"{float(v):.10g}" for v in lattice),
+        "num_atoms_first_layer": str(patch["num_atoms_first_layer"]),
+        "num_layers_contact": str(patch["num_layers_contact"]),
+        "num_atoms_contact": str(patch["num_atoms_contact"]),
+    }
+    with open(template) as f:
+        text = f.read()
+    for key, value in values.items():
+        text, n = re.subn(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
+        if n != 1:
+            raise ValueError(f"the template deck must set {key!r} exactly once")
+    deck = os.path.join(workdir, "deck.txt")
+    with open(deck, "w") as f:
+        f.write(text)
+    return deck
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="write the disordered stand-in deck")
+    ap.add_argument("workdir")
+    ap.add_argument("--n-yz", type=int, default=24)
+    ap.add_argument("--template", default=os.path.join("decks", "iv_sweep_5nm.txt"))
+    args = ap.parse_args(argv)
+    print(write_synth_deck(args.template, args.workdir, args.n_yz))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""Boundary-potential (K system) solve over the ELL neighbor table: the
+matrix-free fallback for structures with neither a DIA nor a banded form.
+
+Reference: background_potential_gpu_sparse (potential_solver_gpu.cu:846-1128),
+as ``akmc_tpu/solvers/poisson.py`` realizes it.
+
+The Kirchhoff network over the interface sites (everything except the first /
+last contact slice of ``num_atoms_first_layer`` sites):
+
+    A_ii = sum_j G_ij   (over ALL neighbors j, incl. contact slices)
+    A_ij = -G_ij        (j an interface neighbor)
+    rhs_i = Lsum_i * VL + Rsum_i * VR,  VL = -Vd/2, VR = +Vd/2
+            (calc_rhs_for_A, potential_solver_gpu.cu:438-454; the committed
+             solve stores the sign-flipped potential — kept as-is for parity)
+
+with edge conductances (calc_off_diagonal_dist, potential_solver_gpu.cu:246):
+
+    G_ij = high_G  if (metal_i and metal_j) or (neutral-vacancy_i and _j)
+           low_G   otherwise
+
+No matrix is assembled: the adjacency is the static padded table (PBC-aware,
+= the K CSR sparsity); the conductance table ``G`` is computed once per solve
+from element and charge, and each CG iteration is one gather, one multiply
+and one row sum over (N_int, NN).
+
+The contact-slice entries of the returned N-vector remain 0
+(kmc_main.cpp:567-573 is commented out in the reference).
+
+``solve_cb_edge`` (the Laplace solve of the full-physics mode) is not here
+yet: ROADMAP queue 1, "full physics".
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from akmc_tpu_torch.lattice import ELEM
+from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg
+
+
+def edge_conductance(
+    element: torch.Tensor,       # (N,) int32
+    charge: torch.Tensor,        # (N,) int32
+    k_neigh_idx: torch.Tensor,   # (N, NN) int64 PBC-aware adjacency, -1 pad
+    metal_edge: torch.Tensor,    # (N, NN) bool: metal_i & metal_j (static)
+    high_G: float,
+    low_G: float,
+) -> torch.Tensor:
+    """(N, NN) f64 edge conductances G_ij on the K sparsity."""
+    j = k_neigh_idx.clamp(min=0)
+    cvac = (element == int(ELEM.VACANCY)) & (charge == 0)
+    cvac_edge = cvac[:, None] & cvac[j]
+    hi = torch.tensor(high_G, dtype=torch.float64, device=element.device)
+    lo = torch.tensor(low_G, dtype=torch.float64, device=element.device)
+    return torch.where(metal_edge | cvac_edge, hi, lo)
+
+
+def solve_potential_boundary(
+    element: torch.Tensor,
+    charge: torch.Tensor,
+    potential_boundary_prev: torch.Tensor,   # (N,) f64 warm start
+    k_neigh_idx: torch.Tensor,
+    metal_edge: torch.Tensor,
+    Vd: float,
+    high_G: float,
+    low_G: float,
+    num_atoms_first_layer: int,
+    rtol_coeff: float = 1e-14,
+    max_iterations: int = 10000,
+) -> Tuple[torch.Tensor, CGResult]:
+    """Solve the K system; returns the full-length N-vector (contacts zero)
+    and CG diagnostics. rtol = rtol_coeff * N_interface
+    (potential_solver_gpu.cu:884-886)."""
+    n = element.shape[0]
+    L = R = num_atoms_first_layer
+    n_int = n - L - R
+
+    G = edge_conductance(element, charge, k_neigh_idx, metal_edge, high_G, low_G)
+
+    nbr = k_neigh_idx
+    valid = nbr >= 0
+    Gv = torch.where(valid, G, 0.0)
+
+    # row sums split by neighbor region (diagonal / rhs contributions)
+    j = nbr.clamp(min=0)
+    in_left = valid & (j < L)
+    in_right = valid & (j >= n - R)
+    in_int = valid & ~(j < L) & ~(j >= n - R)
+
+    # interface rows only
+    diag = torch.sum(Gv, dim=1)[L : n - R]                # A_ii = sum all G_ij
+    lsum = torch.sum(torch.where(in_left, G, 0.0), dim=1)[L : n - R]
+    rsum = torch.sum(torch.where(in_right, G, 0.0), dim=1)[L : n - R]
+
+    VL = -Vd / 2.0
+    VR = Vd / 2.0
+    rhs = lsum * VL + rsum * VR
+
+    G_int = torch.where(in_int, G, 0.0)[L : n - R]        # (N_int, NN)
+    # interface-local column; contact neighbors carry G_int = 0 and are
+    # clamped into range (akmc_tpu's gather clamps them the same way)
+    nbr_int = (j - L).clamp(0, n_int - 1)[L : n - R]
+
+    def A(x):
+        # A x = diag*x - sum_j G_ij x_j  over interface neighbors
+        return diag * x - torch.sum(G_int * x[nbr_int], dim=1)
+
+    x0 = potential_boundary_prev[L : n - R]
+    # zero-degree interface rows (e.g. a grid structure's null placeholder
+    # slots) have diag 0: 1/diag = inf would NaN the preconditioned residual
+    # and kill CG on the FIRST iteration; such rows carry rhs 0 and stay 0
+    pos = diag > 0.0
+    inv_diag = torch.where(pos, 1.0 / torch.where(pos, diag, 1.0), 1.0)
+    res = jacobi_cg(A, rhs, x0, inv_diag, rtol_coeff * n_int, max_iterations)
+    full = torch.zeros(n, dtype=res.x.dtype, device=res.x.device)
+    full[L : n - R] = res.x
+    return full, res

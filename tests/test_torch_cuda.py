@@ -139,3 +139,105 @@ def test_fused_cg_refuses_what_it_does_not_take(card):
     ):
         with pytest.raises(ValueError):
             dia_cg.dia_cg_solve(op, *ks._replace(**{field: bad}), rtol, 100)
+
+
+# ------------------------------------------------------------------
+# the plain-PyTorch operators of the disordered and large-structure paths:
+# no hand-written kernel, so the card and the CPU run the same code and must
+# agree to reassociation (cuBLAS and the CPU BLAS sum in other orders)
+
+def _disordered_model(dev, **kw):
+    """synthetic_stack(n_yz=8) under the 5 nm deck's physics (the smallest
+    stack without a DIA form): the port's model on ``dev``."""
+    from akmc_tpu_torch.config import KMCParameters
+    from akmc_tpu_torch.lattice import build_lattice
+    from akmc_tpu_torch.models.crossbar import synthetic_stack
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.rng import ReferenceRNG
+    from akmc_tpu_torch.state import make_substoichiometric
+
+    a = 2.131255
+    e, x, y, z, lattice, patch = synthetic_stack(n_yz=8, a=a)
+    p = KMCParameters(
+        lattice=list(lattice), nn_dist=3.5, metals=patch["metals"],
+        num_atoms_first_layer=patch["num_atoms_first_layer"],
+        num_layers_contact=patch["num_layers_contact"], solve_potential=True,
+        perturb_structure=True, freq=10e13,
+    )
+    e = make_substoichiometric(e, 0.05, ReferenceRNG(5))
+    lat = build_lattice(e, x - 10 * a, y, z, p)
+    return p, lat, VCMModel(p, lat, device=dev, **kw)
+
+
+def _first_fields(model, lat, dev, Vd=2.0):
+    from akmc_tpu_torch.state import make_device_state
+
+    s = make_device_state(lat, 300.0, torch.device(dev))
+    return model._fields(s.element, s.charge, s.potential_boundary, s.T_bg, Vd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    dict(),                                               # banded, static table
+    dict(use_banded_k=False, pair_table_budget=0),        # ELL, on-the-fly
+    dict(pair_table_budget=0, pair_tiling_min_n=1),       # banded, tiled
+], ids=["banded-table", "ell-on-the-fly", "banded-tiled"])
+def test_disordered_fields_card_matches_cpu(card, flags):
+    _, lat, m_cpu = _disordered_model("cpu", **flags)
+    _, _, m_gpu = _disordered_model(card, **flags)
+    assert m_gpu.describe() == m_cpu.describe() and m_cpu.dia is None
+    f_cpu = _first_fields(m_cpu, lat, "cpu")
+    f_gpu = _first_fields(m_gpu, lat, card)
+    assert torch.equal(f_gpu.charge.cpu(), f_cpu.charge)
+    assert torch.equal(f_gpu.etype.cpu(), f_cpu.etype)
+    # the K-CG stops on a plateau of r.z, so another summation order may move
+    # the stop by a few iterations and the potentials within the CG tolerance
+    assert abs(f_gpu.cg_iterations - f_cpu.cg_iterations) <= max(3, f_cpu.cg_iterations // 5)
+    torch.testing.assert_close(f_gpu.potential_boundary.cpu(), f_cpu.potential_boundary,
+                               rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(f_gpu.potential_sum.cpu(), f_cpu.potential_sum,
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_band_matvec_card_matches_cpu(card):
+    from akmc_tpu_torch.solvers.banded import band_matvec
+
+    _, lat, m = _disordered_model("cpu")
+    x = torch.tensor(np.random.default_rng(3).standard_normal(lat.N))
+    y_cpu = band_matvec(m.banded, m.band_meta, x)
+    y_gpu = band_matvec(m.banded.to(card), m.band_meta, x.to(card))
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane_f32", [False, True], ids=["f64", "f32-plane"])
+def test_pairwise_paths_card_match_cpu(card, plane_f32):
+    """Candidate lists equal on both devices (a stable sort keeps list order
+    on the card too); potentials to reassociation, f32 plane to f32 roundoff."""
+    from akmc_tpu_torch.ops import pairwise as pw
+
+    p, lat, _ = _disordered_model("cpu", pair_table_budget=0)
+    rng = np.random.default_rng(5)
+    charge = np.zeros(lat.N, np.int32)
+    sites = rng.choice(np.nonzero(lat.element0 <= 3)[0], 120, replace=False)
+    charge[sites] = rng.choice([2, -2, 1], 120)
+    pos = np.stack([lat.x, lat.y, lat.z], 1)
+    tiling, r_tile = pw.build_pair_tiling(pos, p.cutoff_radius, tile_edge=p.cutoff_radius / 2)
+    phys = (p.cutoff_radius, p.sigma, p.k)
+    out = {}
+    for dev in ("cpu", card):
+        pos_t, q_t = torch.tensor(pos, device=dev), torch.tensor(charge, device=dev)
+        _, qv, q_pos, _, _ = pw._charged_list(pos_t, q_t, 256)
+        sel, cand, ovf = pw.tile_candidates(tiling.to(dev), r_tile, q_pos, qv, p.cutoff_radius, 64)
+        tiled = pw.pairwise_potential_tiled(tiling.to(dev), r_tile, pos_t, q_t, *phys, qmax=256,
+                                            cand_cap=64, plane_f32=plane_f32)
+        fly = pw.pairwise_potential(pos_t, q_t, *phys, qmax=256)
+        out[str(dev)] = [t.cpu() for t in (sel, cand, ovf, tiled[0], tiled[2], fly[0])]
+    c, g = out["cpu"], out[str(card)]
+    assert torch.equal(g[0], c[0]) and torch.equal(g[1], c[1])
+    assert bool(g[2]) == bool(c[2]) and bool(g[4]) == bool(c[4])
+    tol = dict(rtol=2e-5, atol=2e-6 * float(c[5].abs().max())) if plane_f32 \
+        else dict(rtol=1e-12, atol=1e-18)
+    torch.testing.assert_close(g[3], c[3], **tol)
+    torch.testing.assert_close(g[5], c[5], rtol=1e-12, atol=1e-18)

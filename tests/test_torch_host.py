@@ -192,11 +192,23 @@ def test_convert_carries_objects_across():
 
     jm = JModel(pj, jl)
     tt = convert.tables(jm.tables)
+    assert tt.pair_tiling is None                      # the static table fits here
     for f in dataclasses.fields(tt):
         v = getattr(tt, f.name)
-        assert v.dtype in (torch.int64, torch.float64, torch.bool), f.name
+        if f.name != "pair_tiling":
+            assert v.dtype in (torch.int64, torch.float64, torch.bool), f.name
     np.testing.assert_array_equal(tt.pair_table.numpy(), np.asarray(jm.tables.pair_gT.full))
     np.testing.assert_array_equal(tt.act_zero_rows.numpy(), np.asarray(jm.tables.act_zero_rows))
+    np.testing.assert_array_equal(tt.k_neigh_idx.numpy(), np.asarray(jm.tables.k_neigh_idx))
+    np.testing.assert_array_equal(tt.metal_edge.numpy(), np.asarray(jm.tables.metal_edge))
+
+    # without the table: the tiling comes across instead
+    jm = JModel(pj, jl, pair_table_budget=0, pair_tiling_min_n=1)
+    tt = convert.tables(jm.tables)
+    assert tt.pair_table is None
+    for name in jm.tables.pair_tiling._fields:
+        np.testing.assert_array_equal(getattr(tt.pair_tiling, name).numpy(),
+                                      np.asarray(getattr(jm.tables.pair_tiling, name)))
 
 
 def _imports(path):
