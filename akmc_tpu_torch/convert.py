@@ -15,10 +15,11 @@ import torch
 
 from akmc_tpu_torch.config import KMCParameters, Layer
 from akmc_tpu_torch.lattice import Lattice
-from akmc_tpu_torch.models.vcm import StaticTables
+from akmc_tpu_torch.models.vcm import FieldsResult, StaticTables
 from akmc_tpu_torch.ops.pairwise import PairTiling
 from akmc_tpu_torch.solvers.banded import BandedK, BandMeta, KCarry
 from akmc_tpu_torch.solvers.dia import make_dia
+from akmc_tpu_torch.rng import BufferedStream
 from akmc_tpu_torch.state import DeviceState
 
 
@@ -123,3 +124,31 @@ def tables(t, device="cpu") -> StaticTables:
         pair_table=None if t.pair_gT is None else tensor(t.pair_gT.full, device),
         pair_tiling=None if t.pair_tiling is None else pair_tiling(t.pair_tiling, device),
     )
+
+
+def fields(fr, device="cpu") -> FieldsResult:
+    """A frozen fields state (charges, potentials, the rate table, event types
+    and the log rate scale) from akmc_tpu's FieldsResult."""
+    def flag(a):
+        return torch.as_tensor(False if a is None else bool(a), device=device)
+
+    return FieldsResult(
+        charge=torch.as_tensor(np.array(fr.charge), dtype=torch.int32, device=device),
+        potential_boundary=tensor(fr.potential_boundary, device),
+        potential_sum=tensor(fr.potential_sum, device),
+        P=tensor(fr.P, device),
+        etype=torch.as_tensor(np.array(fr.etype), dtype=torch.int32, device=device),
+        cg_iterations=int(fr.cg_iterations),
+        q_overflow=flag(fr.q_overflow),
+        v_overflow=flag(fr.v_overflow),
+        ln_S=None if fr.ln_S is None else tensor(fr.ln_S, device),
+        c_overflow=flag(fr.c_overflow),
+    )
+
+
+def stream(s) -> BufferedStream:
+    """akmc_tpu's BufferedStream at its current position: the twister's state
+    words, its index, and the draws generated but not yet consumed (the three
+    pieces a checkpoint stores)."""
+    mt = s._rng._mt
+    return BufferedStream.from_state(np.asarray(mt.mt), int(mt.mti), np.asarray(s._buf))

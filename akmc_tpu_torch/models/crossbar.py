@@ -20,6 +20,47 @@ import numpy as np
 from akmc_tpu_torch.lattice import ELEM
 
 
+def toy_device(nx=10, ny=4, nz=4, a=2.0, contact_layers=2, seed=0, vacancy_fraction=0.2):
+    """A tiny VCM-like device for law checks and tests: simple-cubic lattice
+    along x, metal contact planes at both ends, oxide with a few interstitial
+    defect sites between, ``vacancy_fraction`` of the oxygen turned into
+    vacancies (stream ``ReferenceRNG(7)``). (KMCParameters, Lattice)."""
+    from akmc_tpu_torch.config import KMCParameters, Layer
+    from akmc_tpu_torch.lattice import build_lattice
+    from akmc_tpu_torch.rng import ReferenceRNG
+    from akmc_tpu_torch.state import make_substoichiometric
+
+    rng = np.random.RandomState(seed)
+    ix, iy, iz = (g.ravel() for g in np.meshgrid(range(nx), range(ny), range(nz), indexing="ij"))
+    x, y, z = ix * a, iy * a, iz * a
+    e = np.where((ix < contact_layers) | (ix >= nx - contact_layers),
+                 int(ELEM.Ti), int(ELEM.O)).astype(np.int32)
+    n_def = max(2, (nx - 2 * contact_layers) * ny * nz // 8)
+    picked = rng.choice(np.nonzero(e == int(ELEM.O))[0], n_def, replace=False)
+    x = np.concatenate([x, x[picked] + a / 2])
+    y = np.concatenate([y, y[picked] + a / 2])
+    z = np.concatenate([z, z[picked] + a / 2])
+    e = np.concatenate([e, np.full(n_def, int(ELEM.DEFECT), np.int32)])
+    order = np.lexsort((z, y, x))
+    x, y, z, e = x[order], y[order], z[order], e[order]
+    x0, x1, cL = x.min(), x.max(), contact_layers * a
+    layers = [
+        Layer("contact", 0.0, 0.0, 0.0, 0.76, x0 - 1, x0 + cL - a / 2),
+        Layer("oxide", 1.5, 0.1, 1.09, 0.76, x0 + cL - a / 2, x1 - cL + a / 2),
+        Layer("contact", 1.73, 0.0, 0.0, 2.8, x1 - cL + a / 2, x1 + 1),
+    ]
+    p = KMCParameters(
+        lattice=[x1 - x0 + a, ny * a, nz * a], nn_dist=a * 1.2, freq=10e13, sigma=3.5e-10,
+        epsilon=23.0, metals=["Ti", "N"], num_atoms_first_layer=int((x <= x0 + 1e-9).sum()),
+        num_layers_contact=contact_layers, background_temp=300.0, layers=layers,
+        max_num_neighbors=20, cutoff_radius=3 * a + 0.1, solve_potential=True,
+        perturb_structure=True,
+    )
+    if vacancy_fraction:
+        e = make_substoichiometric(e, vacancy_fraction, ReferenceRNG(7))
+    return p, build_lattice(e, x, y, z, p)
+
+
 def tile_device(
     element: np.ndarray,
     x: np.ndarray,

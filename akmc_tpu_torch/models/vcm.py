@@ -13,12 +13,17 @@ when it fits ``pair_table_budget``, else from the tiled plane (large
 structures), else from the on-the-fly plane.
 
 ``VCMModel`` owns the static tables as tensors on its device;
-``DeviceState`` carries the dynamic fields. This is the committed-parity
-path of ``akmc_tpu/models/vcm.py::VCMModel.superstep``.
+``DeviceState`` carries the dynamic fields. ``superstep`` is the
+committed-parity path of ``akmc_tpu/models/vcm.py::VCMModel.superstep``
+(``superstep_timed``: the same with each module timed apart);
+``superstep_native`` and ``superstep_native_batched`` are the production
+paths, which draw their own uniforms and, batched, fire many events per loop
+iteration.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -30,7 +35,12 @@ from akmc_tpu_torch.config import KMCParameters
 from akmc_tpu_torch.device import resolve_device
 from akmc_tpu_torch.lattice import ELEM, Lattice, metal_mask
 from akmc_tpu_torch.ops.charge import update_charge_compact
-from akmc_tpu_torch.ops.events import build_event_table, run_event_loop
+from akmc_tpu_torch.ops.events import (
+    build_event_table,
+    run_event_loop,
+    run_event_loop_batched,
+    run_event_loop_native,
+)
 from akmc_tpu_torch.ops.pairwise import (
     PairTiling,
     build_pair_table,
@@ -135,6 +145,9 @@ class VCMModel:
         self.rate_normalize = bool(rate_normalize)
         self.pair_cand_cap = pair_cand_cap
         self.pair_f32 = bool(pair_f32)
+        self.k_solves = 0           # K-system solves made so far (``_solve_boundary``)
+        self.k_iterations = 0       # and the CG iterations of all of them
+        self.fields_s = 0.0         # host seconds of the last ``_fields_grown``
         p = params
         i64 = dict(dtype=torch.int64, device=dev)
         f64 = dict(dtype=torch.float64, device=dev)
@@ -310,37 +323,35 @@ class VCMModel:
         )
 
     def _solve_boundary(self, element, charge, pb_prev, Vd):
-        """K-system solve through whichever operator the structure supports."""
+        """K-system solve through whichever operator the structure supports.
+        ``k_solves`` and ``k_iterations`` count the solves and their CG
+        iterations, those of a pass that a grown cap discards included."""
         t, p = self.tables, self.params
         kop = self.kop
         if isinstance(kop, DiaK):
-            return solve_potential_boundary_dia(
+            pot, cg = solve_potential_boundary_dia(
                 kop, self.dia_meta, element, charge, pb_prev, Vd,
                 p.high_G, p.low_G, p.num_atoms_first_layer,
             )
-        if isinstance(kop, BandedK):
-            return solve_potential_boundary_banded(
+        elif isinstance(kop, BandedK):
+            pot, cg = solve_potential_boundary_banded(
                 kop, self.band_meta, element, charge, pb_prev, Vd,
                 p.high_G, p.low_G, p.num_atoms_first_layer, p.nn_dist,
                 self._lattice_t, bool(p.pbc), self.vmax,
             )
-        return solve_potential_boundary(
-            element, charge, pb_prev, t.k_neigh_idx, t.metal_edge, Vd,
-            p.high_G, p.low_G, p.num_atoms_first_layer,
-        )
+        else:
+            pot, cg = solve_potential_boundary(
+                element, charge, pb_prev, t.k_neigh_idx, t.metal_edge, Vd,
+                p.high_G, p.low_G, p.num_atoms_first_layer,
+            )
+        self.k_solves += 1
+        self.k_iterations += cg.iterations
+        return pot, cg
 
-    def _fields(self, element, charge, potential_boundary_prev, T_bg, Vd) -> FieldsResult:
+    def _pairwise(self, charge):
+        """Pairwise potential through the path the structure got: (potential,
+        qmax overflow, candidate-cap overflow)."""
         t, p = self.tables, self.params
-        # every vmax-capped compaction (charge update, cvac correction)
-        # truncates at vmax; vacancy generation grows the population, so
-        # detect the overflow here and let superstep grow the cap
-        v_overflow = torch.sum(element == int(ELEM.VACANCY)) > self.vmax
-        charge = update_charge_compact(
-            element, charge, t.neigh_idx, t.any_metal_nbr, self.vmax
-        )
-        pot_boundary, cg = self._solve_boundary(
-            element, charge, potential_boundary_prev, Vd
-        )
         c_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         if t.pair_table is not None:
             pot_pair, q_overflow = pairwise_potential_table(
@@ -356,6 +367,21 @@ class VCMModel:
             pot_pair, q_overflow = pairwise_potential(
                 t.pos, charge, p.cutoff_radius, p.sigma, p.k, qmax=self.qmax
             )
+        return pot_pair, q_overflow, c_overflow
+
+    def _fields(self, element, charge, potential_boundary_prev, T_bg, Vd) -> FieldsResult:
+        t, p = self.tables, self.params
+        # every vmax-capped compaction (charge update, cvac correction)
+        # truncates at vmax; vacancy generation grows the population, so
+        # detect the overflow here and let superstep grow the cap
+        v_overflow = torch.sum(element == int(ELEM.VACANCY)) > self.vmax
+        charge = update_charge_compact(
+            element, charge, t.neigh_idx, t.any_metal_nbr, self.vmax
+        )
+        pot_boundary, cg = self._solve_boundary(
+            element, charge, potential_boundary_prev, Vd
+        )
+        pot_pair, q_overflow, c_overflow = self._pairwise(charge)
         pot_sum = pot_pair + pot_boundary   # sum_AB_into_A (psg.cu:1130-1151)
         P, etype, ln_S = self._build_rates(element, charge, pot_sum, T_bg)
         return FieldsResult(
@@ -364,6 +390,39 @@ class VCMModel:
             q_overflow=q_overflow, v_overflow=v_overflow, ln_S=ln_S,
             c_overflow=c_overflow,
         )
+
+    def _grow(self, q_ovf, v_ovf, c_ovf) -> bool:
+        """Double every cap whose overflow flag is set; whether one was."""
+        if q_ovf:
+            self.qmax *= 2
+        if v_ovf:
+            self.vmax *= 2
+        if c_ovf:
+            self.pair_cand_cap *= 2
+        return bool(q_ovf or v_ovf or c_ovf)
+
+    def _fields_grown(self, state: DeviceState, Vd: float, pb_start=None) -> FieldsResult:
+        """``_fields`` on ``state`` (K solve started from ``pb_start``, default
+        the state's boundary potential). On an overflow of qmax, vmax or the
+        tiled path's candidate cap, the exceeded caps double and the fields
+        are recomputed from the same inputs. Draws nothing, so the event
+        loops that follow never have to replay a draw. ``fields_s`` keeps
+        the host time of the last call: the read of the cap flags drains the
+        device, so that is the fields' time on a card too."""
+        t0 = time.perf_counter()
+        pb = state.potential_boundary if pb_start is None else pb_start
+        while True:
+            fr = self._fields(state.element, state.charge, pb, state.T_bg, Vd)
+            if not self._grow(*torch.stack(
+                    [fr.q_overflow, fr.v_overflow, fr.c_overflow]).tolist()):
+                self.fields_s = time.perf_counter() - t0
+                return fr
+
+    def fields(self, state: DeviceState, Vd: float) -> FieldsResult:
+        """The fields of ``state`` at bias ``Vd`` as a superstep computes them
+        before its event loop (charges, potentials, rate table), caps grown:
+        a frozen table to run event loops on."""
+        return self._fields_grown(state, Vd)
 
     def _events(self, element, charge, P, etype, stream, rand_chunk,
                 event_time_in=None, ln_S=None):
@@ -378,32 +437,11 @@ class VCMModel:
         stream.advance(res.draws_used)
         return res
 
-    def superstep(
-        self, state: DeviceState, Vd: float, stream, rand_chunk: int = 8192
-    ) -> Tuple[DeviceState, dict]:
-        """One full KMC superstep. ``stream`` is a ``rng.BufferedStream``
-        over the KMC mt19937 stream; it advances by exactly the draws the
-        event loop used. On an overflow of qmax, vmax or the tiled path's
-        candidate cap, the exceeded caps double and the fields are recomputed
-        from the same inputs."""
-        while True:
-            fr = self._fields(
-                state.element, state.charge, state.potential_boundary, state.T_bg, Vd
-            )
-            q_ovf, v_ovf, c_ovf = torch.stack(
-                [fr.q_overflow, fr.v_overflow, fr.c_overflow]
-            ).tolist()
-            if not (q_ovf or v_ovf or c_ovf):
-                break
-            if q_ovf:
-                self.qmax *= 2
-            if v_ovf:
-                self.vmax *= 2
-            if c_ovf:
-                self.pair_cand_cap *= 2
-
-        res = self._events(state.element, fr.charge, fr.P, fr.etype, stream,
-                           rand_chunk, ln_S=fr.ln_S)
+    def _events_to_the_end(self, element, fr: FieldsResult, stream, rand_chunk):
+        """The serial loop on the fields ``fr`` until the superstep is done:
+        (last chunk's result, events of all chunks)."""
+        res = self._events(element, fr.charge, fr.P, fr.etype, stream, rand_chunk,
+                           ln_S=fr.ln_S)
         n_events = res.n_events
         while not res.done:
             # the rand buffer ran out mid-superstep: continue with the
@@ -411,7 +449,20 @@ class VCMModel:
             res = self._events(res.element, res.charge, res.P, fr.etype, stream,
                                rand_chunk, event_time_in=res.event_time, ln_S=fr.ln_S)
             n_events += res.n_events
+        return res, n_events
 
+    def superstep(
+        self, state: DeviceState, Vd: float, stream, rand_chunk: int = 8192
+    ) -> Tuple[DeviceState, dict]:
+        """One full KMC superstep. ``stream`` is a ``rng.BufferedStream``
+        over the KMC mt19937 stream; it advances by exactly the draws the
+        event loop used. Caps that overflow grow first (``_fields_grown``)."""
+        fr = self._fields_grown(state, Vd)
+        res, n_events = self._events_to_the_end(state.element, fr, stream, rand_chunk)
+        return self._finish(state, fr, res._replace(n_events=n_events))
+
+    def _finish(self, state, fr, res, **more) -> Tuple[DeviceState, dict]:
+        """The new state and the stats every superstep returns."""
         new_state = state.replace(
             element=res.element,
             charge=res.charge,
@@ -420,11 +471,124 @@ class VCMModel:
             kmc_time=state.kmc_time + res.event_time,
         )
         stats = {
-            "n_events": n_events,
-            "event_time": float(res.event_time),
+            "n_events": res.n_events,
+            "event_time": res.event_time_h,
             "cg_iterations": fr.cg_iterations,
+            **more,
         }
         return new_state, stats
+
+    # ------------------------------------------------------------------
+    # module-timed superstep: the same math in the same order as
+    # ``superstep``, with each physics module run and timed apart, so that
+    # the reference's per-module timing lines (kmc_main.cpp:452-530) carry
+    # measured values. On a CUDA device a phase ends with a device
+    # synchronisation, so it is slower than ``superstep``.
+    # ------------------------------------------------------------------
+    def superstep_timed(
+        self, state: DeviceState, Vd: float, stream, rand_chunk: int = 8192
+    ) -> Tuple[DeviceState, dict]:
+        t = self.tables
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return out, time.perf_counter() - t0
+
+        def phase_charge():
+            v_ovf = torch.sum(state.element == int(ELEM.VACANCY)) > self.vmax
+            return update_charge_compact(
+                state.element, state.charge, t.neigh_idx, t.any_metal_nbr, self.vmax
+            ), v_ovf
+
+        (charge, v_ovf), dt_charge = timed(phase_charge)
+        if self._grow(False, bool(v_ovf), False):
+            return self.superstep_timed(state, Vd, stream, rand_chunk)
+        (pot_b, cg), dt_boundary = timed(
+            lambda: self._solve_boundary(state.element, charge, state.potential_boundary, Vd))
+        (pot_pair, q_ovf, c_ovf), dt_pair = timed(lambda: self._pairwise(charge))
+
+        def phase_rates():
+            pot_sum = pot_pair + pot_b
+            return pot_sum, *self._build_rates(state.element, charge, pot_sum, state.T_bg)
+
+        (pot_sum, P, etype, ln_S), dt_rates = timed(phase_rates)
+        if self._grow(bool(q_ovf), False, bool(c_ovf)):
+            return self.superstep_timed(state, Vd, stream, rand_chunk)
+        fr = FieldsResult(
+            charge=charge, potential_boundary=pot_b, potential_sum=pot_sum, P=P, etype=etype,
+            cg_iterations=cg.iterations, q_overflow=q_ovf, v_overflow=v_ovf, ln_S=ln_S,
+            c_overflow=c_ovf,
+        )
+        (res, n_events), dt_events = timed(
+            lambda: self._events_to_the_end(state.element, fr, stream, rand_chunk))
+        return self._finish(
+            state, fr, res._replace(n_events=n_events),
+            t_charge=dt_charge, t_boundary=dt_boundary, t_pairwise=dt_pair,
+            t_rates=dt_rates, t_events=dt_events,
+        )
+
+    # ------------------------------------------------------------------
+    # production supersteps: uniforms from a draws source
+    # (``ops/events.py::GeneratorDraws`` on the model's device), not the
+    # reference's mt19937 stream
+    # ------------------------------------------------------------------
+    def superstep_native(self, state: DeviceState, Vd: float, draws) -> Tuple[DeviceState, dict]:
+        """Production-mode superstep with the serial loop
+        (``run_event_loop_native``): the exact residence-time law on the
+        caller's draws source. Not reference-stream parity."""
+        t = self.tables
+        fr = self._fields_grown(state, Vd)
+        res = run_event_loop_native(
+            state.element, fr.charge, fr.P, fr.etype, t.act_neigh, draws, self.params.freq,
+            act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S, zero_rows=t.act_zero_rows,
+        )
+        return self._finish(state, fr, res)
+
+    def superstep_native_batched(
+        self, state: DeviceState, Vd: float, draws, batch: int = 64,
+        mass_eps: float = 1e-3, clock_f32: bool = False,
+        pb_prev2: Optional[torch.Tensor] = None, k_extrap: float = 0.0,
+    ) -> Tuple[DeviceState, dict]:
+        """Production superstep with the multi-event batched loop
+        (``run_event_loop_batched``): exponential-race candidate selection and
+        an exact prefix-conflict cut in place of one event per iteration, the
+        event path of crossbar-scale structures. ``mass_eps`` is the
+        killed-mass staleness bound, the one knob that trades gap-law
+        exactness for events per batch.
+
+        ``pb_prev2`` / ``k_extrap``: linear-extrapolation warm start of the K
+        solve, x0 = pb + k_extrap * (pb - pb_prev2), with ``pb_prev2`` the
+        boundary potential of the superstep before the last. The CG stops
+        relative to ||b||, so a closer x0 saves iterations where the
+        potential drifts smoothly; the converged tolerance is unchanged.
+        ``k_extrap = 0.0`` is the plain warm start bit for bit.
+
+        A loop that used up its batches without one event
+        raises: with ``clock_f32`` every live row's shifted rate can
+        underflow f32, all clocks are then infinite, and a caller that adds
+        the returned waiting time of 0 to its clock would never advance."""
+        t = self.tables
+        pb = state.potential_boundary
+        pb_ws = pb + k_extrap * (pb - (pb if pb_prev2 is None else pb_prev2))
+        fr = self._fields_grown(state, Vd, pb_start=pb_ws)
+        res = run_event_loop_batched(
+            state.element, fr.charge, fr.P, fr.etype, t.act_neigh, draws, self.params.freq,
+            batch=batch, act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S,
+            mass_eps=mass_eps, clock_f32=clock_f32,
+        )
+        if not res.done and res.n_events == 0:
+            raise RuntimeError(
+                f"the batched event loop ran {res.n_batches} batches at Vd = {Vd} V without "
+                "an event or a terminating gap"
+                + (": with clock_f32 the rates may lie below f32's range, run with f64 clocks"
+                   if clock_f32 else ""))
+        return self._finish(
+            state, fr, res, n_batches=res.n_batches, done=res.done,
+            n_cut_conflict=res.n_cut_conflict, n_cut_mass=res.n_cut_mass,
+        )
 
 
 def _max_in_reach_count(

@@ -60,6 +60,15 @@ class MT19937:
         self.mt = mt & np.uint64(0xFFFFFFFF)
         self.mti = 0
 
+    @classmethod
+    def from_state(cls, mt: np.ndarray, mti: int) -> "MT19937":
+        """A generator at a saved position: the 624 state words and the index
+        of the next one to temper."""
+        self = cls.__new__(cls)
+        self.mt = np.array(mt, dtype=np.uint64)
+        self.mti = int(mti)
+        return self
+
     def next_uint32(self, count: int) -> np.ndarray:
         """Return `count` tempered 32-bit outputs."""
         out = np.empty(count, dtype=np.uint64)
@@ -113,6 +122,21 @@ class BufferedStream:
     def __init__(self, rng: ReferenceRNG):
         self._rng = rng
         self._buf = np.empty(0, dtype=np.float64)
+
+    def get_state(self):
+        """What a checkpoint must hold to resume the stream bit for bit: the
+        twister's state words, its position, and the draws already generated
+        but not yet consumed."""
+        mt = self._rng._mt
+        return mt.mt.copy(), int(mt.mti), self._buf.copy()
+
+    @classmethod
+    def from_state(cls, mt: np.ndarray, mti: int, buf: np.ndarray) -> "BufferedStream":
+        rng = ReferenceRNG.__new__(ReferenceRNG)
+        rng._mt = MT19937.from_state(mt, mti)
+        stream = cls(rng)
+        stream._buf = np.array(buf, dtype=np.float64)
+        return stream
 
     def peek(self, n: int) -> np.ndarray:
         if len(self._buf) < n:

@@ -7,7 +7,9 @@ plot_IV.py:26-38, extract_data.py:17-31), byte for byte the same lines as
 
 Usage:
     python -m akmc_tpu_torch.runtime.driver <parameters.txt> \
-        [--synthesize-crossbar N_YZ] [--pair-f32] [--workdir DIR] [--device cuda|cpu]
+        [--synthesize-crossbar N_YZ] [--pair-f32] [--workdir DIR] [--device cuda|cpu] \
+        [--batched-events B [--clock-f32] [--mass-eps E] [--k-extrap C]] \
+        [--module-timing] [--checkpoint-every N] [--resume-from checkpoint.npz]
 
 Without ``--synthesize-crossbar`` the deck's structure files are read
 (``restart_xyz_file``, or the atom and interstitial files), with ``pbc = 1``
@@ -35,19 +37,17 @@ from akmc_tpu_torch.lattice import (
     write_xyz_snapshot,
 )
 from akmc_tpu_torch.models.vcm import VCMModel
+from akmc_tpu_torch.ops.events import GeneratorDraws
 from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+from akmc_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from akmc_tpu_torch.state import make_device_state, make_substoichiometric
 
 # options of akmc_tpu's driver that this port does not run yet, with the
 # value that leaves them off and the ROADMAP item that ports them
 _NOT_PORTED = {
-    "batched_events": (0, "the batched event loop"),
     "steps_per_dispatch": (1, "an on-device event/CG loop"),
-    "module_timing": (False, "an on-device event/CG loop"),
     "devices": (0, "torch.distributed scale-out"),
     "concern_split": (None, "torch.distributed scale-out"),
-    "checkpoint_every": (0, "checkpoints"),
-    "resume_from": (None, "checkpoints"),
     "wkb_f32": (False, "full physics"),
     "warmup": (False, "an on-device event/CG loop"),
 }
@@ -61,8 +61,8 @@ class OutputLog:
     """Buffered text log matching the reference's outputBuffer/outputFile
     behavior (kmc_main.cpp:118-121, 520-527)."""
 
-    def __init__(self, path: str):
-        self._f = open(path, "w")
+    def __init__(self, path: str, append: bool = False):
+        self._f = open(path, "a" if append else "w")
         self._buf: list[str] = []
 
     def write(self, s: str) -> None:
@@ -98,8 +98,15 @@ def run(
     max_supersteps: Optional[int] = None,
     log: bool = True,
     committed_parity: bool = True,
+    checkpoint_every: int = 0,
+    resume_from: Optional[str] = None,
+    module_timing: bool = False,
     synthesize_crossbar: Optional[int] = None,
     rate_normalize: Optional[bool] = None,
+    batched_events: int = 0,
+    batched_mass_eps: float = 1e-3,
+    batched_clock_f32: bool = False,
+    batched_k_extrap: float = 0.0,
     dia_stacked: bool = False,
     dia_pallas: bool = False,
     pair_f32: bool = False,
@@ -112,8 +119,23 @@ def run(
     ``dia_stacked`` / ``dia_pallas`` are accepted for command-line parity
     with akmc_tpu and select nothing: the port has one f64 DIA matvec (the
     CUDA kernel on the card, its plain twin on the CPU). ``pair_f32``: the
-    tiled pairwise plane in f32 (large structures only). The other options
-    of akmc_tpu's ``run`` raise NotImplementedError unless left off."""
+    tiled pairwise plane in f32 (large structures only).
+
+    ``batched_events`` B > 0 runs the production event path
+    (``superstep_native_batched``: B-candidate exponential-race batches from
+    a device generator seeded with the deck's ``rnd_seed_kmc``; not
+    reference-stream parity), with ``batched_mass_eps`` the killed-mass
+    staleness bound, ``batched_clock_f32`` f32 race clocks and
+    ``batched_k_extrap`` the K-solve warm-start extrapolation coefficient.
+    ``module_timing`` runs each physics module apart so that the per-module
+    timing lines carry measured values. ``checkpoint_every`` N saves
+    ``checkpoint.npz`` in the workdir every N supersteps; ``resume_from``
+    continues such a file (appending to the workdir's logs), bit-identically
+    for the serial loop; the batched generator is not in a checkpoint and is
+    seeded from ``rnd_seed_kmc`` again, and the bias points skipped count as
+    visited (akmc_tpu forgets them, and a resumed hysteresis sweep then writes
+    a second visit into the first visit's folder). The other options of akmc_tpu's ``run`` raise
+    NotImplementedError unless left off."""
     del dia_stacked, dia_pallas
     device = resolve_device(device)
     for name, value in not_ported.items():
@@ -134,8 +156,8 @@ def run(
         raise _not_ported("an events-only deck (solve_potential = 0)", "an on-device event/CG loop")
 
     os.makedirs(workdir, exist_ok=True)
-    out = OutputLog(os.path.join(workdir, "output1_0.txt"))
-    metrics = open(os.path.join(workdir, "metrics.jsonl"), "w")
+    out = OutputLog(os.path.join(workdir, "output1_0.txt"), append=bool(resume_from))
+    metrics = open(os.path.join(workdir, "metrics.jsonl"), "a" if resume_from else "w")
     try:
         if synthesize_crossbar:
             from akmc_tpu_torch.models.crossbar import synthesize_deck_structure
@@ -169,6 +191,9 @@ def run(
                          pair_f32=pair_f32)
         state = make_device_state(lat, p.background_temp, model.device)
         kmc_stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
+        batch_draws = (GeneratorDraws.seeded(p.rnd_seed_kmc, model.device)
+                       if batched_events else None)
+        batched_pb_prev2 = None   # the previous superstep's K solution (extrapolated warm start)
 
         # snapshots carry physical sites only (no NULL placeholder slots)
         snap_sel = np.asarray(lat.element0) != int(ELEM.NULL_ELEMENT)
@@ -189,12 +214,22 @@ def run(
             )
             snapshot_s += time.perf_counter() - t_snap
 
+        resume_vt = 0
+        resume_steps = 0
+        if resume_from:
+            state, kmc_stream, resume_vt, resume_steps, _ = load_checkpoint(
+                resume_from, model.device)
+            out.write(f"Resumed from checkpoint {resume_from}\n")
+
         total_steps = 0
         supersteps_s = 0.0
         t_code_start = time.perf_counter()
         visited_biases = set()
 
         for vt_counter, Vd in enumerate(p.V_switch):
+            if vt_counter < resume_vt:
+                visited_biases.add(Vd)      # keeps a later visit's folder name
+                continue
             t_bias = p.t_switch[vt_counter]
             out.write("--------------------------------\n")
             out.write(f"Applied Voltage = {_g(Vd)} V\n")
@@ -210,23 +245,45 @@ def run(
             out.write(f"Created folder: {os.path.basename(folder)}\n")
             snapshot(os.path.join(folder, "snapshot_init.xyz"))
 
-            kmc_time = 0.0
-            kmc_step_count = 0
-            state = state.replace(kmc_time=state.kmc_time * 0.0)
+            if vt_counter == resume_vt and resume_steps:
+                kmc_time = float(state.kmc_time)
+                kmc_step_count = resume_steps
+            else:
+                kmc_time = 0.0
+                kmc_step_count = 0
+                state = state.replace(kmc_time=state.kmc_time * 0.0)
 
             while kmc_time < t_bias:
                 t0 = time.perf_counter()
-                state, stats = model.superstep(state, Vd, kmc_stream)
+                if module_timing:
+                    state, stats = model.superstep_timed(state, Vd, kmc_stream)
+                elif batched_events:
+                    # production throughput mode: the multi-event batched
+                    # loop on its own generator (not reference-stream parity;
+                    # waiting-time staleness bounded by batched_mass_eps per batch)
+                    pb_before = state.potential_boundary
+                    state, stats = model.superstep_native_batched(
+                        state, Vd, batch_draws, batch=batched_events,
+                        mass_eps=batched_mass_eps, clock_f32=batched_clock_f32,
+                        pb_prev2=batched_pb_prev2, k_extrap=batched_k_extrap,
+                    )
+                    batched_pb_prev2 = pb_before
+                else:
+                    state, stats = model.superstep(state, Vd, kmc_stream)
                 dt = time.perf_counter() - t0
                 supersteps_s += dt
 
+                # the clock is tracked on the host; state.kmc_time stays
+                # authoritative for checkpoints
                 kmc_time += stats["event_time"]
-                # one fused superstep: each module's timing line carries
-                # the superstep total
-                out.write(f"Z - calculation time - charge [s]{_g(dt)}\n")
-                out.write(f"Z - calculation time - potential from boundaries [s]{_g(dt)}\n")
-                out.write(f"Z - calculation time - potential from charges [s]{_g(dt)}\n")
-                out.write(f"Z - calculation time - kmc events [s]{_g(dt)}\n")
+                # per-module timing lines: measured per module under
+                # module_timing, else each line carries the superstep total
+                out.write(f"Z - calculation time - charge [s]{_g(stats.get('t_charge', dt))}\n")
+                out.write("Z - calculation time - potential from boundaries [s]"
+                          f"{_g(stats.get('t_boundary', dt))}\n")
+                out.write("Z - calculation time - potential from charges [s]"
+                          f"{_g(stats.get('t_pairwise', dt))}\n")
+                out.write(f"Z - calculation time - kmc events [s]{_g(stats.get('t_events', dt))}\n")
                 out.write(f"KMC time is: {_g(kmc_time)}\n")
 
                 if kmc_step_count % p.output_freq == 0:
@@ -245,6 +302,12 @@ def run(
                         f"[Vd={Vd}] step {kmc_step_count}: kmc_time={kmc_time:.5e} "
                         f"events={stats['n_events']} cg={stats['cg_iterations']} "
                         f"wall={dt:.3f}s"
+                    )
+                if checkpoint_every and kmc_step_count % checkpoint_every == 0:
+                    save_checkpoint(
+                        os.path.join(workdir, "checkpoint.npz"), state, kmc_stream,
+                        vt_counter=vt_counter, kmc_step_count=kmc_step_count,
+                        extra={"Vd": Vd},
                     )
                 if max_supersteps and total_steps >= max_supersteps:
                     break
@@ -294,16 +357,44 @@ def main(argv=None):
     ap.add_argument("--pair-f32", action="store_true",
                     help="evaluate the tiled-pairwise plane in f32 (large "
                          "structures; the f64 plane is the default)")
+    ap.add_argument("--batched-events", type=int, default=0, metavar="B",
+                    help="production throughput mode: the multi-event batched "
+                         "residence-time loop with B-candidate exponential-race "
+                         "batches (device generator seeded with rnd_seed_kmc; "
+                         "not reference-stream parity)")
+    ap.add_argument("--clock-f32", action="store_true",
+                    help="batched loop: draw and transform the per-row race "
+                         "clocks in f32 (exact in law up to ~1e-6 relative gap "
+                         "rounding, far below --mass-eps)")
+    ap.add_argument("--mass-eps", type=float, default=1e-3,
+                    help="batched loop's killed-mass staleness bound: relative "
+                         "waiting-time distortion per batch (looser = more "
+                         "events per batch)")
+    ap.add_argument("--k-extrap", type=float, default=0.0, metavar="C",
+                    help="batched loop: K-solve warm start x0 = pb + C*(pb - "
+                         "pb_prev); the converged tolerance is unchanged; 0 = "
+                         "plain warm start")
+    ap.add_argument("--module-timing", action="store_true",
+                    help="run each physics module apart so that the per-module "
+                         "'Z - calculation time' lines carry measured values "
+                         "(slower: one device synchronisation per module)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save a full checkpoint (checkpoint.npz in the "
+                         "workdir) every N supersteps, counted per bias point")
+    ap.add_argument("--resume-from", default=None,
+                    help="resume from a checkpoint.npz: bit-identical for the "
+                         "serial event loop. A checkpoint does not hold the "
+                         "--batched-events generator, which starts again from "
+                         "rnd_seed_kmc, so a resumed batched run replays the "
+                         "uniforms the run began with. Bias points skipped on "
+                         "resume count as visited, so a repeated bias value "
+                         "keeps its Results_<V>_<index> folder")
     ap.add_argument("--full-physics", action="store_true", help="not ported yet")
     # akmc_tpu options this port does not run yet: accepted, and refused
     # with the ROADMAP item that ports them
-    ap.add_argument("--batched-events", type=int, default=0, help="not ported yet")
     ap.add_argument("--steps-per-dispatch", type=int, default=1, help="not ported yet")
-    ap.add_argument("--module-timing", action="store_true", help="not ported yet")
     ap.add_argument("--devices", type=int, default=0, help="not ported yet")
     ap.add_argument("--concern-split", default=None, help="not ported yet")
-    ap.add_argument("--checkpoint-every", type=int, default=0, help="not ported yet")
-    ap.add_argument("--resume-from", default=None, help="not ported yet")
     ap.add_argument("--wkb-f32", action="store_true", help="not ported yet")
     ap.add_argument("--warmup", action="store_true", help="not ported yet")
     args = ap.parse_args(argv)
@@ -312,7 +403,14 @@ def main(argv=None):
         workdir=args.workdir,
         max_supersteps=args.max_supersteps,
         committed_parity=not args.full_physics,
+        checkpoint_every=args.checkpoint_every,
+        resume_from=args.resume_from,
+        module_timing=args.module_timing,
         synthesize_crossbar=args.synthesize_crossbar,
+        batched_events=args.batched_events,
+        batched_mass_eps=args.mass_eps,
+        batched_clock_f32=args.clock_f32,
+        batched_k_extrap=args.k_extrap,
         dia_stacked=args.dia_stacked,
         dia_pallas=args.dia_pallas,
         pair_f32=args.pair_f32,

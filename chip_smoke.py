@@ -60,11 +60,48 @@ line is printed):
            potential is held against the on-the-fly plane (f64: rtol 1e-12;
            f32 plane: rtol 2e-5 off the cutoff shell), and both are timed.
 
+6. batched the production event path, in three parts.
+           replay: on one frozen fields state of the n_yz=24 crossbar at 8 V
+           and at 15 V (shifted-exponent rates), ``run_event_loop_batched``
+           (B = 64; B = 16 with f32 clocks) on the card and on the CPU from
+           the same seeded numpy uniforms: elements, charges, event, batch and
+           cut counts and the rate table's zero pattern equal, ``event_time``
+           within rtol 1e-12 (f32 clocks: 1e-6).
+           law: on the toy device's frozen table, 512 replicates of the
+           batched loop (B = 16, ``mass_eps`` 1e-3) against 512 of
+           ``run_event_loop_native`` on the card with the device generator:
+           two-sample KS on waiting time and on event count below the
+           alpha = 1e-3 critical value 0.1218.
+           crossbar: ``build_grid_crossbar(n_yz=64, 10/22/8 slices)``, 409,600
+           slots, at 15 V with shifted-exponent rates; DIA operator and tiled
+           pairwise asserted. First both kernels once more against their
+           twins, on this crossbar's own operator and first K system (cold
+           start, the fused CG's general kernel: rows not in registers):
+           bit-equal, equal iteration count, timed, with the bound from this
+           shape; the ``kernels`` line carries these readings per kernel
+           under ``crossbar_path``. One serial superstep (cold CG), six
+           ``superstep_native_batched`` (B = 64, ``mass_eps`` 1e-3), six more
+           with the f32 plane, f32 clocks, ``mass_eps`` 0.1 and ``k_extrap`` 1,
+           one module-timed superstep. Every superstep fires an event and ends
+           done, species sums are conserved, ``kmc_time`` is finite and
+           grows, each kernel's launches equal the K solves the model
+           counted and the iterations the fused kernel counted on the device
+           equal theirs, and the batched loop reads the device at most once
+           per batch (the fields' own reads are told apart by their source
+           file). Then the driver on the n_yz=24 sweep: a serial run
+           stopped by ``max_supersteps`` and resumed from its checkpoint must
+           give the uninterrupted sweep's metrics rows and final snapshot; the
+           same with ``batched_events=64`` must complete and conserve species.
+           The crossbar part then runs once more at n_yz=104 (1,081,600
+           slots) with three supersteps of each batched kind, under the same
+           checks. ``--crossbar-n-yz N[,N]`` picks other widths (the first at
+           full depth).
+
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered`` and ``tiled``, the card's name and power limit from nvidia-smi,
-and last ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]`` (of
-kernels, sweep, disordered, tiled) runs a part of it while developing.
-Needs one card, no network, and no JAX.
+``disordered``, ``tiled`` and ``batched``, the card's name and power limit from
+nvidia-smi, and last ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]``
+(of kernels, sweep, disordered, tiled, batched) runs a part of it while
+developing. Needs one card, no network, and no JAX.
 """
 
 from __future__ import annotations
@@ -124,6 +161,14 @@ BANDED_ELL_RTOL, BANDED_ELL_ATOL = 1e-5, 5e-5
 TILED_DIR = os.path.join(HERE, "build", "chip_smoke", "tiled_n32")
 TILED_N_YZ = 32
 TILED_N = 32 * 32 * 102
+BATCHED_DIR = os.path.join(HERE, "build", "chip_smoke", "batched")
+# crossbar widths: n_yz^2 x (10 + 22 + 8 + 10 slices) x 2 sublattices = 409,600 and
+# 1,081,600 slots; the first at six supersteps of each batched kind, the rest at three
+CROSSBAR_N_YZ = (64, 104)
+CROSSBAR_VD = 15.0
+N_REP = 512
+# two-sample KS critical D at alpha = 1e-3 with n = m = N_REP: 1.949 * sqrt(2 / n)
+KS_CRIT = 1.949 * math.sqrt(2.0 / N_REP)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 F64_FLOP_PER_S = 34e12           # H100 SXM, f64 outside the tensor cores
 
@@ -340,10 +385,7 @@ def check_dia_kernel(dev, dia, meta) -> dict:
     print("host_path_us " + json.dumps(host_path_us))
 
     nnz = int((diags != 0).sum())
-    n_bytes = D * n + D * 8 + 2 * n * 8 + 2 * n * 8   # codes + offsets + x, xv in + y, v out
-    n_ops = 2 * nnz + 3 * n                           # A/B add + V add per code; 2 mul + 1 add per row
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F64_FLOP_PER_S * 1e3
+    bound = matvec_bound(D, n, nnz)
     return {
         "name": "dia_combined_matvec",
         "route": "cuda",
@@ -355,16 +397,47 @@ def check_dia_kernel(dev, dia, meta) -> dict:
         "bitwise_equal_to_twin": True,
         "ms": times["kernel"],
         "plain_ms": times["plain"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
         "library_ms": times["library"],
         "library": "torch.sparse_csr_tensor @ vector, block-diagonal [[W, 0], [0, adjacency]]",
         "empty_kernel_ms": times["empty"],     # the floor of one launch on this grid
         "time_source": "profiler device time" if dev_ms["kernel"] is not None else "CUDA events",
         "call_ms": call_ms,                    # back-to-back calls, host launch gaps included
         "host_path_us": host_path_us,
-        "shape": {"D": D, "N": n, "nnz": nnz, "bytes": n_bytes, "ops": n_ops},
+        "shape": bound["shape"],
     }
+
+
+def matvec_bound(D: int, n: int, nnz: int) -> dict:
+    """The least time of one DIA matvec: its bytes over the memory rate or its
+    f64 operations over the peak rate, whichever is larger."""
+    n_bytes = D * n + D * 8 + 2 * n * 8 + 2 * n * 8   # codes + offsets + x, xv in + y, v out
+    n_ops = 2 * nnz + 3 * n                           # A/B add + V add per code; 2 mul + 1 add per row
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F64_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": {"D": D, "N": n, "nnz": nnz, "bytes": n_bytes, "ops": n_ops}}
+
+
+def cg_bound(D: int, n: int, nnz: int, nnz_cv: int, k: int) -> dict:
+    """The least time of one fused K solve that ran ``k`` iterations."""
+    # in: codes, offsets, two masks, five vectors; out: x and r
+    n_bytes = D * n + D * 8 + 2 * n + 5 * n * 8 + 2 * n * 8
+    # A is applied k times (2 flops per edge, 1 per conductive-vacancy edge, 4
+    # per row), and each of the k - 1 iterations adds 11 flops per row
+    n_ops = k * (2 * nnz + nnz_cv + 4 * n) + (k - 1) * 11 * n
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F64_FLOP_PER_S * 1e3
+    # what an iteration streams if nothing stays on the chip: the codes, two
+    # masks, and eleven passes over f64 vectors
+    iter_bytes = D * n + 2 * n + 11 * n * 8
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "iteration_bytes_bound_ms": iter_bytes / HBM_BYTES_PER_S * 1e3,
+            "shape": {"D": D, "N": n, "nnz": nnz, "nnz_into_cvac": nnz_cv, "bytes": n_bytes,
+                      "ops": n_ops, "iteration_bytes": iter_bytes}}
 
 
 def crossbar_state(p, lat, dev):
@@ -412,6 +485,34 @@ def random_k_system(rng, n, positive_offsets, dev):
                        inv_diag=torch.where(is_int, 1.0 / diag_i, 1.0), rhs=rhs, x0=x0)
 
 
+def compare_cg(name, op_c, ks, tol, max_it, want_regs):
+    """One fused K solve held bit-equal to ``dia_cg_solve_plain`` on the same
+    system: (the fused result, iterations, blocks, the twin's wall ms)."""
+    from akmc_tpu_torch.solvers import dia_cg
+
+    got = dia_cg.dia_cg_solve(op_c, *ks, tol, max_it)
+    blocks, regs = dia_cg.dia_cg_solve.last_grid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = dia_cg.dia_cg_solve_plain(op_c, *ks, tol, max_it)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    k = int(got.iterations)
+    if regs != want_regs:
+        fail(f"dia_cg_solve on {name}: rows in registers = {regs}, expected {want_regs}")
+    if k != ref.iterations:
+        fail(f"dia_cg_solve on {name}: {k} iterations, twin {ref.iterations}")
+    err = float((got.x - ref.x).abs().max())
+    same = (torch.equal(got.x, ref.x) and torch.equal(got.r, ref.r)
+            and torch.equal(got.residual_sq, ref.residual_sq))
+    if not same or not math.isfinite(err):
+        fail(f"dia_cg_solve is not bit-equal to its twin on {name}: max |x - x_twin| "
+             f"{err:.3e}, max |r - r_twin| {float((got.r - ref.r).abs().max()):.3e}")
+    print(f"chip_smoke: dia_cg_solve == twin on {name} (D={op_c.D}, N={op_c.n}, "
+          f"{k} iterations, {blocks} blocks, rows in registers: {regs})")
+    return got, k, blocks, plain_ms
+
+
 def check_dia_cg(dev, dia, meta, p, lat) -> dict:
     import ctypes
 
@@ -430,45 +531,25 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
     rtol = 1e-14 * (n - 2 * p.num_atoms_first_layer)     # the K solve's stop tolerance
     zeros = torch.zeros(n, dtype=torch.float64, device=dev)
 
-    def compare(name, op_c, ks, tol, max_it, want_regs):
-        got = dia_cg.dia_cg_solve(op_c, *ks, tol, max_it)
-        blocks, regs = dia_cg.dia_cg_solve.last_grid
-        torch.cuda.synchronize()
-        ref = dia_cg.dia_cg_solve_plain(op_c, *ks, tol, max_it)
-        k = int(got.iterations)
-        if regs != want_regs:
-            fail(f"dia_cg_solve on {name}: rows in registers = {regs}, expected {want_regs}")
-        if k != ref.iterations:
-            fail(f"dia_cg_solve on {name}: {k} iterations, twin {ref.iterations}")
-        err = float((got.x - ref.x).abs().max())
-        same = (torch.equal(got.x, ref.x) and torch.equal(got.r, ref.r)
-                and torch.equal(got.residual_sq, ref.residual_sq))
-        if not same or not math.isfinite(err):
-            fail(f"dia_cg_solve is not bit-equal to its twin on {name}: max |x - x_twin| "
-                 f"{err:.3e}, max |r - r_twin| {float((got.r - ref.r).abs().max()):.3e}")
-        print(f"chip_smoke: dia_cg_solve == twin on {name} (D={op_c.D}, N={op_c.n}, "
-              f"{k} iterations, {blocks} blocks, rows in registers: {regs})")
-        return got, k, blocks
-
     systems = {Vd: k_system(dia, meta, element, charge, zeros, Vd, *geom) for Vd in CG_BIASES}
-    cold = {Vd: compare(f"n_yz={N_YZ} crossbar, cold, Vd={Vd}", op, ks, rtol, 10000, True)
+    cold = {Vd: compare_cg(f"n_yz={N_YZ} crossbar, cold, Vd={Vd}", op, ks, rtol, 10000, True)
             for Vd, ks in systems.items()}
     warm_ks = k_system(dia, meta, element, charge, cold[CG_BIASES[0]][0].x, 2.0, *geom)
-    compare(f"n_yz={N_YZ} crossbar, warm from Vd={CG_BIASES[0]}, Vd=2.0", op, warm_ks,
-            rtol, 10000, True)
-    _, k_cut, _ = compare(f"n_yz={N_YZ} crossbar, max_iterations=10", op,
-                          systems[CG_BIASES[0]], rtol, 10, True)
+    compare_cg(f"n_yz={N_YZ} crossbar, warm from Vd={CG_BIASES[0]}, Vd=2.0", op, warm_ks,
+               rtol, 10000, True)
+    _, k_cut, _, _ = compare_cg(f"n_yz={N_YZ} crossbar, max_iterations=10", op,
+                                systems[CG_BIASES[0]], rtol, 10, True)
     if k_cut != 11:
         fail(f"a solve cut at max_iterations=10 must return k=11, got {k_cut}")
-    compare("random, far offsets", *random_k_system(rng, 4000, [1, 3, 1999, 2000], dev),
-            1e-10, 500, True)
+    compare_cg("random, far offsets", *random_k_system(rng, 4000, [1, 3, 1999, 2000], dev),
+               1e-10, 500, True)
     big = [1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610, 987, 1597, 2584, 150000]
-    compare("random, D=36, several chunks per block", *random_k_system(rng, 300_000, big, dev),
-            1e-10, 500, False)
+    compare_cg("random, D=36, several chunks per block", *random_k_system(rng, 300_000, big, dev),
+               1e-10, 500, False)
 
     # timing on the first cold solve of the sweep's operator
     Vd = CG_BIASES[0]
-    ks, (_, k, blocks) = systems[Vd], cold[Vd]
+    ks, (_, k, blocks, _) = systems[Vd], cold[Vd]
 
     def fused():
         return dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
@@ -516,16 +597,7 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
     nnz = int((op.diags != 0).sum())
     cv_f = ks.cvac.to(torch.float64)
     nnz_cv = int(op.matvec(cv_f, cv_f)[1].sum())      # edges into a conductive vacancy
-    # in: codes, offsets, two masks, five vectors; out: x and r
-    n_bytes = D * n + D * 8 + 2 * n + 5 * n * 8 + 2 * n * 8
-    # A is applied k times (2 flops per edge, 1 per conductive-vacancy edge, 4
-    # per row), and each of the k - 1 iterations adds 11 flops per row
-    n_ops = k * (2 * nnz + nnz_cv + 4 * n) + (k - 1) * 11 * n
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F64_FLOP_PER_S * 1e3
-    # what an iteration streams if nothing stays on the chip: the codes, two
-    # masks, and eleven passes over f64 vectors
-    iter_bytes = D * n + 2 * n + 11 * n * 8
+    bound = cg_bound(D, n, nnz, nnz_cv, k)
     return {
         "name": "dia_cg_solve",
         "route": "cuda",
@@ -536,8 +608,8 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
         "bitwise_equal_to_twin": True,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
         "library_ms": None,
         "library": None,                       # no single PyTorch call computes a CG
         "host_loop_ms": host_ms,               # jacobi_cg over the kernel matvec, same inputs
@@ -545,7 +617,7 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
         "iterations": k,
         "ms_per_iteration": ms / k,
         "host_loop_ms_per_iteration": host_ms / host_res.iterations,
-        "iteration_bytes_bound_ms": iter_bytes / HBM_BYTES_PER_S * 1e3,
+        "iteration_bytes_bound_ms": bound["iteration_bytes_bound_ms"],
         "call_ms": call_ms,                    # back-to-back solves, wrapper included
         "launch_only_call_ms": one_it_ms,      # max_iterations=0: start, two dots, no iteration
         "grid_blocks": blocks,
@@ -553,9 +625,36 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
         "grid_sync_ms": sync_ms,               # one sync of this grid with no work around it
         "time_source": "profiler device time" if dev_ms is not None else "CUDA events",
         "timed_case": f"n_yz={N_YZ} crossbar, cold start, Vd={Vd}",
-        "shape": {"D": D, "N": n, "nnz": nnz, "nnz_into_cvac": nnz_cv, "bytes": n_bytes,
-                  "ops": n_ops, "iteration_bytes": iter_bytes},
+        "shape": bound["shape"],
     }
+
+
+@contextlib.contextmanager
+def count_syncs(dev):
+    """A list that receives one warning per host synchronisation made inside
+    the block (CUDA only; on a CPU device it stays empty)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+
+
+def n_syncs(caught) -> int:
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def sync_sites(caught, top=12) -> dict:
+    """Where the synchronisations were made: the most frequent source lines."""
+    import collections
+
+    sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    return dict(sites.most_common(top))
 
 
 def drive(deck, workdir, **options):
@@ -574,20 +673,15 @@ def drive(deck, workdir, **options):
     dia_cg.reset_iterations_total("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as syncs:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")   # one warning per host synchronisation
-        try:
-            summary = driver.run(deck, workdir=workdir, log=False, **options)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    with count_syncs(torch.device("cuda")) as syncs:
+        summary = driver.run(deck, workdir=workdir, log=False, **options)
     torch.cuda.synchronize()
     counts = {
         "wall_s": time.perf_counter() - t0,
         "dia_launches": mv.dia_combined_matvec.launches,
         "dia_cg_launches": dia_cg.dia_cg_solve.launches,
         "cg_iterations_counted_on_device": dia_cg.iterations_total("cuda"),
-        "host_syncs": sum("synchroniz" in str(w.message) for w in syncs),
+        "host_syncs": n_syncs(syncs),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
@@ -647,6 +741,7 @@ def run_sweep():
         "kmc_time_max_rel_vs_golden": dist["kmc_time_max_rel"],
         "golden_kmc_rtol": GOLDEN_KMC_RTOL,
         "peak_mem_gb": counts["peak_mem_gb"],
+        "rows": rows,                # the metrics rows, for the batched phase's resume check
     }
     with open(WORKDIR + ".record.json", "w") as f:
         json.dump(got, f)       # for ``python -m akmc_tpu_torch.runtime.golden A B``
@@ -932,6 +1027,472 @@ def run_tiled(dev):
     return line, None
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the production event path
+# ---------------------------------------------------------------------------
+def species_sums(element) -> tuple:
+    """The three sums every event class conserves: V - Od, O + V, d + Od."""
+    from akmc_tpu_torch.lattice import ELEM
+
+    c = {e: int((element == int(e)).sum()) for e in
+         (ELEM.VACANCY, ELEM.OXYGEN_DEFECT, ELEM.O, ELEM.DEFECT)}
+    return (c[ELEM.VACANCY] - c[ELEM.OXYGEN_DEFECT], c[ELEM.O] + c[ELEM.VACANCY],
+            c[ELEM.DEFECT] + c[ELEM.OXYGEN_DEFECT])
+
+
+def replay_uniforms(seed, n, B, clock_f32):
+    """Seeded numpy uniforms in the order the batched loop asks for them:
+    u_clk (n,) in the clock's type, then u_slot (B,) f64, batch after batch."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield rng.random(n, dtype=np.float32) if clock_f32 else rng.random(n)
+        yield rng.random(B)
+
+
+def batched_replay(dev) -> dict:
+    """The batched loop on the card against the same loop on the CPU, from
+    one frozen fields state and the same uniforms."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops.events import ReplayDraws, run_event_loop_batched
+    from akmc_tpu_torch.state import make_device_state
+
+    _, _, p, lat = crossbar_dia(N_YZ)
+    model = VCMModel(p, lat, device=dev, rate_normalize=True)
+    t = model.tables
+    state = make_device_state(lat, p.background_temp, dev)
+    out = []
+    for Vd in (8.0, CROSSBAR_VD):
+        fr = model.fields(state, Vd)
+        n = fr.P.shape[0]
+        for B, clock_f32 in ((64, False), (16, True)):
+            res = {}
+            for where in (dev, torch.device("cpu")):
+                res[where.type] = run_event_loop_batched(
+                    state.element.to(where), fr.charge.to(where), fr.P.to(where, copy=True),
+                    fr.etype.to(where), t.act_neigh.to(where),
+                    ReplayDraws(replay_uniforms(int(Vd) * 100 + B, n, B, clock_f32)), p.freq,
+                    batch=B, act_idx=t.act_idx.to(where), abs2act=t.abs2act.to(where),
+                    ln_S=fr.ln_S.to(where), mass_eps=1e-3, clock_f32=clock_f32)
+            g, c = res[dev.type], res["cpu"]
+            if g.element.device.type != dev.type or g.P.device.type != dev.type:
+                fail(f"the replay for {dev} came back on {g.element.device}")
+            name = f"replay at {Vd} V, B={B}, clock_f32={clock_f32}"
+            counts = [(r.n_events, r.n_batches, r.n_cut_conflict, r.n_cut_mass, r.done)
+                      for r in (g, c)]
+            if counts[0] != counts[1]:
+                fail(f"{name}: card (events, batches, conflict cuts, mass cuts, done) "
+                     f"{counts[0]} != CPU {counts[1]}")
+            if not (torch.equal(g.element.cpu(), c.element) and torch.equal(g.charge.cpu(), c.charge)):
+                fail(f"{name}: elements or charges differ between the card and the CPU")
+            if not torch.equal(g.P.cpu() == 0.0, c.P == 0.0):
+                fail(f"{name}: the rate table's zero pattern differs")
+            rtol = 1e-6 if clock_f32 else 1e-12
+            rel = abs(g.event_time_h - c.event_time_h) / abs(c.event_time_h)
+            if not (g.done and g.n_events >= 1 and math.isfinite(g.event_time_h) and rel <= rtol):
+                fail(f"{name}: event_time {g.event_time_h!r} on the card, {c.event_time_h!r} on "
+                     f"the CPU (rtol {rtol}), events {g.n_events}, done {g.done}")
+            if species_sums(g.element) != species_sums(state.element):
+                fail(f"{name}: species sums not conserved")
+            out.append({"Vd": Vd, "B": B, "clock_f32": clock_f32, "rows": n,
+                        "events": g.n_events, "batches": g.n_batches,
+                        "cut_conflict": g.n_cut_conflict, "cut_mass": g.n_cut_mass,
+                        "event_time": g.event_time_h, "event_time_rel_card_vs_cpu": rel})
+            print(f"chip_smoke: batched loop, card == CPU on {name}: {g.n_events} events in "
+                  f"{g.n_batches} batches")
+    return {"cases": out}
+
+
+def ks_statistic(a, b) -> float:
+    """Two-sample Kolmogorov-Smirnov D: the largest gap between the two
+    empirical distribution functions."""
+    a, b = np.sort(a), np.sort(b)
+    both = np.concatenate([a, b])
+    return float(np.max(np.abs(np.searchsorted(a, both, side="right") / len(a)
+                               - np.searchsorted(b, both, side="right") / len(b))))
+
+
+def batched_law(dev) -> dict:
+    """Waiting time and event count of the batched loop against the serial
+    native loop, N_REP replicates each from one frozen table, on the card
+    with the device generator."""
+    from akmc_tpu_torch.models.crossbar import toy_device
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops.events import (
+        GeneratorDraws,
+        run_event_loop_batched,
+        run_event_loop_native,
+    )
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = toy_device()
+    model = VCMModel(p, lat, device=dev)
+    t = model.tables
+    state = make_device_state(lat, p.background_temp, dev)
+    fr = model.fields(state, 2.0)
+    common = dict(act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S)
+
+    def sample(kind, seed):
+        draws = GeneratorDraws.seeded(seed, dev)
+        times, counts = np.empty(N_REP), np.empty(N_REP)
+        t0 = time.perf_counter()
+        for i in range(N_REP):
+            args = (state.element, fr.charge, fr.P.clone(), fr.etype, t.act_neigh, draws, p.freq)
+            if kind == "serial":
+                r = run_event_loop_native(*args, zero_rows=t.act_zero_rows, **common)
+            else:
+                r = run_event_loop_batched(*args, batch=16, mass_eps=1e-3, **common)
+            times[i], counts[i] = r.event_time_h, r.n_events
+        if not np.isfinite(times).all():
+            fail(f"law: the {kind} loop ran the rate table empty")
+        return times, counts, time.perf_counter() - t0
+
+    t_ser, c_ser, s_ser = sample("serial", 1)
+    t_bat, c_bat, s_bat = sample("batched", 2)
+    d_time, d_count = ks_statistic(t_ser, t_bat), ks_statistic(c_ser, c_bat)
+    line = {"replicates": N_REP, "rows": int(fr.P.shape[0]), "ks_critical": KS_CRIT,
+            "ks_waiting_time": d_time, "ks_event_count": d_count,
+            "mean_events_serial": float(c_ser.mean()), "mean_events_batched": float(c_bat.mean()),
+            "serial_s": s_ser, "batched_s": s_bat,
+            "serial_ms_per_event": 1e3 * s_ser / float(c_ser.sum())}
+    print(f"chip_smoke: law: KS waiting time {d_time:.4f}, event count {d_count:.4f} "
+          f"(critical {KS_CRIT:.4f}); mean events {c_ser.mean():.2f} serial, "
+          f"{c_bat.mean():.2f} batched")
+    if not (d_time < KS_CRIT and d_count < KS_CRIT):
+        fail(f"law: KS D {d_time:.4f} (waiting time), {d_count:.4f} (event count) "
+             f">= {KS_CRIT:.4f}")
+    return line
+
+
+def crossbar_kernels(dev, model, state, n_yz: int, library: bool) -> dict:
+    """Both CUDA kernels on the crossbar's own operator and K system, as its
+    first superstep meets them (cold start at CROSSBAR_VD, the charges of
+    that superstep's charge update), each held bit-equal to its plain twin
+    and timed beside it: name -> the readings of the ``kernels`` line at this
+    shape. The fused CG must have taken its general kernel (rows not in
+    registers). ``library`` also times the one-call sparse product."""
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops.charge import update_charge_compact
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers.dia import k_system
+
+    p, t = model.params, model.tables
+    dia, meta = model.dia, model.dia_meta
+    op = dia.operator(meta)
+    n, D = op.n, op.D
+    where = f"n_yz={n_yz} crossbar"
+    charge = update_charge_compact(state.element, state.charge, t.neigh_idx, t.any_metal_nbr,
+                                   model.vmax)
+    ks = k_system(dia, meta, state.element, charge, state.potential_boundary, CROSSBAR_VD,
+                  p.high_G, p.low_G, p.num_atoms_first_layer)
+    rtol = 1e-14 * (n - 2 * p.num_atoms_first_layer)
+    got, k, blocks, cg_plain_ms = compare_cg(f"{where}, cold, Vd={CROSSBAR_VD}", op, ks, rtol,
+                                             10000, False)
+
+    # the matvec on the two kinds of input the solve gives it: the vacancy
+    # indicator (k_system's call) and a CG-shaped vector (the solution)
+    offs = op.offsets.tolist()
+    cv = ks.cvac.to(torch.float64)
+    xv = torch.where(ks.cvac, got.x, 0.0)
+    max_abs = 0.0
+    for name, a, b in (("vacancy indicator", cv, cv), ("K solution", got.x, xv)):
+        y, v = op.matvec(a, b)
+        y0, v0 = mv.dia_combined_matvec_plain(op.diags, offs, op.val_low, op.val_high, a, b)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y0) and torch.equal(v, v0)):
+            fail(f"DIA kernel is not bit-equal to its twin on {where}, {name}")
+        max_abs = max(max_abs, float((y - y0).abs().max()), float((v - v0).abs().max()))
+    print(f"chip_smoke: dia_combined_matvec == twin on {where} (D={D}, N={n})")
+
+    calls = {"kernel": lambda: op.matvec(got.x, xv),
+             "plain": lambda: mv.dia_combined_matvec_plain(op.diags, offs, op.val_low,
+                                                           op.val_high, got.x, xv)}
+    if library:
+        lib = library_product(op.diags, op.offsets, op.val_low, op.val_high, dev)
+        xcat = torch.cat([got.x, xv])
+        y, v = op.matvec(got.x, xv)
+        ref = torch.cat([y, v])
+        lib_err = float(((lib @ xcat) - ref).abs().max() / ref.abs().max())
+        if lib_err > MATVEC_RTOL:
+            fail(f"the library yardstick computes another function on {where} "
+                 f"(rel err {lib_err:.3e})")
+        calls["library"] = lambda: lib @ xcat
+    mv_ms, mv_call_ms = {}, {}
+    for name, fn in calls.items():
+        reps = 20 if name == "plain" else 200
+        mv_call_ms[name] = cuda_time_ms(fn, reps=reps)
+        dev_ms = device_ms(fn, reps=reps)
+        mv_ms[name] = dev_ms if dev_ms is not None else mv_call_ms[name]
+
+    def fused():
+        return dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
+
+    # a solve is one kernel of several milliseconds, so back-to-back solves by
+    # CUDA events time the kernel; the profiler's sum is printed beside it
+    cg_ms = cuda_time_ms(fused, reps=10, warmup=2)
+    cg_profiler_ms = device_ms(fused, reps=10)
+    nnz = int((op.diags != 0).sum())
+    nnz_cv = int(op.matvec(cv, cv)[1].sum())
+    mb, cb = matvec_bound(D, n, nnz), cg_bound(D, n, nnz, nnz_cv, k)
+    return {
+        "dia_combined_matvec": {
+            "n_yz": n_yz, "bitwise_equal_to_twin": True, "max_abs_err": max_abs,
+            "ms": mv_ms["kernel"], "plain_ms": mv_ms["plain"], "bound_ms": mb["bound_ms"],
+            "bound_by": mb["bound_by"], "library_ms": mv_ms.get("library"),
+            "call_ms": mv_call_ms, "shape": mb["shape"],
+        },
+        "dia_cg_solve": {
+            "n_yz": n_yz, "bitwise_equal_to_twin": True, "max_abs_err": 0.0,
+            "ms": cg_ms, "plain_ms": cg_plain_ms, "bound_ms": cb["bound_ms"],
+            "bound_by": cb["bound_by"], "library_ms": None, "iterations": k,
+            "ms_per_iteration": cg_ms / k, "time_source": "CUDA events",
+            "profiler_device_ms": cg_profiler_ms, "grid_blocks": blocks,
+            "rows_in_registers": False,
+            "iteration_bytes_bound_ms": cb["iteration_bytes_bound_ms"], "shape": cb["shape"],
+        },
+    }
+
+
+def batched_crossbar(dev, n_yz: int, depth: int, library: bool) -> dict:
+    """Supersteps of the production path on the full-width crossbar:
+    one serial, ``depth`` of each batched kind, one module-timed."""
+    from akmc_tpu_torch.models.crossbar import build_grid_crossbar
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops.events import GeneratorDraws
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    t0 = time.perf_counter()
+    p, lat = build_grid_crossbar(n_yz=n_yz, contact_slices=10, oxide_slices=22, ti_slices=8,
+                                 defect_fraction=0.1, vacancy_concentration=0.05, seed=0)
+    build_s = time.perf_counter() - t0
+    print(f"chip_smoke: crossbar n_yz={n_yz}: {lat.N} slots built in {build_s:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = VCMModel(p, lat, device=dev, rate_normalize=True)
+    model_s = time.perf_counter() - t0
+    desc = model.describe()
+    print(f"chip_smoke: crossbar model in {model_s:.1f} s: {desc}")
+    if lat.N != n_yz * n_yz * 50 * 2:
+        fail(f"the n_yz={n_yz} crossbar has {lat.N} slots, expected {n_yz * n_yz * 100}")
+    if n_yz >= CROSSBAR_N_YZ[0] and (desc["k_operator"], desc["pairwise"]) != ("dia", "tiled"):
+        fail(f"the crossbar model is {desc}, expected the DIA operator and tiled pairwise")
+
+    state = make_device_state(lat, p.background_temp, dev)
+    stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
+    draws = GeneratorDraws.seeded(7, dev)
+    sums0 = species_sums(state.element)
+    # the kernels against their twins at this path's shapes, before the counts
+    # are set to 0: these launches are not the path's
+    at_shape = (crossbar_kernels(dev, model, state, n_yz, library=library)
+                if dev.type == "cuda" else None)
+    mv.dia_combined_matvec.launches = 0
+    dia_cg.dia_cg_solve.launches = 0
+    dia_cg.reset_iterations_total(dev.type)
+    k_solves0, k_iterations0 = model.k_solves, model.k_iterations
+    steps, kmc_times = [], []
+    pb_prev2 = None
+
+    def step(kind, **kw):
+        nonlocal state, pb_prev2
+        pb_before = state.potential_boundary
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_syncs(dev) as caught:
+            if kind == "serial":
+                state, stats = model.superstep(state, CROSSBAR_VD, stream)
+            elif kind == "timed":
+                state, stats = model.superstep_timed(state, CROSSBAR_VD, stream)
+            else:
+                state, stats = model.superstep_native_batched(
+                    state, CROSSBAR_VD, draws, batch=64, pb_prev2=pb_prev2, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pb_prev2 = pb_before
+        syncs = n_syncs(caught)
+        row = {"kind": kind, "wall_s": wall, "events": stats["n_events"],
+               "event_time": stats["event_time"], "cg_iterations": stats["cg_iterations"], "host_syncs": syncs}
+        if kind not in ("serial", "timed"):
+            # the loop's host reads are those made from ops/events.py; the
+            # rest are the fields' own (cap flags, compactions, the K solve's
+            # iteration count), and their end is the model's ``fields_s``
+            nb = stats["n_batches"]
+            in_loop = n_syncs([w for w in caught if os.path.basename(w.filename) == "events.py"])
+            row.update(batches=nb, events_per_batch=stats["n_events"] / nb,
+                       cut_conflict=stats["n_cut_conflict"], cut_mass=stats["n_cut_mass"],
+                       host_syncs_in_loop=in_loop, host_syncs_in_fields=syncs - in_loop,
+                       fields_s=model.fields_s,
+                       loop_ms_per_batch=1e3 * (wall - model.fields_s) / nb,
+                       done=stats["done"], **kw)
+            if not stats["done"]:
+                fail(f"crossbar superstep {len(steps)} ({kind}) did not end done")
+            # no card, no count: the check is the card's
+            if dev.type == "cuda" and in_loop > nb:
+                fail(f"crossbar superstep {len(steps)}: the batched loop read the device "
+                     f"{in_loop} times in {nb} batches, at {sync_sites(caught)}")
+        else:
+            row["host_syncs_per_event"] = syncs / stats["n_events"]
+            if len(steps) == 0:
+                row["host_sync_sites"] = sync_sites(caught)
+        if kind == "timed":
+            row.update({k: stats[k] for k in
+                        ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")})
+        if stats["n_events"] < 1:
+            fail(f"crossbar superstep {len(steps)} ({kind}) fired no event")
+        kmc_times.append(float(state.kmc_time))
+        # every superstep adds a positive waiting time; in f64 a gap of 1e-13 s
+        # on a clock at 1e2 s may leave the sum where it was
+        if not (math.isfinite(kmc_times[-1]) and stats["event_time"] > 0.0
+                and (len(kmc_times) < 2 or kmc_times[-1] >= kmc_times[-2])):
+            fail(f"crossbar kmc_time not finite and increasing: {kmc_times}, "
+                 f"last waiting time {stats['event_time']}")
+        if species_sums(state.element) != sums0:
+            fail(f"crossbar superstep {len(steps)} ({kind}): species sums not conserved")
+        steps.append(row)
+        print(f"chip_smoke: crossbar superstep {len(steps) - 1} " + json.dumps(row))
+
+    step("serial")
+    for _ in range(depth):
+        step("batched", mass_eps=1e-3)
+    model.pair_f32 = True
+    for _ in range(depth):
+        step("batched production", mass_eps=0.1, clock_f32=True, k_extrap=1.0)
+    model.pair_f32 = False
+    step("timed")
+
+    launches = (mv.dia_combined_matvec.launches, dia_cg.dia_cg_solve.launches)
+    # one fused CG and one matvec (the conductive-vacancy degrees) per K
+    # solve; the model counts its solves, those repeated for a grown cap too
+    k_solves = model.k_solves - k_solves0
+    if k_solves < len(steps):
+        fail(f"{k_solves} K solves in {len(steps)} supersteps")
+    if dev.type == "cuda" and launches != (k_solves, k_solves):
+        fail(f"the crossbar path launched the DIA kernels {launches} times for {k_solves} K solves")
+    cg = model.k_iterations - k_iterations0
+    if dev.type == "cuda" and dia_cg.iterations_total(dev.type) != cg:
+        fail(f"the fused solves counted {dia_cg.iterations_total(dev.type)} iterations on the "
+             f"device, the model's K solves {cg}")
+    if k_solves == len(steps) and cg != sum(r["cg_iterations"] for r in steps):
+        fail(f"the K solves ran {cg} iterations, the supersteps report "
+             f"{sum(r['cg_iterations'] for r in steps)}")
+    tight = [r for r in steps if r["kind"] == "batched"]
+    loose = [r for r in steps if r["kind"] == "batched production"]
+
+    def summary(rows):
+        ev, nb = sum(r["events"] for r in rows), sum(r["batches"] for r in rows)
+        wall = sum(r["wall_s"] for r in rows)
+        loop = wall - sum(r["fields_s"] for r in rows)
+        return {"supersteps": len(rows), "events": ev, "batches": nb, "events_per_batch": ev / nb,
+                "wall_s_mean": wall / len(rows), "fields_s_mean": (wall - loop) / len(rows),
+                "loop_ms_per_batch": 1e3 * loop / nb, "loop_ms_per_event": 1e3 * loop / ev,
+                "superstep_ms_per_event": 1e3 * wall / ev,
+                "cg_iterations": [r["cg_iterations"] for r in rows]}
+
+    grid = dia_cg.dia_cg_solve.last_grid
+    return {
+        "n_yz": n_yz, "slots": lat.N, "Vd": CROSSBAR_VD, "model": desc,
+        "build_s": build_s, "model_s": model_s,
+        "serial": {k: steps[0][k] for k in ("wall_s", "events", "cg_iterations", "host_syncs")}
+        | {"ms_per_event": 1e3 * steps[0]["wall_s"] / steps[0]["events"]},
+        "batched_mass_eps_1e-3": summary(tight),
+        "batched_f32_plane_f32_clocks_mass_eps_0.1_k_extrap_1": summary(loose),
+        "module_timed": steps[-1],
+        "steps": steps, "kmc_time": kmc_times,
+        "dia_launches": launches[0], "dia_cg_launches": launches[1], "k_solves": k_solves,
+        "cg_iterations_counted_on_device": dia_cg.iterations_total(dev.type),
+        "kernels_at_this_shape": at_shape,
+        "dia_cg_grid": {"blocks": grid[0], "rows_in_registers": grid[1]} if grid else None,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None,
+    }
+
+
+def batched_driver(dev, serial_rows) -> dict:
+    """Checkpoint and resume through the driver on the n_yz=24 sweep, with the
+    serial loop (held against ``serial_rows``, the uninterrupted sweep's
+    metrics, and its final snapshot) and with ``batched_events=64``. A
+    checkpoint counts supersteps per bias point and this sweep makes one to
+    three of them per point, so it is saved after every superstep."""
+    from akmc_tpu_torch.lattice import read_xyz
+    from akmc_tpu_torch.runtime import driver
+    from akmc_tpu_torch.runtime.golden import _final_snapshot
+
+    def rows_of(workdir):
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        for r in rows:
+            r.pop("superstep_s")
+        return rows
+
+    def run(workdir, **kw):
+        return driver.run(DECK, workdir=workdir, log=False, synthesize_crossbar=N_YZ,
+                          device=dev, **kw)
+
+    shutil.rmtree(BATCHED_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    if serial_rows is None:
+        run(WORKDIR)
+        serial_rows = rows_of(WORKDIR)
+    else:
+        serial_rows = [{k: v for k, v in r.items() if k != "superstep_s"} for r in serial_rows]
+    stop = len(serial_rows) // 2
+    out = {"stopped_after": stop}
+    for name, kw in (("serial", {}), ("batched", dict(batched_events=64))):
+        workdir = os.path.join(BATCHED_DIR, name)
+        if kw:
+            whole = os.path.join(BATCHED_DIR, name + "_uninterrupted")
+            run(whole, **kw)
+        run(workdir, max_supersteps=stop, checkpoint_every=1, **kw)
+        run(workdir, resume_from=os.path.join(workdir, "checkpoint.npz"), **kw)
+        rows = rows_of(workdir)
+        if not kw:
+            if rows != serial_rows:
+                diff = next((i for i, (a, b) in enumerate(zip(rows, serial_rows)) if a != b),
+                            min(len(rows), len(serial_rows)))
+                fail(f"the resumed serial sweep's metrics differ from the uninterrupted "
+                     f"sweep's at row {diff} ({len(rows)} rows against {len(serial_rows)})")
+            a, b = _final_snapshot(workdir), _final_snapshot(WORKDIR)
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if os.path.relpath(a, workdir) != os.path.relpath(b, WORKDIR) or fa.read() != fb.read():
+                    fail(f"the resumed serial sweep's final snapshot {a} differs from {b}")
+        else:
+            for wd in (whole, workdir):
+                rws = rows_of(wd)
+                first = os.path.join(wd, f"Results_{rws[0]['bias']:.6f}", "snapshot_init.xyz")
+                if wd == workdir:      # rewritten by the resumed run: take the other run's
+                    first = first.replace(workdir, whole)
+                if species_sums(read_xyz(first)[0]) != species_sums(read_xyz(_final_snapshot(wd))[0]):
+                    fail(f"the batched sweep in {wd} does not conserve species")
+                if not all(r["n_events"] >= 1 and r["done"] and math.isfinite(r["kmc_time"])
+                           for r in rws):
+                    fail(f"a batched superstep in {wd} fired no event or did not end done")
+            if [(r["bias"], r["step"]) for r in rows][:stop] != [
+                    (r["bias"], r["step"]) for r in rows_of(whole)][:stop]:
+                fail("the interrupted batched sweep's first rows differ from the uninterrupted one's")
+        out[name] = {"supersteps": len(rows), "events": sum(r["n_events"] for r in rows)}
+        if kw:
+            out[name]["batches"] = sum(r["n_batches"] for r in rows)
+            out[name]["uninterrupted_events"] = sum(r["n_events"] for r in rows_of(whole))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"chip_smoke: driver checkpoint and resume: {json.dumps(out)}")
+    return out
+
+
+def run_batched(dev, widths, serial_rows):
+    """(batched line, None): each part fails the run on its own."""
+    line = {"replay": batched_replay(dev), "law": batched_law(dev),
+            "crossbar": batched_crossbar(dev, widths[0], depth=6, library=True)}
+    # the sparse-product yardstick is assembled on the host, which at the
+    # larger widths would take longer than every check of the phase
+    for n_yz in widths[1:]:
+        line[f"crossbar_n_yz_{n_yz}"] = batched_crossbar(dev, n_yz, depth=3, library=False)
+    line["driver"] = batched_driver(dev, serial_rows)
+    return line, None
+
+
 def _final_potentials_finite(workdir: str) -> bool:
     from akmc_tpu_torch.runtime.golden import _final_snapshot
 
@@ -940,14 +1501,18 @@ def _final_potentials_finite(workdir: str) -> bool:
     return bool(vals) and all(math.isfinite(v) for v in vals)
 
 
-PHASES = ("kernels", "sweep", "disordered", "tiled")
+PHASES = ("kernels", "sweep", "disordered", "tiled", "batched")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run (default: all)")
-    phases = ap.parse_args(argv).only.split(",")
+    ap.add_argument("--crossbar-n-yz", default=",".join(map(str, CROSSBAR_N_YZ)),
+                    help="widths of the batched phase's crossbar runs (default 64,104: 409,600 "
+                         "and 1,081,600 slots), the first at full depth")
+    args = ap.parse_args(argv)
+    phases = args.only.split(",")
     if set(phases) - set(PHASES):
         fail(f"--only takes phases of {PHASES}")
     if not torch.cuda.is_available():
@@ -969,8 +1534,18 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         dia, meta, p, lat = crossbar_dia(N_YZ)
         kernels = [check_dia_kernel(dev, dia, meta), check_dia_cg(dev, dia, meta, p, lat)]
-    for name, run in (("sweep", run_sweep), ("disordered", lambda: run_disordered(dev)),
-                      ("tiled", lambda: run_tiled(dev))):
+    sweep_rows = []
+
+    def sweep():
+        line, problem = run_sweep()
+        sweep_rows.extend(line.pop("rows"))
+        return line, problem
+
+    for name, run in (("sweep", sweep), ("disordered", lambda: run_disordered(dev)),
+                      ("tiled", lambda: run_tiled(dev)),
+                      ("batched", lambda: run_batched(
+                          dev, [int(n) for n in args.crossbar_n_yz.split(",")],
+                          sweep_rows or None))):
         if name in phases:
             t0 = time.perf_counter()
             lines[name], problem = run()
@@ -979,6 +1554,7 @@ def main(argv=None) -> int:
                 problems.append(problem)
     # launches on each path that runs the kernels, counted over that path alone
     for kern, key in zip(kernels, ("dia_launches", "dia_cg_launches")):
+        # top-level keys: the n_yz=24 sweep's shapes and launches
         if "sweep" in lines:
             kern["launches"] = lines["sweep"][key]
             kern["launches_per_superstep"] = kern["launches"] / lines["sweep"]["supersteps"]
@@ -986,6 +1562,16 @@ def main(argv=None) -> int:
             kern["launches_tiled_path"] = lines["tiled"][key]
         if "disordered" in lines:
             kern["launches_disordered_path"] = 0      # asserted: no DIA form there
+        # the crossbar path: the same keys once more, read at its shapes (the
+        # fused CG's general kernel there) and counted over its supersteps
+        for name, line in lines.get("batched", {}).items():
+            if name.startswith("crossbar"):
+                kern[name + "_path"] = {"launches": line[key],
+                                        **line["kernels_at_this_shape"][kern["name"]]}
+    if kernels:                      # now in the kernels line
+        for name, line in lines.get("batched", {}).items():
+            if name.startswith("crossbar"):
+                del line["kernels_at_this_shape"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -241,3 +241,94 @@ def test_pairwise_paths_card_match_cpu(card, plane_f32):
         else dict(rtol=1e-12, atol=1e-18)
     torch.testing.assert_close(g[3], c[3], **tol)
     torch.testing.assert_close(g[5], c[5], rtol=1e-12, atol=1e-18)
+
+
+# ------------------------------------------------------------------
+# the production event loops: plain PyTorch on both devices, fed the same
+# replayed uniforms. Everything after the draws is deterministic, so the card
+# must fire the CPU's events (this is what catches a scatter that depends on
+# write order, or a top-k that breaks ties another way).
+
+def _frozen_table(dev):
+    """The toy crossbar's rate table at 15 V with shifted-exponent rates."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = build_grid_crossbar(n_yz=6, contact_slices=2, oxide_slices=6, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    model = VCMModel(p, lat, device=dev, rate_normalize=True)
+    state = make_device_state(lat, p.background_temp, torch.device(dev))
+    return p, model, state, model._fields_grown(state, 15.0)
+
+
+def _uniforms(seed, shapes_dtypes):
+    rng = np.random.default_rng(seed)
+    while True:
+        for shape, dtype in shapes_dtypes:
+            yield rng.random(shape, dtype=dtype)
+
+
+def _loop_on(dev, loop, make_draws, **kw):
+    from akmc_tpu_torch.ops import events as ev
+
+    p, model, state, fr = _frozen_table("cpu")
+    t = model.tables
+    to = lambda a: a.to(dev)  # noqa: E731
+    fn = getattr(ev, loop)
+    return fn(to(state.element), to(fr.charge), fr.P.to(dev, copy=True), to(fr.etype),
+              to(t.act_neigh), ev.ReplayDraws(make_draws(fr.P.shape[0])), p.freq,
+              act_idx=to(t.act_idx), abs2act=to(t.abs2act), ln_S=to(fr.ln_S), **kw)
+
+
+def _same_events(g, c, rtol):
+    assert g.element.is_cuda and g.P.is_cuda
+    assert torch.equal(g.element.cpu(), c.element) and torch.equal(g.charge.cpu(), c.charge)
+    assert torch.equal(g.P.cpu() == 0.0, c.P == 0.0)
+    assert (g.n_events, g.done) == (c.n_events, c.done) and g.n_events >= 1
+    assert g.event_time_h == pytest.approx(c.event_time_h, rel=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clock_f32", [False, True], ids=["f64-clocks", "f32-clocks"])
+@pytest.mark.parametrize("mass_eps", [1e-3, 0.1])
+@pytest.mark.parametrize("B", [4, 16])
+def test_batched_loop_card_matches_cpu(card, B, mass_eps, clock_f32):
+    clock = np.float32 if clock_f32 else np.float64
+
+    def draws(n):
+        return _uniforms(B, [(n, clock), (B, np.float64)])
+
+    # 48 batches: with f32 clocks the loop can spin once only rows are left
+    # whose shifted rates underflow f32 (their clocks are inf, as in akmc_tpu)
+    kw = dict(batch=B, mass_eps=mass_eps, clock_f32=clock_f32, max_batches=48)
+    g = _loop_on(card, "run_event_loop_batched", draws, **kw)
+    c = _loop_on("cpu", "run_event_loop_batched", draws, **kw)
+    _same_events(g, c, 1e-6 if clock_f32 else 1e-12)
+    assert (g.n_batches, g.n_cut_conflict, g.n_cut_mass) == (
+        c.n_batches, c.n_cut_conflict, c.n_cut_mass)
+
+
+@pytest.mark.cuda
+def test_native_loop_card_matches_cpu(card):
+    def draws(n):
+        return _uniforms(1, [(2, np.float64)])
+
+    g = _loop_on(card, "run_event_loop_native", draws)
+    c = _loop_on("cpu", "run_event_loop_native", draws)
+    _same_events(g, c, 1e-12)
+    assert g.draws_used == c.draws_used == 2 * g.n_events
+
+
+@pytest.mark.cuda
+def test_topk_smallest_card_matches_cpu(card):
+    from akmc_tpu_torch.ops.events import _topk_smallest
+
+    rng = np.random.default_rng(0)
+    for n, B in ((1000, 16), (16384, 64)):
+        tau = rng.exponential(size=n)
+        tau[rng.random(n) < 0.7] = np.inf
+        tau[rng.integers(0, n, 40)] = 0.25
+        for t in (torch.from_numpy(tau), torch.from_numpy(tau.astype(np.float32))):
+            v0, i0 = _topk_smallest(t, B)
+            v1, i1 = _topk_smallest(t.to(card), B)
+            assert torch.equal(v1.cpu(), v0) and torch.equal(i1.cpu(), i0)
