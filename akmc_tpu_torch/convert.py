@@ -18,7 +18,9 @@ from akmc_tpu_torch.lattice import Lattice
 from akmc_tpu_torch.models.vcm import FieldsResult, StaticTables
 from akmc_tpu_torch.ops.pairwise import PairTiling
 from akmc_tpu_torch.solvers.banded import BandedK, BandMeta, KCarry
+from akmc_tpu_torch.solvers.current import CurrentTables, PowerSystem
 from akmc_tpu_torch.solvers.dia import make_dia
+from akmc_tpu_torch.solvers.heat import LocalHeat
 from akmc_tpu_torch.rng import BufferedStream
 from akmc_tpu_torch.state import DeviceState
 
@@ -111,6 +113,7 @@ def tables(t, device="cpu") -> StaticTables:
         k_neigh_idx=tensor(t.k_neigh_idx, device),
         any_metal_nbr=tensor(t.any_metal_nbr, device),
         metal_edge=tensor(t.metal_edge, device),
+        metal_or_edge=tensor(t.metal_or_edge, device),
         E_gen=tensor(t.E_gen, device),
         E_rec=tensor(t.E_rec, device),
         E_Vdiff=tensor(t.E_Vdiff, device),
@@ -124,6 +127,32 @@ def tables(t, device="cpu") -> StaticTables:
         pair_table=None if t.pair_gT is None else tensor(t.pair_gT.full, device),
         pair_tiling=None if t.pair_tiling is None else pair_tiling(t.pair_tiling, device),
     )
+
+
+def current_tables(ct, device="cpu") -> CurrentTables:
+    """CurrentTables from akmc_tpu's (the atom tables of the current solver)."""
+    return CurrentTables(**{
+        name: tensor(getattr(ct, name), device) if name not in ("n_inj", "n_ext")
+        else int(getattr(ct, name))
+        for name in ct._fields
+    })
+
+
+def power_system(ps, device="cpu") -> PowerSystem:
+    """PowerSystem from akmc_tpu's (one superstep's transmission-system pieces;
+    the W blocks keep their type, f32 under ``wkb_f32``)."""
+    return PowerSystem(
+        G_nbr=tensor(ps.G_nbr, device), vac_idx=tensor(ps.vac_idx, device),
+        W_tt=tensor(ps.W_tt, device), W_ct=tensor(ps.W_ct, device),
+        W_cc=tensor(ps.W_cc, device), diag=tensor(ps.diag, device),
+        diag0=float(ps.diag0), diag1=float(ps.diag1),
+    )
+
+
+def local_heat(lh, device="cpu") -> LocalHeat:
+    """LocalHeat from akmc_tpu's (the local heat model's static tables)."""
+    return LocalHeat(if_mask=tensor(lh.if_mask, device), neigh_idx=tensor(lh.neigh_idx, device),
+                     deg=tensor(lh.deg, device), n_if=int(lh.n_if))
 
 
 def fields(fr, device="cpu") -> FieldsResult:

@@ -131,6 +131,19 @@ def site_dist(
     return np.sqrt((d**2).sum(-1))
 
 
+def _dist2(p1: np.ndarray, p2: np.ndarray, lattice: Sequence[float], pbc: bool) -> np.ndarray:
+    """Squared distance of position rows, PBC in y/z only, as
+    ``akmc_tpu/lattice_jax.py::_block_dist2`` forms it."""
+    d = p1 - p2
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    if pbc:
+        dy = dy / lattice[1]
+        dy = (dy - np.round(dy)) * lattice[1]
+        dz = dz / lattice[2]
+        dz = (dz - np.round(dz)) * lattice[2]
+    return dx * dx + dy * dy + dz * dz
+
+
 def _candidate_pairs(pos, radius, lattice, pbc) -> np.ndarray:
     """(M, 2) index pairs i < j that can lie within ``radius``: a superset
     from a k-d tree, periodic in y/z when ``pbc``."""
@@ -153,6 +166,7 @@ def build_neighbor_list(
     lattice: Optional[Sequence[float]] = None,
     pbc: bool = False,
     strict: bool = True,
+    squared: bool = False,
 ) -> np.ndarray:
     """Padded neighbor table: for each site i, ascending indices j != i with
     dist(i, j) < nn_dist, -1 padded to ``max_num_neighbors``. The reference's
@@ -167,6 +181,12 @@ def build_neighbor_list(
 
     ``strict=True`` raises if any site exceeds ``max_num_neighbors`` (the
     reference silently truncates — pass strict=False to reproduce that).
+
+    ``squared=True`` keeps a pair by its squared distance against nn_dist^2
+    instead (dx*dx + dy*dy + dz*dz, PBC terms as ``site_dist`` forms them):
+    the rule of ``akmc_tpu/lattice_jax.py::_block_dist2``, which builds
+    akmc_tpu's atom table for the current solver. The two rules can part
+    only on a pair within a rounding of the cutoff.
     """
     n = pos.shape[0]
     lat = lattice if lattice is not None else (0.0, 1.0, 1.0)
@@ -174,10 +194,11 @@ def build_neighbor_list(
     a, b = pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64)
     # the expression is even in p_i - p_j (np.round is odd), so one test
     # decides both directions
-    keep = site_dist(pos[a], pos[b], lat, pbc) < nn_dist
+    if squared:
+        keep = _dist2(pos[a], pos[b], lat, pbc) < nn_dist * nn_dist
+    else:
+        keep = site_dist(pos[a], pos[b], lat, pbc) < nn_dist
     a, b = a[keep], b[keep]
-    rows = np.concatenate([a, b])
-    cols = np.concatenate([b, a])
     rows = np.concatenate([a, b])
     cols = np.concatenate([b, a])
     order = np.lexsort((cols, rows))

@@ -18,7 +18,10 @@ committed-parity path of ``akmc_tpu/models/vcm.py::VCMModel.superstep``
 (``superstep_timed``: the same with each module timed apart);
 ``superstep_native`` and ``superstep_native_batched`` are the production
 paths, which draw their own uniforms and, batched, fire many events per loop
-iteration.
+iteration. ``superstep_full`` is the full-physics superstep (``--full-physics``):
+the fields, then the current and dissipated power on this superstep's charge,
+then the events, then the heat model over their time; ``update_cb_edge`` solves
+the conduction-band edge once per bias point.
 """
 
 from __future__ import annotations
@@ -55,8 +58,21 @@ from akmc_tpu_torch.solvers.banded import (
     build_banded_k,
     solve_potential_boundary_banded,
 )
+from akmc_tpu_torch.solvers.current import (
+    CurrentTables,
+    build_current_tables,
+    build_power_band,
+    build_power_system,
+    solve_power,
+)
 from akmc_tpu_torch.solvers.dia import DiaK, build_dia_k, solve_potential_boundary_dia
-from akmc_tpu_torch.solvers.poisson import solve_potential_boundary
+from akmc_tpu_torch.solvers.heat import (
+    LocalHeat,
+    build_local_heat,
+    update_temperature_global,
+    update_temperature_local_ref,
+)
+from akmc_tpu_torch.solvers.poisson import solve_cb_edge, solve_potential_boundary
 from akmc_tpu_torch.state import DeviceState
 
 _ACTIVE = (ELEM.DEFECT, ELEM.O, ELEM.VACANCY, ELEM.OXYGEN_DEFECT)
@@ -71,6 +87,7 @@ class StaticTables:
     k_neigh_idx: torch.Tensor    # (N, NN) int64 PBC-aware K adjacency, -1 padded
     any_metal_nbr: torch.Tensor  # (N,) bool
     metal_edge: torch.Tensor     # (N, NN) bool: metal_i & metal_j on k_neigh_idx
+    metal_or_edge: torch.Tensor  # (N, NN) bool: metal_i | metal_j on k_neigh_idx (CB edge)
     E_gen: torch.Tensor          # (num_layers,) f64 [eV]
     E_rec: torch.Tensor
     E_Vdiff: torch.Tensor
@@ -126,6 +143,9 @@ class VCMModel:
         pair_cand_cap: Optional[int] = None,
         pair_tiling_min_n: int = 100_000,
         pair_f32: bool = False,
+        ne_max: int = 2048,
+        wkb_f32: bool = False,
+        power_rtol_scale: float = 1.0,
     ):
         """``qmax``/``vmax``: static caps on the charged and vacancy counts
         (sized from the initial population; doubled on overflow).
@@ -139,8 +159,23 @@ class VCMModel:
         charged-candidate cap of the tiled path; None sizes it from the
         initial charged population with 1.5x headroom; doubled on overflow.
         ``pair_f32``: the tiled plane in f32 (the f64 plane is the default
-        and the oracle)."""
+        and the oracle).
+
+        Full physics: ``ne_max`` caps the contact-trap energy loop (WKB);
+        ``wkb_f32`` evaluates the W_tt / W_ct / W_cc transmission planes in
+        f32 (Kahan-compensated integral; f64 is the default and the oracle);
+        ``power_rtol_scale`` is the default multiplier on the power CG's
+        relative tolerance."""
         self.params, self.lat = params, lat
+        self.ne_max = int(ne_max)
+        self.wkb_f32 = bool(wkb_f32)
+        self.power_rtol_scale = power_rtol_scale
+        self._current_tables: Optional[CurrentTables] = None
+        self._power_band_built = False
+        self._power_band = self._power_band_meta = None
+        self._local_heat: Optional[LocalHeat] = None
+        self.cb_iterations = 0      # CG iterations of the last ``update_cb_edge``
+        self.power_timing = {}      # host seconds of the last power solve's parts
         self.device = dev = resolve_device(device)
         self.rate_normalize = bool(rate_normalize)
         self.pair_cand_cap = pair_cand_cap
@@ -214,6 +249,9 @@ class VCMModel:
             ),
             metal_edge=torch.as_tensor(
                 is_metal_np[:, None] & is_metal_np[kjc] & (lat.k_neigh_idx >= 0), device=dev
+            ),
+            metal_or_edge=torch.as_tensor(
+                (is_metal_np[:, None] | is_metal_np[kjc]) & (lat.k_neigh_idx >= 0), device=dev
             ),
             E_gen=torch.tensor([l.E_gen_0 for l in layers], **f64),
             E_rec=torch.tensor([l.E_rec_1 for l in layers], **f64),
@@ -589,6 +627,189 @@ class VCMModel:
             state, fr, res, n_batches=res.n_batches, done=res.done,
             n_cut_conflict=res.n_cut_conflict, n_cut_mass=res.n_cut_mass,
         )
+
+
+    # ------------------------------------------------------------------
+    # full physics: CB edge, current and dissipated power, heat
+    # (update_power_gpu, current_solver_gpu.cu:2382-2573; heat_solver.cpp)
+    # ------------------------------------------------------------------
+    def update_cb_edge(self, state: DeviceState, Vd: float) -> DeviceState:
+        """The conduction-band edge at bias ``Vd`` (once per bias point)."""
+        p, t = self.params, self.tables
+        cb, res = solve_cb_edge(
+            state.element, state.charge, state.cb_edge, t.k_neigh_idx, t.metal_or_edge, Vd,
+            p.high_G * 100000, p.low_G, p.num_atoms_first_layer,
+        )
+        self.cb_iterations = res.iterations
+        return state.replace(cb_edge=cb)
+
+    @property
+    def current_tables(self) -> CurrentTables:
+        if self._current_tables is None:
+            p, lat = self.params, self.lat
+            pos = np.stack([lat.x, lat.y, lat.z], axis=1)
+            # rail-tie counts are ATOM counts (create_X indexes the atom array,
+            # current_solver_gpu.cu:2296-2306): grid-native crossbar slices
+            # interleave NULL placeholder slots, so count the physical atoms of
+            # the first and last slot slice
+            L = p.num_atoms_first_layer
+            not_atom = (int(ELEM.DEFECT), int(ELEM.OXYGEN_DEFECT), int(ELEM.NULL_ELEMENT))
+            n_inj = int((~np.isin(lat.element0[:L], not_atom)).sum())
+            n_ext = int((~np.isin(lat.element0[-L:], not_atom)).sum())
+            self._current_tables = build_current_tables(
+                lat.element0, pos, np.asarray(p.lattice), bool(p.pbc), p.nn_dist, p.metals,
+                n_inj, n_ext, p.num_layers_contact, max_num_neighbors=p.max_num_neighbors,
+            ).to(self.device)
+        return self._current_tables
+
+    @property
+    def n_atom(self) -> int:
+        return int(self.current_tables.atom_ind.shape[0])
+
+    @property
+    def power_band(self):
+        """The static int8 band over the atom adjacency for ``solve_power``'s
+        neighbor part (``build_power_band``; None: the gather operator)."""
+        if not self._power_band_built:
+            ct = self.current_tables
+            built = build_power_band(
+                ct, np.asarray(self.lat.element0)[ct.atom_ind.cpu().numpy()],
+                self.params.high_G * 100000, self.params.low_G,
+            )
+            if built is not None:
+                self._power_band, self._power_band_meta = built[0].to(self.device), built[1]
+            self._power_band_built = True
+        return self._power_band
+
+    @property
+    def local_heat(self) -> LocalHeat:
+        if self._local_heat is None:
+            self._local_heat = build_local_heat(
+                self.lat.neigh_idx, self.lat.N, self.params.num_atoms_contact
+            ).to(self.device)
+        return self._local_heat
+
+    def _power(self, element, charge, cb_edge, m_prev, Vd, rtol_scale):
+        """Current and dissipated power on (element, charge, cb_edge): (I_macro
+        (0-d), site power (N,), m (N_atom+2,), CG iterations). The vacancy count
+        must not exceed ``vmax``. ``power_timing`` keeps the host seconds of
+        the W-block build and of the solve, the energy-loop bounds, the
+        iterations and, on a CUDA device, three CUDA events recorded before
+        the build, between build and solve and after the solve
+        (``device_marks``: device time once they have completed)."""
+        p, ct = self.params, self.current_tables
+        high_G = p.high_G * 100000          # kmc_main.cpp:294-302 constants
+        loop_G = p.high_G * 10000000
+        G0 = 2 * 3.8612e-5 * 1e-5
+        tol = p.q * 0.01
+        alpha = 1.0                          # kmc_main.cpp:302 (p.alpha unused)
+
+        marks = [self._device_mark()]
+        t0 = time.perf_counter()
+        atom_elem = element[ct.atom_ind]
+        atom_charge = charge[ct.atom_ind]
+        ps, wkb = build_power_system(
+            ct, atom_elem, atom_charge, cb_edge[ct.atom_ind], self._lattice_t, bool(p.pbc),
+            p.nn_dist, high_G, p.low_G, loop_G, tol, p.m_e, p.V0,
+            vmax=self.vmax, ne_max=self.ne_max, wkb_f32=self.wkb_f32,
+        )
+        t1 = time.perf_counter()
+        marks.append(self._device_mark())
+        pband = self.power_band
+        cvac = (atom_elem == int(ELEM.VACANCY)) & (atom_charge == 0)
+        I_macro, atom_power, m, iters = solve_power(
+            ct, ps, Vd, high_G, loop_G, G0, alpha, m_prev, atom_elem,
+            band=pband, band_meta=self._power_band_meta if pband is not None else None,
+            cvac=cvac, nn_dist=p.nn_dist, lattice=self._lattice_t, pbc=bool(p.pbc),
+            rtol_scale=rtol_scale,
+        )
+        site_power = torch.zeros(element.shape[0], dtype=atom_power.dtype, device=self.device)
+        site_power[ct.atom_ind] = atom_power
+        marks.append(self._device_mark())
+        self.power_timing = {"wkb_build_s": t1 - t0, "power_solve_s": time.perf_counter() - t1,
+                             "ct_loop_bounds": list(wkb.ct_bounds), "iterations": iters,
+                             "device_marks": marks if marks[0] is not None else None}
+        return I_macro, site_power, m, iters
+
+    def _device_mark(self):
+        """A timing event recorded on the current CUDA stream (None off CUDA)."""
+        if self.device.type != "cuda":
+            return None
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        return mark
+
+    def update_power(self, state: DeviceState, Vd: float, m_prev=None, rtol_scale=None):
+        """Current and dissipated power on ``state``: (state with its power,
+        I_macro [A], m, power CG iterations). ``vmax`` grows first if the
+        vacancies outnumber it."""
+        if m_prev is None:
+            m_prev = torch.zeros(self.n_atom + 2, dtype=torch.float64, device=self.device)
+        if rtol_scale is None:
+            rtol_scale = self.power_rtol_scale
+        while self._grow(False, bool(torch.sum(state.element == int(ELEM.VACANCY)) > self.vmax),
+                         False):
+            pass
+        I_macro, site_power, m, iters = self._power(
+            state.element, state.charge, state.cb_edge, m_prev, Vd, rtol_scale)
+        return state.replace(power=site_power), float(I_macro), m, iters
+
+    def _heat(self, T_bg, temperature, site_power, element, event_time, event_time_h):
+        """(T_bg, temperature) after the heat model over ``event_time``: the
+        global capacitative model if ``solve_heating_global``, else the local
+        Laplacian model if ``solve_heating_local`` (steady state or transient
+        by the reference's rule, chosen on the host from ``event_time_h``),
+        else both unchanged."""
+        p = self.params
+        if p.solve_heating_global:
+            T_bg = update_temperature_global(
+                T_bg, site_power, event_time, p.dissipation_constant,
+                p.background_temp, p.t_ox, p.A, p.c_p,
+            )
+        elif p.solve_heating_local:
+            temperature = update_temperature_local_ref(
+                self.local_heat, temperature, site_power, element, event_time_h, p.delta_t,
+                p.tau, p.background_temp, p.nn_dist * 1e-10, p.k_th_interface,
+                p.k_th_vacancies,
+            )
+        return T_bg, temperature
+
+    def update_temperature(self, state: DeviceState, event_time: float) -> DeviceState:
+        """The heat update (Device::updateTemperature, heat_solver.cpp:55-97)
+        on the state's power over ``event_time``."""
+        T_bg, temperature = self._heat(
+            state.T_bg, state.temperature, state.power, state.element,
+            torch.tensor(float(event_time), dtype=torch.float64, device=self.device),
+            float(event_time),
+        )
+        return state.replace(T_bg=T_bg, temperature=temperature)
+
+    def superstep_full(
+        self, state: DeviceState, Vd: float, stream, m_prev=None,
+        rand_chunk: int = 8192, rtol_scale=None,
+    ) -> Tuple[DeviceState, dict, torch.Tensor]:
+        """The full-physics superstep, in the reference's module order
+        (kmc_main.cpp:334-508): the fields (caps grown first), the current
+        and dissipated power on this superstep's charge, the event loop to
+        its end, the heat model over this superstep's event time. Returns
+        (state', stats, m_warm): ``m_warm`` warm-starts the next power solve;
+        ``rtol_scale`` (default ``power_rtol_scale``) tightens the power CG."""
+        if m_prev is None:
+            m_prev = torch.zeros(self.n_atom + 2, dtype=torch.float64, device=self.device)
+        if rtol_scale is None:
+            rtol_scale = self.power_rtol_scale
+        fr = self._fields_grown(state, Vd)
+        I_macro, site_power, m_new, pow_iters = self._power(
+            state.element, fr.charge, state.cb_edge, m_prev, Vd, rtol_scale)
+        res, n_events = self._events_to_the_end(state.element, fr, stream, rand_chunk)
+        T_new, temp_new = self._heat(state.T_bg, state.temperature, site_power, res.element,
+                                     res.event_time, res.event_time_h)
+        I_h, T_h, P_h = torch.stack([I_macro, T_new, torch.sum(site_power)]).tolist()
+        new_state, stats = self._finish(
+            state, fr, res._replace(n_events=n_events), I_macro=I_h, T_bg=T_h,
+            power_cg_iterations=pow_iters, P_tot=P_h,
+        )
+        return new_state.replace(power=site_power, temperature=temp_new, T_bg=T_new), stats, m_new
 
 
 def _max_in_reach_count(

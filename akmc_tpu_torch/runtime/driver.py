@@ -8,6 +8,7 @@ plot_IV.py:26-38, extract_data.py:17-31), byte for byte the same lines as
 Usage:
     python -m akmc_tpu_torch.runtime.driver <parameters.txt> \
         [--synthesize-crossbar N_YZ] [--pair-f32] [--workdir DIR] [--device cuda|cpu] \
+        [--full-physics [--wkb-f32] [--power-rtol-scale auto|S]] \
         [--batched-events B [--clock-f32] [--mass-eps E] [--k-extrap C]] \
         [--module-timing] [--checkpoint-every N] [--resume-from checkpoint.npz]
 
@@ -48,7 +49,6 @@ _NOT_PORTED = {
     "steps_per_dispatch": (1, "an on-device event/CG loop"),
     "devices": (0, "torch.distributed scale-out"),
     "concern_split": (None, "torch.distributed scale-out"),
-    "wkb_f32": (False, "full physics"),
     "warmup": (False, "an on-device event/CG loop"),
 }
 
@@ -110,6 +110,8 @@ def run(
     dia_stacked: bool = False,
     dia_pallas: bool = False,
     pair_f32: bool = False,
+    wkb_f32: bool = False,
+    power_rtol_scale="auto",
     device=None,
     **not_ported,
 ) -> dict:
@@ -148,8 +150,6 @@ def run(
     p = KMCParameters.from_file(param_file)
     base_dir = os.path.dirname(os.path.abspath(param_file))
     full_physics = p.solve_current and not committed_parity
-    if full_physics:
-        raise _not_ported("--full-physics", "full physics")
     if not p.perturb_structure:
         raise _not_ported("a fields-only deck (perturb_structure = 0)", "an on-device event/CG loop")
     if not p.solve_potential:
@@ -188,12 +188,19 @@ def run(
             # shifted-exponent rates at high bias, as akmc_tpu's driver selects
             rate_normalize = bool(p.V_switch) and max(abs(v) for v in p.V_switch) >= 8.0
         model = VCMModel(p, lat, device=device, rate_normalize=rate_normalize,
-                         pair_f32=pair_f32)
+                         pair_f32=pair_f32, wkb_f32=wkb_f32)
         state = make_device_state(lat, p.background_temp, model.device)
         kmc_stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
         batch_draws = (GeneratorDraws.seeded(p.rnd_seed_kmc, model.device)
                        if batched_events else None)
         batched_pb_prev2 = None   # the previous superstep's K solution (extrapolated warm start)
+        m_warm = None             # the power solve's warm start across supersteps
+        # power-CG tolerance policy: I_macro is an extraction-rail
+        # cancellation, so a sub-nA superstep tightens the next solve 100x
+        # ("auto"); a float fixes the multiplier
+        rtol_auto = power_rtol_scale == "auto"
+        rtol_fixed = 1.0 if rtol_auto else float(power_rtol_scale)
+        last_I_macro = None
 
         # snapshots carry physical sites only (no NULL placeholder slots)
         snap_sel = np.asarray(lat.element0) != int(ELEM.NULL_ELEMENT)
@@ -235,6 +242,9 @@ def run(
             out.write(f"Applied Voltage = {_g(Vd)} V\n")
             out.write("--------------------------------\n")
 
+            if full_physics:
+                state = model.update_cb_edge(state, Vd)
+
             folder = os.path.join(workdir, f"Results_{Vd:.6f}")
             # hysteresis sweeps revisit bias values: suffix repeat visits
             # with the bias-point index
@@ -255,7 +265,17 @@ def run(
 
             while kmc_time < t_bias:
                 t0 = time.perf_counter()
-                if module_timing:
+                if full_physics:
+                    # charge -> potentials -> power -> events -> heat
+                    # (kmc_main.cpp:334-508; the power sees THIS superstep's charge)
+                    rscale = rtol_fixed
+                    if rtol_auto and last_I_macro is not None and abs(last_I_macro) < 1e-9:
+                        rscale = 1e-2
+                    state, stats, m_warm = model.superstep_full(
+                        state, Vd, kmc_stream, m_prev=m_warm, rtol_scale=rscale)
+                    last_I_macro = stats["I_macro"]
+                    stats["power_rtol_scale"] = rscale
+                elif module_timing:
                     state, stats = model.superstep_timed(state, Vd, kmc_stream)
                 elif batched_events:
                     # production throughput mode: the multi-event batched
@@ -284,6 +304,17 @@ def run(
                 out.write("Z - calculation time - potential from charges [s]"
                           f"{_g(stats.get('t_pairwise', dt))}\n")
                 out.write(f"Z - calculation time - kmc events [s]{_g(stats.get('t_events', dt))}\n")
+                I_macro = stats.get("I_macro")
+                if I_macro is not None:
+                    # scraper schema (postprocessing/plot_IV.py:33,
+                    # plot_conductance.py:34, plot_power.py:37; strings from
+                    # current_solver.cpp:277-278, 375)
+                    out.write(f"Current [uA]: {_g(I_macro * 1e6)}\n")
+                    out.write(f"Conductance [uS]: {_g(abs(I_macro / Vd) * 1e6)}\n")
+                    if p.solve_heating_global or p.solve_heating_local:
+                        out.write(f"Total dissipated power [mW]: {_g(stats['P_tot'] * 1e3)}\n")
+                if full_physics and p.solve_heating_global:
+                    out.write(f"Global temperature [K]: {stats['T_bg']:.16f}\n")
                 out.write(f"KMC time is: {_g(kmc_time)}\n")
 
                 if kmc_step_count % p.output_freq == 0:
@@ -328,6 +359,10 @@ def run(
         "snapshot_s": snapshot_s,
         "final_kmc_time": float(state.kmc_time),
         "model": model.describe(),
+        # K-system solves of the run and their CG iterations (every DIA
+        # kernel launch belongs to one of them)
+        "k_solves": model.k_solves,
+        "k_iterations": model.k_iterations,
     }
 
 
@@ -389,13 +424,22 @@ def main(argv=None):
                          "uniforms the run began with. Bias points skipped on "
                          "resume count as visited, so a repeated bias value "
                          "keeps its Results_<V>_<index> folder")
-    ap.add_argument("--full-physics", action="store_true", help="not ported yet")
+    ap.add_argument("--full-physics", action="store_true",
+                    help="run the current/power/heating branch on decks with "
+                         "solve_current = 1: CB edge per bias point, the current "
+                         "and dissipated power each superstep, the deck's heat model")
+    ap.add_argument("--wkb-f32", action="store_true",
+                    help="full physics: evaluate the WKB transmission planes "
+                         "(W_tt/W_ct/W_cc) in f32 (Kahan-compensated integral; f64 "
+                         "is the default)")
+    ap.add_argument("--power-rtol-scale", default="auto", metavar="S",
+                    help="full physics: the power CG's tolerance multiplier, 'auto' "
+                         "(default: 100x tighter after a sub-nA superstep) or a float")
     # akmc_tpu options this port does not run yet: accepted, and refused
     # with the ROADMAP item that ports them
     ap.add_argument("--steps-per-dispatch", type=int, default=1, help="not ported yet")
     ap.add_argument("--devices", type=int, default=0, help="not ported yet")
     ap.add_argument("--concern-split", default=None, help="not ported yet")
-    ap.add_argument("--wkb-f32", action="store_true", help="not ported yet")
     ap.add_argument("--warmup", action="store_true", help="not ported yet")
     args = ap.parse_args(argv)
     summary = run(
@@ -414,6 +458,8 @@ def main(argv=None):
         dia_stacked=args.dia_stacked,
         dia_pallas=args.dia_pallas,
         pair_f32=args.pair_f32,
+        wkb_f32=args.wkb_f32,
+        power_rtol_scale=args.power_rtol_scale,
         device=args.device,
         **{name: getattr(args, name) for name in _NOT_PORTED},
     )

@@ -14,7 +14,10 @@ mismatches ``compare`` finds apart from KMC times.
 
 It holds, per superstep, the bias, the event count, the CG iterations and
 the KMC time (from ``metrics.jsonl``), and the element column of the final
-snapshot as one digit per site.
+snapshot as one digit per site. A full-physics run (``--full-physics``) adds
+the current ``I_macro`` [A], the dissipated power ``P_tot`` [W], the
+background temperature ``T_bg`` [K], the power CG's tolerance multiplier
+``power_rtol_scale`` and its iterations ``power_cg_iterations``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ def _final_snapshot(workdir: str) -> str:
     return os.path.join(folder, f"snapshot_{max(steps)}.xyz")
 
 
+_KEYS = ("bias", "n_events", "cg_iterations", "kmc_time")
+_FULL_PHYSICS_KEYS = ("I_macro", "P_tot", "T_bg", "power_rtol_scale", "power_cg_iterations")
+
+
 def summarize(workdir: str) -> dict:
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f if line.strip()]
@@ -48,18 +55,25 @@ def summarize(workdir: str) -> dict:
     elements = "".join(str(int(NAME_TO_ELEMENT[ln.split()[0]])) for ln in lines if ln)
     return {
         "supersteps": [
-            {k: r[k] for k in ("bias", "n_events", "cg_iterations", "kmc_time")}
+            {k: r[k] for k in _KEYS + _FULL_PHYSICS_KEYS if k in r}
             for r in rows
         ],
         "final_elements": elements,
     }
 
 
-def compare(golden: dict, got: dict, kmc_rtol: float) -> list:
+def _rel(h: float, g: float) -> float:
+    return abs(h - g) / abs(g) if g else (0.0 if h == g else math.inf)
+
+
+def compare(golden: dict, got: dict, kmc_rtol: float,
+            current_rtol: float | None = None, power_rtol: float | None = None) -> list:
     """Mismatches of ``got`` against ``golden`` (empty when they agree):
     superstep count, per-superstep bias and events and the final elements
-    exactly, KMC times to ``kmc_rtol``. CG iteration counts are not
-    compared: a last-ulp change of the reduction order may move them."""
+    exactly, KMC times to ``kmc_rtol``, and, where given, each superstep's
+    ``I_macro`` to ``current_rtol`` and ``P_tot`` to ``power_rtol``
+    (relative). CG iteration counts are not compared: a last-ulp change of
+    the reduction order may move them."""
     bad = []
     gs, hs = golden["supersteps"], got["supersteps"]
     if len(gs) != len(hs):
@@ -71,6 +85,9 @@ def compare(golden: dict, got: dict, kmc_rtol: float) -> list:
         if not math.isclose(h["kmc_time"], g["kmc_time"], rel_tol=kmc_rtol, abs_tol=0.0):
             bad.append(f"superstep {i}: kmc_time {h['kmc_time']!r} != golden "
                        f"{g['kmc_time']!r} (rtol {kmc_rtol})")
+        for key, rtol in (("I_macro", current_rtol), ("P_tot", power_rtol)):
+            if rtol is not None and not _rel(h[key], g[key]) <= rtol:
+                bad.append(f"superstep {i}: {key} {h[key]!r} != golden {g[key]!r} (rtol {rtol})")
     ge, he = golden["final_elements"], got["final_elements"]
     if ge != he:
         diff = sum(a != b for a, b in zip(ge, he)) + abs(len(ge) - len(he))
@@ -87,8 +104,23 @@ def load(path: str) -> dict:
 
 
 def distance(golden: dict, got: dict) -> dict:
+    """How far ``got`` is from ``golden``: the largest relative KMC time
+    difference, the supersteps whose CG counts differ, the mismatches apart
+    from KMC times and, on full-physics records, the largest relative
+    ``I_macro`` and ``P_tot`` differences and the power CG's counts side by
+    side."""
     gs, hs = golden["supersteps"], got["supersteps"]
-    rel = [abs(h["kmc_time"] - g["kmc_time"]) / abs(g["kmc_time"]) for g, h in zip(gs, hs)]
+    pairs = list(zip(gs, hs))
+    rel = [_rel(h["kmc_time"], g["kmc_time"]) for g, h in pairs]
+    full = {}
+    if pairs and all("I_macro" in g and "I_macro" in h for g, h in pairs):
+        full = {
+            f"{key}_max_rel": max(_rel(h[key], g[key]) for g, h in pairs)
+            for key in ("I_macro", "P_tot")
+        }
+        full["power_cg_iterations"] = [
+            (g["power_cg_iterations"], h["power_cg_iterations"]) for g, h in pairs
+        ]
     return {
         "kmc_time_max_rel": max(rel) if rel else None,
         "cg_iterations_differ": [
@@ -97,6 +129,7 @@ def distance(golden: dict, got: dict) -> dict:
             if g["cg_iterations"] != h["cg_iterations"]
         ],
         "mismatches": compare(golden, got, math.inf),
+        **full,
     }
 
 

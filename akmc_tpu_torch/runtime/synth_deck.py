@@ -18,6 +18,10 @@ both drivers run the same sweep from the same files:
 
     python -m akmc_tpu_torch.runtime.synth_deck W [--n-yz 24]
     python -m akmc_tpu_torch.runtime.driver W/deck.txt --workdir W/out
+
+``write_heating_deck`` writes a copy of a deck with one of the two heat
+models switched on (``solve_heating_global`` or ``solve_heating_local``) and
+the heat constants of ``HEAT_CONSTANTS``.
 """
 
 from __future__ import annotations
@@ -59,6 +63,49 @@ def write_synth_deck(template: str, workdir: str, n_yz: int = 24) -> str:
         if n != 1:
             raise ValueError(f"the template deck must set {key!r} exactly once")
     deck = os.path.join(workdir, "deck.txt")
+    with open(deck, "w") as f:
+        f.write(text)
+    return deck
+
+
+# the heat-model constants of the toy full-physics tests
+# (tests/test_full_physics.py::_full_setup); ``A`` [m^2] is written apart, as the
+# deck's y-z cross-section
+HEAT_CONSTANTS = {
+    "dissipation_constant": "1e-13",
+    "t_ox": "5e-9",
+    "c_p": "1.92",
+    "delta_t": "1e-13",
+    "L_char": "3.5e-10",
+    "k_th_non_vacancy": "0.5",
+    "k_th_vacancies": "5.0",
+}
+
+
+def write_heating_deck(template: str, workdir: str, kind: str) -> str:
+    """``template`` with ``solve_heating_<kind> = 1`` (``kind`` is "global" or
+    "local"), the other heat model off, the constants of ``HEAT_CONSTANTS`` and
+    ``A`` = lattice[1] x lattice[2] of the deck, written to
+    ``<workdir>/deck_heating_<kind>.txt``; returns its path."""
+    if kind not in ("global", "local"):
+        raise ValueError(f"kind is 'global' or 'local', not {kind!r}")
+    with open(template) as f:
+        text = f.read()
+    lattice = re.search(r"(?m)^lattice = (.*)$", text).group(1).split()
+    values = {
+        "solve_heating_global": "1" if kind == "global" else "0",
+        "solve_heating_local": "1" if kind == "local" else "0",
+        **HEAT_CONSTANTS,
+        "A": f"{float(lattice[1])}e-10 {float(lattice[2])}e-10",
+    }
+    for key, value in values.items():
+        text, n = re.subn(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
+        if n > 1:
+            raise ValueError(f"the template deck sets {key!r} more than once")
+        if n == 0:
+            text = text.rstrip("\n") + f"\n{key} = {value}\n"
+    os.makedirs(workdir, exist_ok=True)
+    deck = os.path.join(workdir, f"deck_heating_{kind}.txt")
     with open(deck, "w") as f:
         f.write(text)
     return deck

@@ -1,0 +1,672 @@
+"""Current / dissipated-power solver (transmission-matrix linear system), as
+``akmc_tpu/solvers/current.py`` defines it.
+
+Reference: the dense ``update_power_gpu`` path (current_solver_gpu.cu:2382-2573,
+create_X 2175-2316) and its sparse + tunnel split (update_power_gpu_sparse_dist,
+1430-1855).
+
+System: nodes [0] = extraction, [1] = injection, [2 .. N_atom+2) = atoms
+(non-defect sites; the set is static, since events only exchange elements
+within the {V, O} / {Od, d} classes). The last atom is grounded. Terms:
+
+  * neighbor conductances (dist < nn_dist): -high_G for metal-metal or
+    neutral-vacancy pairs, else -low_G;
+  * WKB tunneling between non-neighbor tunnel-eligible pairs (vacancy <->
+    vacancy, vacancy <-> tunnel-window contact metal, metal <-> metal) with
+    |dE_CB| > tol:
+      trap/trap and contact/contact: T = exp(prefac * d/|dE| * (E1^1.5 - E2^1.5))
+                                     (E2 < 0: the E2 term drops, triangular barrier)
+      contact->trap: the same expression summed over the occupied contact
+                     energies E1 = V0*q + s*dE_step for s*dE_step < |dE|;
+  * injection/extraction rails: -high_G from node 1 to the first
+    num_source_inj atoms and from node 0 to the last num_ground_ext - 1
+    atoms (the reference's strict ``i > N - num_ground_ext`` is kept);
+  * -loop_G between nodes 0 and 1; rhs = (-loop_G*Vd, +loop_G*Vd, 0, ...).
+
+No (N_atom+2)^2 matrix is formed: the CG operator is the atom diagonal, the
+neighbor part (the static int8 atom band of ``build_power_band``, or a gather
+over the atom adjacency), the dense tunnel blocks W_tt / W_ct / W_cc on the
+compacted vacancy and contact lists, and the rail terms. The CG is the host
+loop of ``solvers/cg.py::jacobi_cg`` with the multiply + sum dot, one host
+read per iteration.
+
+The contact-trap energy integral runs its shared energy loop to a bound read
+on the host once per block (the largest eligible pair window): every term past
+a pair's own window is an exact masked zero. The steps are computed a plane of
+several energies at a time and added in ascending order one step at a time,
+as akmc_tpu's loop adds them (Kahan-compensated under ``wkb_f32``).
+
+Post-solve (scaled by G0): I_macro over the extraction rail; the per-atom
+dissipated power P_i = sum_j ineg_ij (m_j - m_i) with ineg the forward-current
+matrix (set_ineg, 2353-2379); site power = -alpha * P_i on non-metal atoms.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from akmc_tpu_torch.config import EV_TO_J, H_BAR
+from akmc_tpu_torch.lattice import ELEM, build_neighbor_list, metal_mask
+from akmc_tpu_torch.ops.compact import compact_mask
+from akmc_tpu_torch.solvers.cg import f64_vdot, jacobi_cg
+
+F64 = torch.float64
+
+
+@dataclass
+class CurrentTables:
+    """Static atom-level tables (the atom set never changes)."""
+
+    atom_ind: torch.Tensor        # (N_atom,) int64 site index of each atom
+    atom_pos: torch.Tensor        # (N_atom, 3) f64 [Angstrom]
+    atom_neigh_idx: torch.Tensor  # (N_atom, NNa) int64 atom-index adjacency, -1 pad
+    atom_is_metal: torch.Tensor   # (N_atom,) bool
+    metal_p: torch.Tensor         # (N_atom,) bool: metal in the tunnel window
+    contact_idx: torch.Tensor     # (NCp,) int64 atom indices of metal_p contacts,
+    #                               -1 padded to a 256-multiple (pad rows of the
+    #                               W_cc / W_ct blocks are exact zeros)
+    inj_tie: torch.Tensor         # (N_atom,) bool: tied to the injection node
+    ext_tie: torch.Tensor         # (N_atom,) bool: tied to the extraction node
+    n_inj: int
+    n_ext: int
+
+    def to(self, device) -> "CurrentTables":
+        return CurrentTables(**{
+            f.name: getattr(self, f.name).to(device)
+            if isinstance(getattr(self, f.name), torch.Tensor) else getattr(self, f.name)
+            for f in fields(self)
+        })
+
+
+def build_current_tables(
+    element0: np.ndarray,
+    pos: np.ndarray,                # (N, 3)
+    lattice: np.ndarray,
+    pbc: bool,
+    nn_dist: float,
+    metals: list,
+    num_source_inj: int,
+    num_ground_ext: int,
+    num_layers_contact: int,
+    max_num_neighbors: int = 52,
+) -> CurrentTables:
+    """Host-side construction (tensors on the CPU).
+
+    The atom adjacency keeps a pair when its squared distance, as
+    ``akmc_tpu/lattice_jax.py::_block_dist2`` computes it, lies below
+    nn_dist^2: the table of akmc_tpu's ``build_neighbor_list_device``, entry
+    for entry (``lattice.py::build_neighbor_list(squared=True)``)."""
+    # NULL placeholder slots (grid-native crossbars) are not atoms
+    is_atom = (
+        (element0 != int(ELEM.DEFECT))
+        & (element0 != int(ELEM.OXYGEN_DEFECT))
+        & (element0 != int(ELEM.NULL_ELEMENT))
+    )
+    atom_ind = np.nonzero(is_atom)[0]
+    n_atom = len(atom_ind)
+    apos = np.asarray(pos[atom_ind], np.float64)
+    a_nbr = build_neighbor_list(apos, nn_dist, max_num_neighbors, lattice, pbc,
+                                strict=True, squared=True)
+
+    am = metal_mask(element0[atom_ind], metals)
+    ai = np.arange(n_atom)
+    # tunnel-window contacts exclude the outer num_layers_contact-1 slices
+    # (create_X metal1p/metal2p, current_solver_gpu.cu:2206-2213)
+    metal_p = (
+        am
+        & (ai > (num_layers_contact - 1) * num_source_inj)
+        & (ai < n_atom - (num_layers_contact - 1) * num_ground_ext)
+    )
+    inj_tie = ai < num_source_inj
+    # reference quirk kept: strict '>', so num_ground_ext-1 atoms
+    # (create_X, current_solver_gpu.cu:2306)
+    ext_tie = ai > (n_atom - num_ground_ext)
+
+    cidx = np.nonzero(metal_p)[0]
+    ncp = max(256, -(-len(cidx) // 256) * 256)
+    cidx = np.concatenate([cidx, np.full(ncp - len(cidx), -1)])
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+
+    return CurrentTables(
+        atom_ind=t(atom_ind, torch.int64),
+        atom_pos=t(apos, F64),
+        atom_neigh_idx=t(a_nbr, torch.int64),
+        atom_is_metal=t(am),
+        metal_p=t(metal_p),
+        contact_idx=t(cidx, torch.int64),
+        inj_tie=t(inj_tie),
+        ext_tie=t(ext_tie),
+        n_inj=int(inj_tie.sum()),
+        n_ext=int(ext_tie.sum()),
+    )
+
+
+# ---------------------------------------------------------------------------
+# WKB tunneling coefficients
+# ---------------------------------------------------------------------------
+
+def _prefac(m_e: float) -> float:
+    return -(np.sqrt(2.0 * m_e) / H_BAR) * (2.0 / 3.0)
+
+
+def _wkb_single(dist_m, dE_abs, m_e, V0, f32: bool = False):
+    """Single-barrier transmission (trap/trap and contact/contact), create_X
+    else-branch (current_solver_gpu.cu:2258-2272). ``f32``: the plane in f32
+    with the cancellation-free form of (E1^1.5 - E2^1.5)/dE; the result stays
+    f32 (the W blocks are stored f32 under the ``wkb_f32`` lever)."""
+    prefac = _prefac(m_e)
+    if f32:
+        dist_m, dE_abs = dist_m.float(), dE_abs.float()
+        prefac = float(np.float32(prefac))
+        E1_np = np.float32(EV_TO_J * V0)
+    else:
+        E1_np = np.float64(EV_TO_J * V0)
+    E1 = torch.tensor(E1_np, dtype=dist_m.dtype, device=dist_m.device)
+    E2 = E1 - dE_abs
+    if f32:
+        # a^1.5 - b^1.5 = (a - b)(a + sqrt(ab) + b)/(sqrt(a) + sqrt(b)) with
+        # a - b = dE exactly: the division cancels, no near-equal subtraction
+        E2p = torch.clamp(E2, min=0.0)
+        expo_trap = prefac * dist_m * (
+            (E1 + torch.sqrt(E1 * E2p) + E2p) / (torch.sqrt(E1) + torch.sqrt(E2p))
+        )
+    else:
+        expo_trap = prefac * (dist_m / dE_abs) * (
+            float(E1_np**1.5) - torch.where(E2 > 0, E2, 0.0) ** 1.5
+        )
+    expo_tri = prefac * (dist_m / dE_abs) * float(E1_np**1.5)
+    # select-then-exp: one exp per pair
+    return torch.exp(torch.where(E2 > 0, expo_trap, expo_tri))
+
+
+# elements of one (steps, rows, cols) plane of the energy integral
+_PLANE_ELEMENTS = 1 << 24
+
+
+def _wkb_contact_trap(dist_m, dE_abs, m_e, V0, n_steps: int, mask=None, f32: bool = False):
+    """Energy-integrated transmission for contact<->trap pairs (create_X
+    contact_to_trap branch, current_solver_gpu.cu:2229-2256): the sum over
+    s = 0 .. n_steps-1 of the single-barrier term at E1 = q*V0 + s*dE_step,
+    masked to s*dE_step < |dE| (the reference's per-pair energy window).
+
+    ``mask`` (bool, optional): pairs whose integral is never read; their
+    exponents are kept in range and their result is 0. The steps are
+    evaluated several at a time as one (steps, rows, cols) plane and added
+    in ascending s, one step at a time (Kahan-compensated under ``f32``)."""
+    prefac = _prefac(m_e)
+    dE_step = EV_TO_J * 0.01
+    if mask is not None:
+        dE_abs = torch.where(mask, dE_abs, 1.0)
+        dist_m = torch.where(mask, dist_m, 1.0)
+    if f32:
+        prefac = float(np.float32(prefac))
+        dist_m, dE_abs = dist_m.float(), dE_abs.float()
+
+    # loop-invariant per-pair factors (the association order of the inline forms)
+    q_tri = prefac * (dist_m / dE_abs)
+    q_trap = (prefac * dist_m) if f32 else q_tri
+    acc = torch.zeros_like(dist_m)
+    comp = torch.zeros_like(dist_m)
+    dev = dist_m.device
+    per = max(1, _PLANE_ELEMENTS // max(1, dist_m.numel()))
+    bshape = (-1,) + (1,) * dist_m.dim()
+    for s0 in range(0, int(n_steps), per):
+        iv = torch.arange(s0, min(int(n_steps), s0 + per), dtype=F64, device=dev) * dE_step
+        E1 = EV_TO_J * V0 + iv
+        if f32:
+            # akmc_tpu compares the f64 step energy rounded to f32
+            E1, iv = E1.float(), iv.float()
+        E1, iv = E1.reshape(bshape), iv.reshape(bshape)
+        E2 = E1 - dE_abs
+        if f32:
+            E2p = torch.clamp(E2, min=0.0)
+            expo_trap = q_trap * (
+                (E1 + torch.sqrt(E1 * E2p) + E2p) / (torch.sqrt(E1) + torch.sqrt(E2p))
+            )
+        else:
+            expo_trap = q_trap * (E1**1.5 - torch.where(E2 > 0, E2, 0.0) ** 1.5)
+        expo_tri = q_tri * E1**1.5
+        term = torch.exp(torch.where(E2 > 0, expo_trap, expo_tri))
+        term = torch.where(iv < dE_abs, term, 0.0)
+        for k in range(term.shape[0]):
+            if not f32:
+                acc = acc + term[k]
+                continue
+            # Kahan: comp carries the low-order residue
+            y = term[k] - comp
+            t = acc + y
+            comp = (t - acc) - y
+            acc = t
+    return acc if mask is None else torch.where(mask, acc, 0.0)
+
+
+def _ct_loop_bound(dE_abs, ok, ne_max: int) -> int:
+    """The energy loop's step count for one block: the largest window among
+    its eligible pairs, ceil(max |dE| / dE_step) + 1, capped at ``ne_max``
+    (one host read)."""
+    dE_step = EV_TO_J * 0.01
+    max_dE = torch.max(torch.where(ok, dE_abs, 0.0))
+    # akmc_tpu's compiled division by the constant dE_step is a multiplication
+    # by its reciprocal
+    return min(int(torch.ceil(max_dE * (1.0 / dE_step)).item()) + 1, int(ne_max))
+
+
+# ---------------------------------------------------------------------------
+# per-superstep assembly (compact pieces, no big matrix)
+# ---------------------------------------------------------------------------
+
+# W-block build chunk size (rows, or the trap columns of the integrated
+# block); module-level so tests can shrink it
+_WKB_ROW_BLOCK = 1024
+
+
+class PowerSystem(NamedTuple):
+    """Per-superstep operator pieces of the transmission system."""
+
+    G_nbr: torch.Tensor          # (N_atom, NNa) neighbor conductances (masked 0)
+    vac_idx: torch.Tensor        # (VMAX,) compacted vacancy atom idx, -1 pad
+    W_tt: torch.Tensor           # (VMAX, VMAX) trap-trap tunnel coefficients
+    W_ct: torch.Tensor           # (NC, VMAX) contact-trap (integrated)
+    W_cc: torch.Tensor           # (NC, NC) contact-contact
+    diag: torch.Tensor           # (N_atom,) atom diagonal
+    diag0: float                 # extraction-node diagonal
+    diag1: float                 # injection-node diagonal
+
+
+class WkbStats(NamedTuple):
+    """What one build of the W blocks did: the energy-loop step count of each
+    integrated block (the shared bound akmc_tpu's loop runs to)."""
+
+    ct_bounds: Tuple[int, ...]
+
+
+def _pair_dist_m(pos_a, pos_b, lattice, pbc):
+    """(meters, Angstrom) pair distances as (rows, cols) planes, PBC in y/z."""
+    dx = pos_a[:, 0][:, None] - pos_b[None, :, 0]
+    dy = pos_a[:, 1][:, None] - pos_b[None, :, 1]
+    dz = pos_a[:, 2][:, None] - pos_b[None, :, 2]
+    if pbc:
+        dy = dy / lattice[1]
+        dy = (dy - torch.round(dy)) * lattice[1]
+        dz = dz / lattice[2]
+        dz = (dz - torch.round(dz)) * lattice[2]
+    d2 = dx * dx + dy * dy + dz * dz
+    d = torch.sqrt(d2)
+    return 1e-10 * d, d
+
+
+def _scatter_add(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out`` with ``vals`` added at ``idx``; -1 pad indices add nothing
+    (akmc_tpu adds their exact zeros at index -1)."""
+    ok = idx >= 0
+    return out.index_add(0, idx.clamp(min=0), torch.where(ok, vals, 0.0))
+
+
+def build_power_system(
+    ct: CurrentTables,
+    atom_element: torch.Tensor,     # (N_atom,) gathered site elements
+    atom_charge: torch.Tensor,
+    atom_cb_edge: torch.Tensor,     # (N_atom,) [J]
+    lattice: torch.Tensor,
+    pbc: bool,
+    nn_dist: float,
+    high_G: float,
+    low_G: float,
+    loop_G: float,
+    tol: float,
+    m_e: float,
+    V0: float,
+    vmax: int,
+    ne_max: int,
+    wkb_f32: bool = False,
+) -> Tuple[PowerSystem, WkbStats]:
+    nbr = ct.atom_neigh_idx
+    valid = nbr >= 0
+    j = nbr.clamp(min=0)
+    dev = atom_element.device
+
+    metal_i = ct.atom_is_metal
+    cvac = (atom_element == int(ELEM.VACANCY)) & (atom_charge == 0)
+    pair_high = (metal_i[:, None] & metal_i[j]) | (cvac[:, None] & cvac[j])
+    hi = torch.tensor(high_G, dtype=F64, device=dev)
+    G_nbr = torch.where(valid, torch.where(pair_high, hi, low_G), 0.0)
+
+    is_vac = atom_element == int(ELEM.VACANCY)
+    vac_idx, vv = compact_mask(is_vac, vmax)
+    vi = vac_idx.clamp(min=0)
+
+    cb = atom_cb_edge
+    cidx = ct.contact_idx
+    ci = cidx.clamp(min=0)
+    pos_v = ct.atom_pos[vi]
+    pos_c = ct.atom_pos[ci]
+    bounds = []
+
+    def wkb_block_direct(pos_a, pos_b, cb_a, cb_b, mask_a, mask_b, idx_a, idx_b, integrate):
+        dist_m, dist_ang = _pair_dist_m(pos_a, pos_b, lattice, pbc)
+        dE = torch.abs(cb_a[:, None] - cb_b[None, :])
+        neighbor = dist_ang < nn_dist
+        same = idx_a[:, None] == idx_b[None, :]
+        ok = mask_a[:, None] & mask_b[None, :] & ~same & ~neighbor & (dE > tol)
+        dE_safe = torch.where(ok, dE, 1.0)
+        if integrate:
+            n_steps = _ct_loop_bound(dE, ok, ne_max)
+            bounds.append(n_steps)
+            T = _wkb_contact_trap(dist_m, dE_safe, m_e, V0, n_steps, mask=ok, f32=wkb_f32)
+        else:
+            T = _wkb_single(dist_m, dE_safe, m_e, V0, f32=wkb_f32)
+        return torch.where(ok, T, 0.0)
+
+    def wkb_block(pos_a, pos_b, cb_a, cb_b, mask_a, mask_b, idx_a, idx_b, integrate):
+        """The direct build up to 4 B^2 pairs; past it, chunks of B trap
+        columns (integrated: each chunk's energy loop runs to its own
+        pairs' bound, as akmc_tpu's column-chunked build does) or B rows.
+        Every entry equals the direct form's."""
+        rows, cols = pos_a.shape[0], pos_b.shape[0]
+        B = _WKB_ROW_BLOCK
+        if rows * cols <= 4 * B * B:
+            return wkb_block_direct(pos_a, pos_b, cb_a, cb_b, mask_a, mask_b, idx_a, idx_b,
+                                    integrate)
+        if integrate:
+            return torch.cat([
+                wkb_block_direct(pos_a, pos_b[s:s + B], cb_a, cb_b[s:s + B], mask_a,
+                                 mask_b[s:s + B], idx_a, idx_b[s:s + B], True)
+                for s in range(0, cols, B)
+            ], dim=1)
+        return torch.cat([
+            wkb_block_direct(pos_a[s:s + B], pos_b, cb_a[s:s + B], cb_b, mask_a[s:s + B],
+                             mask_b, idx_a[s:s + B], idx_b, False)
+            for s in range(0, rows, B)
+        ], dim=0)
+
+    ones_c = cidx >= 0   # contact mask (pad slots carry exact-zero rows)
+    W_tt = wkb_block(pos_v, pos_v, cb[vi], cb[vi], vv, vv, vac_idx, vac_idx, False)
+    W_cc = wkb_block(pos_c, pos_c, cb[ci], cb[ci], ones_c, ones_c, cidx, cidx, False)
+    W_ct = wkb_block(pos_c, pos_v, cb[ci], cb[vi], ones_c, vv, cidx, vac_idx, True)
+
+    # diagonal: all row sums positive (write_to_diag, iterative_solvers_gpu.cu:39-47);
+    # the tunnel row sums accumulate in f64 when the blocks are stored f32
+    diag = torch.sum(G_nbr, dim=1)
+    diag = diag + high_G * ct.inj_tie.to(F64) + high_G * ct.ext_tie.to(F64)
+    diag = _scatter_add(diag, vac_idx, torch.sum(W_tt, dim=1, dtype=F64)
+                        + torch.sum(W_ct, dim=0, dtype=F64))
+    diag = _scatter_add(diag, cidx, torch.sum(W_cc, dim=1, dtype=F64)
+                        + torch.sum(W_ct, dim=1, dtype=F64))
+
+    ps = PowerSystem(
+        G_nbr=G_nbr, vac_idx=vac_idx, W_tt=W_tt, W_ct=W_ct, W_cc=W_cc, diag=diag,
+        diag0=loop_G + high_G * ct.n_ext, diag1=loop_G + high_G * ct.n_inj,
+    )
+    return ps, WkbStats(ct_bounds=tuple(bounds))
+
+
+def _tunnel_matvec(W_tt, W_ct, W_cc, y, va, vi, vv, cidx):
+    """y plus the tunnel blocks' part, -(W_tt v_v + W_ct^T v_c) on the
+    vacancy slots and -(W_cc v_c + W_ct v_v) on the contacts. The blocks are
+    f64 here (f32 blocks are widened once per solve, the products akmc_tpu's
+    f32 * f64 promotion forms); each product is one matrix-vector call."""
+    v_v = torch.where(vv, va[vi], 0.0)
+    v_c = va[cidx.clamp(min=0)]
+    y_v = -torch.mv(W_tt, v_v) - torch.mv(W_ct.T, v_c)    # per vacancy slot
+    y_c = -torch.mv(W_cc, v_c) - torch.mv(W_ct, v_v)      # per contact
+    y = _scatter_add(y, torch.where(vv, vi, -1), y_v)
+    return _scatter_add(y, cidx, y_c)
+
+
+def _X_atoms_matvec(ct: CurrentTables, ps: PowerSystem, va: torch.Tensor,
+                    blocks=None) -> torch.Tensor:
+    """Off-diagonal atom-atom part: (-G_nbr - W_tunnel) @ va, over all atoms.
+    ``blocks``: (W_tt, W_ct, W_cc) in f64 (default: the system's, widened)."""
+    nbr = ct.atom_neigh_idx
+    y = -torch.sum(ps.G_nbr * va[nbr.clamp(min=0)], dim=1)
+    if blocks is None:
+        blocks = (ps.W_tt.to(F64), ps.W_ct.to(F64), ps.W_cc.to(F64))
+    vi = ps.vac_idx.clamp(min=0)
+    return _tunnel_matvec(*blocks, y, va, vi, ps.vac_idx >= 0, ct.contact_idx)
+
+
+def build_power_band(
+    ct: CurrentTables,
+    atom_element0: np.ndarray,
+    high_G: float,
+    low_G: float,
+    max_band_bytes: float = 2e9,
+):
+    """Static int8 band over the atom adjacency for ``solve_power``'s
+    neighbor part (code 1 = low_G, code 2 = metal-metal high_G; the dynamic
+    conductive-vacancy edges fold into W_tt once per solve, ``_cvac_fold``).
+    Returns (BandedK, BandMeta) on the CPU, or None (the gather operator)
+    when the atom bandwidth is too wide for a band."""
+    from akmc_tpu_torch.solvers.banded import build_banded_k
+
+    return build_banded_k(
+        ct.atom_pos.cpu().numpy(),
+        ct.atom_neigh_idx.cpu().numpy(),
+        ct.atom_is_metal.cpu().numpy(),
+        np.asarray(atom_element0),
+        0, high_G, low_G,
+        max_band_bytes=max_band_bytes,
+    )
+
+
+def _cvac_fold(pos_v, cvac_v, vac_idx, lattice, pbc, nn_dist, dtype, dG):
+    """dG * (neighbor & cvac_i & cvac_j) over the compacted vacancy list: the
+    dynamic part of ``build_power_system``'s ``pair_high`` rule, which the
+    static band codes cannot carry. Built in chunks of ``_WKB_ROW_BLOCK``
+    rows."""
+    def block(chunk_pos, chunk_cvac, chunk_idx):
+        _, dist_ang = _pair_dist_m(chunk_pos, pos_v, lattice, pbc)
+        same = chunk_idx[:, None] == vac_idx[None, :]
+        adj = (dist_ang < nn_dist) & ~same & chunk_cvac[:, None] & cvac_v[None, :]
+        return torch.where(adj, torch.tensor(dG, dtype=dtype, device=pos_v.device),
+                           torch.tensor(0, dtype=dtype, device=pos_v.device))
+
+    rows = pos_v.shape[0]
+    B = _WKB_ROW_BLOCK
+    return torch.cat([block(pos_v[s:s + B], cvac_v[s:s + B], vac_idx[s:s + B])
+                      for s in range(0, rows, B)], dim=0)
+
+
+def solve_power(
+    ct: CurrentTables,
+    ps: PowerSystem,
+    Vd: float,
+    high_G: float,
+    loop_G: float,
+    G0: float,
+    alpha: float,
+    m_prev: torch.Tensor,            # (N_atom+2,) warm start (unscaled units)
+    atom_element: torch.Tensor,
+    rtol_coeff: float = 1e-16,
+    max_iterations: int = 10000,
+    band=None,                       # (BandedK) static atom band (build_power_band);
+    band_meta=None,                  #   None = the gather operator
+    cvac=None,                       # (N_atom,) conductive-vacancy mask
+    nn_dist: float = 0.0,
+    lattice=None,
+    pbc: bool = False,
+    rtol_scale: float = 1.0,         # multiplier on the relative tolerance: the
+    #                                  low-bias I-V points are a sub-nA cancellation
+    #                                  of large virtual potentials, so callers
+    #                                  tighten the solve there
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Solve X m = b; returns (I_macro [A] (0-d), atom_power (N_atom,) [W],
+    m (N_atom+2) unscaled, CG iterations).
+
+    Unknowns: nodes [0, 1] and the atoms, the last atom grounded. With
+    ``band`` the CG runs in the band's solver frame (the neighbor part is the
+    band product, the cvac-cvac edges are folded into W_tt, the grounded
+    atom's row is an identity row whose residual stays exactly 0); without
+    it the neighbor part is a gather over the atom adjacency and the grounded
+    atom is dropped from the unknowns."""
+    n_atom = ct.atom_ind.shape[0]
+    dev = m_prev.device
+    inj = ct.inj_tie.to(F64)
+    ext = ct.ext_tie.to(F64)
+    vi = ps.vac_idx.clamp(min=0)
+    vv = ps.vac_idx >= 0
+    rtol = rtol_coeff * n_atom * rtol_scale
+
+    if band is not None:
+        from akmc_tpu_torch.solvers.banded import band_matvec
+
+        bk, meta = band, band_meta
+        perm, invp = bk.perm, bk.inv_perm
+        dGv = meta.val_both - meta.val_low
+        diag_p = ps.diag[perm]
+        inj_p, ext_p = inj[perm], ext[perm]
+        inj_pm, ext_pm = ct.inj_tie[perm], ct.ext_tie[perm]
+        g_p = int(invp[n_atom - 1])                # the grounded atom's slot (static)
+        gmask = torch.ones(n_atom, dtype=torch.bool, device=dev)
+        gmask[g_p] = False
+        vi_p = invp[vi]
+        cidx_p = torch.where(ct.contact_idx >= 0, invp[ct.contact_idx.clamp(min=0)], -1)
+
+        W_tt = (ps.W_tt + _cvac_fold(
+            ct.atom_pos[vi], torch.where(vv, cvac[vi], False), ps.vac_idx,
+            lattice, pbc, nn_dist, ps.W_tt.dtype, dGv,
+        )).to(F64)
+        W_ct, W_cc = ps.W_ct.to(F64), ps.W_cc.to(F64)
+
+        def A(v):
+            # v: (N_atom + 2,) = [ext, inj, atoms (solver frame; grounded slot
+            # pinned by the identity row)]
+            va = torch.where(gmask, v[2:], 0.0)
+            y = diag_p * va - band_matvec(bk, meta, va)
+            y = _tunnel_matvec(W_tt, W_ct, W_cc, y, va, vi_p, vv, cidx_p)
+            y = y - high_G * inj_p * v[1] - high_G * ext_p * v[0]
+            y0 = ps.diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ext_pm, va, 0.0))
+            y1 = ps.diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(inj_pm, va, 0.0))
+            y = torch.where(gmask, y, v[2:])
+            return torch.cat([torch.stack([y0, y1]), y])
+
+        b = torch.zeros(n_atom + 2, dtype=F64, device=dev)
+        b[0], b[1] = -loop_G * Vd, loop_G * Vd
+        d01 = torch.tensor([ps.diag0, ps.diag1], dtype=F64, device=dev)
+        inv_diag = torch.cat([1.0 / d01, torch.where(gmask, 1.0 / torch.where(gmask, diag_p, 1.0), 1.0)])
+        x0 = torch.cat([m_prev[:2], torch.where(gmask, m_prev[2:][perm], 0.0)])
+        res = jacobi_cg(A, b, x0, inv_diag, rtol, max_iterations, dot_fn=f64_vdot)
+        m = torch.cat([res.x[:2], res.x[2:][invp]])
+    else:
+        blocks = (ps.W_tt.to(F64), ps.W_ct.to(F64), ps.W_cc.to(F64))
+
+        def A(v):
+            # v: (N_atom + 1,) = [ext, inj, atoms[:-1]]
+            va = torch.cat([v[2:], torch.zeros(1, dtype=v.dtype, device=dev)])
+            y_at = ps.diag * va + _X_atoms_matvec(ct, ps, va, blocks)
+            y_at = y_at - high_G * inj * v[1] - high_G * ext * v[0]
+            y0 = ps.diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ct.ext_tie, va, 0.0))
+            y1 = ps.diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(ct.inj_tie, va, 0.0))
+            return torch.cat([torch.stack([y0, y1]), y_at[:-1]])
+
+        b = torch.zeros(n_atom + 1, dtype=F64, device=dev)
+        b[0], b[1] = -loop_G * Vd, loop_G * Vd
+        d01 = torch.tensor([ps.diag0, ps.diag1], dtype=F64, device=dev)
+        inv_diag = 1.0 / torch.cat([d01, ps.diag[:-1]])
+        x0 = m_prev[: n_atom + 1]
+        res = jacobi_cg(A, b, x0, inv_diag, rtol, max_iterations, dot_fn=f64_vdot)
+        m = torch.cat([res.x, torch.zeros(1, dtype=res.x.dtype, device=dev)])   # grounded atom
+    m_scaled = m * G0
+
+    # I_macro: extraction-rail sum (get_imacro, current_solver_gpu.cu:2493-2507)
+    m_at = m_scaled[2:]
+    I_macro = torch.sum(torch.where(ct.ext_tie, (-high_G) * (m_scaled[0] - m_at), 0.0))
+
+    # forward-current power: pdisp_i = sum_j ineg_ij (m_j - m_i)
+    # (set_ineg + row_reduce + write_to_diag + gemv, 2520-2559)
+    forward_neg = float(np.sign(Vd)) >= 0
+
+    def ineg_contrib(x_off, mi, mj):
+        ical = -x_off * (mi - mj)      # X_ij = -coef
+        fwd = (ical < 0) if forward_neg else (ical > 0)
+        return torch.where(fwd, -ical, 0.0)
+
+    nbr = ct.atom_neigh_idx
+    jm = m_at[nbr.clamp(min=0)]
+    ineg_n = ineg_contrib(ps.G_nbr, m_at[:, None], jm)
+    pdisp = torch.sum(ineg_n * (jm - m_at[:, None]), dim=1)
+
+    m_v = torch.where(vv, m_at[vi], 0.0)
+    m_c = m_at[ct.contact_idx.clamp(min=0)]
+    in_tt = ineg_contrib(ps.W_tt, m_v[:, None], m_v[None, :])
+    in_cc = ineg_contrib(ps.W_cc, m_c[:, None], m_c[None, :])
+    in_ct = ineg_contrib(ps.W_ct, m_c[:, None], m_v[None, :])
+    in_tc = ineg_contrib(ps.W_ct.T, m_v[:, None], m_c[None, :])
+    p_v = torch.sum(in_tt * (m_v[None, :] - m_v[:, None]), dim=1) + torch.sum(
+        in_tc * (m_c[None, :] - m_v[:, None]), dim=1
+    )
+    p_c = torch.sum(in_cc * (m_c[None, :] - m_c[:, None]), dim=1) + torch.sum(
+        in_ct * (m_v[None, :] - m_c[:, None]), dim=1
+    )
+    pdisp = _scatter_add(pdisp, torch.where(vv, vi, -1), p_v)
+    pdisp = _scatter_add(pdisp, ct.contact_idx, p_c)
+
+    atom_power = torch.where(ct.atom_is_metal, 0.0, -alpha * pdisp)
+    return I_macro, atom_power, m, res.iterations
+
+
+# ---------------------------------------------------------------------------
+# dense form (small systems and tests): the whole (N_atom+2)^2 matrix
+# ---------------------------------------------------------------------------
+
+def assemble_dense_X(
+    ct: CurrentTables,
+    atom_element: torch.Tensor,
+    atom_charge: torch.Tensor,
+    atom_cb_edge: torch.Tensor,
+    lattice: torch.Tensor,
+    pbc: bool,
+    nn_dist: float,
+    high_G: float,
+    low_G: float,
+    loop_G: float,
+    tol: float,
+    m_e: float,
+    V0: float,
+    ne_max: int = 2048,
+) -> torch.Tensor:
+    """The full (N_atom+2)^2 transmission matrix, as create_X builds it. For
+    tests and small devices only."""
+    n = atom_element.shape[0]
+    dev = atom_element.device
+    dist_m, dist_ang = _pair_dist_m(ct.atom_pos, ct.atom_pos, lattice, pbc)
+    ii = torch.arange(n, device=dev)
+    same = ii[:, None] == ii[None, :]
+    neighbor = (dist_ang < nn_dist) & ~same
+
+    metal = ct.atom_is_metal
+    cvac = (atom_element == int(ELEM.VACANCY)) & (atom_charge == 0)
+    pair_high = (metal[:, None] & metal[None, :]) | (cvac[:, None] & cvac[None, :])
+    hi = torch.tensor(-high_G, dtype=F64, device=dev)
+    Xnn = torch.where(neighbor, torch.where(pair_high, hi, -low_G), 0.0)
+
+    vac = atom_element == int(ELEM.VACANCY)
+    mp = ct.metal_p
+    tt = vac[:, None] & vac[None, :]
+    cc = mp[:, None] & mp[None, :]
+    ctp = (vac[:, None] & mp[None, :]) | (mp[:, None] & vac[None, :])
+    dE = torch.abs(atom_cb_edge[:, None] - atom_cb_edge[None, :])
+    elig = (tt | cc | ctp) & (dE > tol) & ~same & ~neighbor
+    dE_safe = torch.where(elig, dE, 1.0)
+    T_single = _wkb_single(dist_m, dE_safe, m_e, V0)
+    T_int = _wkb_contact_trap(dist_m, dE_safe, m_e, V0, ne_max)
+    Xt = torch.where(elig, torch.where(ctp, -T_int, -T_single), 0.0)
+
+    X = torch.zeros((n + 2, n + 2), dtype=F64, device=dev)
+    X[2:, 2:] = Xnn + Xt
+    inj = -high_G * ct.inj_tie.to(F64)
+    ext = -high_G * ct.ext_tie.to(F64)
+    X[1, 2:] += inj
+    X[2:, 1] += inj
+    X[0, 2:] += ext
+    X[2:, 0] += ext
+    X[0, 1] = -loop_G
+    X[1, 0] = -loop_G
+    return X + torch.diag(-torch.sum(X, dim=1))
+

@@ -97,11 +97,34 @@ line is printed):
            checks. ``--crossbar-n-yz N[,N]`` picks other widths (the first at
            full depth).
 
+7. full    the full physics (``--full-physics``: CB edge, WKB tunnel blocks,
+           power CG, heat models). The whole n_yz=24 sweep through the driver,
+           held to ``akmc_tpu_torch/golden/iv_sweep_5nm_n24_full.json``
+           (``tools/full_physics_golden.py``): events, superstep count and final
+           elements exactly, KMC times within GOLDEN_KMC_RTOL, each superstep's
+           P_tot within FULL_POWER_RTOL and I_macro within FULL_CURRENT_ATOL,
+           one 'Current [uA]' line per superstep, DIA launches equal to the
+           model's K solves. Then three supersteps with ``--wkb-f32`` (the f64
+           run's events; P_tot within akmc_tpu's f32-against-f64 spread,
+           I_macro within FULL_CURRENT_ATOL); one power solve at 8 V and
+           rtol_scale 1, 1e-2, 1e-4 on the sweep's first state and on the
+           disordered stand-in's (whose CB edge is finite, so that its W blocks
+           tunnel); three full-physics supersteps of the stand-in through the
+           driver; four supersteps each with ``solve_heating_global = 1`` and
+           ``solve_heating_local = 1`` (deck copies from
+           ``runtime/synth_deck.py::write_heating_deck``): events and elements
+           exact, T_bg and each site's temperature within ``heat_close``. The
+           bounds are akmc_tpu's own band-against-gather spread or, where the
+           card read more, the reading rounded up (their constants say which).
+           Per superstep: the CB-edge solves, the WKB build in ms and its
+           energy-loop bounds, the power solve in ms and per iteration, host
+           reads, peak memory.
+
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered``, ``tiled`` and ``batched``, the card's name and power limit from
-nvidia-smi, and last ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]``
-(of kernels, sweep, disordered, tiled, batched) runs a part of it while
-developing. Needs one card, no network, and no JAX.
+``disordered``, ``tiled``, ``batched`` and ``full``, the card's name and power
+limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
+``--only PHASE[,PHASE]`` (of kernels, sweep, disordered, tiled, batched, full)
+runs a part of it while developing. Needs one card, no network, and no JAX.
 """
 
 from __future__ import annotations
@@ -169,6 +192,38 @@ CROSSBAR_VD = 15.0
 N_REP = 512
 # two-sample KS critical D at alpha = 1e-3 with n = m = N_REP: 1.949 * sqrt(2 / n)
 KS_CRIT = 1.949 * math.sqrt(2.0 / N_REP)
+FULL_GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24_full.json")
+FULL_DIR = os.path.join(HERE, "build", "chip_smoke", "full_n24")
+# Full physics against akmc_tpu (tools/full_physics_golden.py). The yardstick
+# is akmc_tpu's own spread between its band and gather power operators; where
+# the port missed it on the H100 the bound is set from the reading (PERF.md §2,
+# ROADMAP §3): those two operators share every dot product and tunnel-block
+# product, the port's reductions differ from them all.
+# The crossbar sweep's P_tot: spread 3.92e-5, reading 3.22e-5.
+FULL_POWER_RTOL = 3.93e-5
+# The crossbar sweep's I_macro (and --wkb-f32's), absolute: every current there
+# is a power-CG stopping point of at most 5e-12 A (the CB edge is NaN on the
+# interface, nothing tunnels), -6.75e-15 A in the golden where the port reads
+# 8.36e-14 (13.4 relative). Spread 3.93e-14 A, readings 9.03e-14 and 7.3e-14 A.
+FULL_CURRENT_ATOL = 2e-13
+# One power solve at 8 V per rtol_scale 1, 1e-2, 1e-4. Crossbar (kappa of its
+# power system ~3e16 at n_yz = 6): I_macro within the spread at each
+# tolerance; P_tot spread 1.6e-9, 3.6e-6, 6.4e-6, readings 3.4e-9, 3.5e-6,
+# 3.7e-5. Disordered stand-in (resolved current, 252.7 uA): readings I_macro
+# 1.4e-9, 1.1e-11, 4.9e-12 and P_tot 2.1e-11, 1.9e-12, 9.3e-13 against spreads
+# of 4.2e-10 to 5.9e-13 and 1.2e-10 to 8.8e-15; both bounds lie below what the
+# tolerance itself moves (I_macro 1.2e-7, P_tot 1.5e-7 between 1 and 1e-2).
+CROSSBAR_SOLVE_POWER_RTOL = (1e-8, 1e-5, 1e-4)
+STANDIN_SOLVE_CURRENT_RTOL = 1e-8
+STANDIN_SOLVE_POWER_RTOL = 1e-10
+# Three stand-in supersteps through the driver: I_macro within the spread on
+# them (8.0e-3; reading 1.9e-3); P_tot spread 4.80e-7, reading 5.24e-7.
+STANDIN_STEP_POWER_RTOL = 1e-6
+# A heated temperature against akmc_tpu's: its rise over the background is
+# linear in the power, so it is held to the sweep's P_tot bound, plus a few
+# units in the last place of T itself (a 1e-11 K rise at 300 K is a few hundred
+# of them)
+HEAT_T_ULPS = 4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 F64_FLOP_PER_S = 34e12           # H100 SXM, f64 outside the tensor cores
 
@@ -692,6 +747,25 @@ def drive(deck, workdir, **options):
     return summary, rows, counts
 
 
+def check_launches(path: str, summary: dict, rows: list, counts: dict) -> None:
+    """Each K solve of the driver's model (``k_solves``, those a grown cap
+    repeated included) launched the fused CG once and the matvec once (the
+    conductive-vacancy degrees), and the iterations the fused kernel counted
+    on the device are the model's (``k_iterations``); without a grown cap the
+    solves are the supersteps and their iterations those of metrics.jsonl."""
+    k_solves, k_iterations = summary["k_solves"], summary["k_iterations"]
+    launches = (counts["dia_launches"], counts["dia_cg_launches"])
+    if launches != (k_solves, k_solves):
+        fail(f"the {path} path launched the DIA kernels (matvec, CG) {launches} times for "
+             f"{k_solves} K solves")
+    if counts["cg_iterations_counted_on_device"] != k_iterations:
+        fail(f"the {path} path's fused solves counted {counts['cg_iterations_counted_on_device']} "
+             f"iterations on the device, the model's K solves {k_iterations}")
+    cg = sum(r["cg_iterations"] for r in rows)
+    if k_solves == len(rows) and k_iterations != cg:
+        fail(f"the {path} path's K solves ran {k_iterations} iterations, metrics.jsonl {cg}")
+
+
 def run_sweep():
     """The main path through ``runtime.driver.run`` on the card: (sweep line, what is
     wrong with it or None)."""
@@ -945,13 +1019,7 @@ def run_tiled(dev):
         fail(f"the n_yz={TILED_N_YZ} model is {model}, expected N={TILED_N}, dia, tiled")
     if len(rows) != 3:
         fail(f"the tiled run made {len(rows)} supersteps, expected 3")
-    # one fused CG and one matvec per K solve; a cap that grew repeats the solve
-    if counts["dia_cg_launches"] < len(rows) or counts["dia_launches"] < len(rows):
-        fail(f"the tiled path did not go through the DIA kernels: {counts}")
-    cg = sum(r["cg_iterations"] for r in rows)
-    if counts["cg_iterations_counted_on_device"] < cg:
-        fail(f"the fused solves counted {counts['cg_iterations_counted_on_device']} "
-             f"iterations, metrics.jsonl {cg}")
+    check_launches("tiled", summary, rows, counts)
     grid = dia_cg.dia_cg_solve.last_grid
     if not _final_potentials_finite(TILED_DIR):
         fail("non-finite potentials in the tiled run's final snapshot")
@@ -1493,6 +1561,352 @@ def run_batched(dev, widths, serial_rows):
     return line, None
 
 
+# ---------------------------------------------------------------------------
+# phase 7: full physics
+# ---------------------------------------------------------------------------
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else (0.0 if a == b else math.inf)
+
+
+@contextlib.contextmanager
+def full_physics_probe():
+    """Per-superstep readings of the driver's model, taken from outside it:
+    after each ``superstep_full`` its ``power_timing`` (the W-block build and
+    the power solve, in host seconds ending in a device read; the energy-loop
+    bounds; the power CG's iterations) and ``fields_s``; after each
+    ``update_cb_edge`` its CG iterations and host time."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+
+    steps, cb = [], []
+    full, cb_edge = VCMModel.superstep_full, VCMModel.update_cb_edge
+
+    def probed_full(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = full(self, *args, **kwargs)        # ends with a read of its stats
+        wall = time.perf_counter() - t0
+        timing = dict(self.power_timing)
+        marks = timing.pop("device_marks")
+        if marks:
+            marks[-1].synchronize()
+            timing["wkb_build_device_ms"] = marks[0].elapsed_time(marks[1])
+            timing["power_solve_device_ms"] = marks[1].elapsed_time(marks[2])
+        steps.append({**timing, "fields_s": self.fields_s, "superstep_s": wall})
+        return out
+
+    def probed_cb(self, state, Vd):
+        t0 = time.perf_counter()
+        out = cb_edge(self, state, Vd)
+        cb.append({"Vd": Vd, "iterations": self.cb_iterations,
+                   "ms": 1e3 * (time.perf_counter() - t0)})
+        return out
+
+    VCMModel.superstep_full, VCMModel.update_cb_edge = probed_full, probed_cb
+    try:
+        yield steps, cb
+    finally:
+        VCMModel.superstep_full, VCMModel.update_cb_edge = full, cb_edge
+
+
+def _summarize_steps(steps: list) -> dict:
+    """The probe's per-superstep readings, as lists and their sums."""
+    def col(k):
+        return [r[k] for r in steps]
+
+    wkb, solve = col("wkb_build_s"), col("power_solve_s")
+    its = col("iterations")
+    device = {}
+    if steps and "wkb_build_device_ms" in steps[0]:
+        device = {"wkb_build_device_ms": col("wkb_build_device_ms"),
+                  "power_solve_device_ms": col("power_solve_device_ms")}
+    return {
+        **device,
+        "wkb_build_ms": [1e3 * v for v in wkb], "ct_loop_bounds": col("ct_loop_bounds"),
+        "power_solve_ms": [1e3 * v for v in solve], "power_cg_iterations": its,
+        "power_ms_per_iteration": [1e3 * v / k for v, k in zip(solve, its)],
+        "fields_ms": [1e3 * v for v in col("fields_s")],
+        "superstep_ms": [1e3 * v for v in col("superstep_s")],
+        "wkb_build_s_total": sum(wkb), "power_solve_s_total": sum(solve),
+    }
+
+
+def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0):
+    """The port's model and first state for ``deck`` on the N_YZ crossbar, or
+    with ``synth_dir`` on the disordered stand-in's files there, built as the
+    driver builds them; no static pair table unless ``pair_table_budget``
+    says so (power solves alone need none)."""
+    from akmc_tpu_torch.config import KMCParameters
+    from akmc_tpu_torch.lattice import build_lattice
+    from akmc_tpu_torch.models.crossbar import mask_null_slots, synthesize_deck_structure
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.rng import ReferenceRNG
+    from akmc_tpu_torch.runtime.driver import load_structure
+    from akmc_tpu_torch.state import make_device_state, make_substoichiometric
+
+    p = KMCParameters.from_file(deck)
+    if synth_dir:
+        element, x, y, z = load_structure(p, synth_dir)
+    else:
+        p, element, x, y, z = synthesize_deck_structure(p, N_YZ)
+    element = make_substoichiometric(element, p.initial_vacancy_concentration,
+                                     ReferenceRNG(p.rnd_seed))
+    lat = build_lattice(element, x, y, z, p)
+    if not synth_dir:
+        mask_null_slots(lat)
+    model = VCMModel(p, lat, device=dev, rate_normalize=True,
+                     pair_table_budget=pair_table_budget)
+    return model, make_device_state(lat, p.background_temp, dev)
+
+
+def tolerance_solves(model, state, ref: dict, where: str, current_rtol=None,
+                     power_rtol=None) -> dict:
+    """One power solve at ref["Vd"] per tolerance multiplier of ``ref``, each
+    held to akmc_tpu's (``solves``): I_macro and P_tot within ``current_rtol``
+    and ``power_rtol`` (one bound per multiplier), or where those are None
+    within akmc_tpu's own band-against-gather spread at that multiplier
+    (``solves_gather``), which the line reports beside them."""
+    state = model.update_cb_edge(state, ref["Vd"])
+    torch.cuda.synchronize()
+    out, bad = [], []
+    for n, (g, gg) in enumerate(zip(ref["solves"], ref["solves_gather"])):
+        scale = g["rtol_scale"]
+        t0 = time.perf_counter()
+        s, I_macro, _, iters = model.update_power(state, ref["Vd"], rtol_scale=scale)
+        P_tot = float(s.power.sum())
+        ms = 1e3 * (time.perf_counter() - t0)
+        marks = model.power_timing["device_marks"]
+        device = {}
+        if marks:
+            device = {"wkb_build_device_ms": marks[0].elapsed_time(marks[1]),
+                      "power_solve_device_ms": marks[1].elapsed_time(marks[2])}
+        row = {"rtol_scale": scale, "I_macro": I_macro, "I_macro_akmc_tpu": g["I_macro"],
+               "P_tot": P_tot, "P_tot_akmc_tpu": g["P_tot"],
+               "power_cg_iterations": iters, "power_cg_iterations_akmc_tpu":
+               g["power_cg_iterations"], "ms": ms, **device,
+               **{k: v for k, v in model.power_timing.items() if k != "device_marks"},
+               "I_macro_rel": _rel(I_macro, g["I_macro"]), "P_tot_rel": _rel(P_tot, g["P_tot"]),
+               "I_macro_spread": _rel(gg["I_macro"], g["I_macro"]),
+               "P_tot_spread": _rel(gg["P_tot"], g["P_tot"])}
+        for key, bound in (("I_macro", current_rtol), ("P_tot", power_rtol)):
+            row[key + "_bound"] = row[key + "_spread"] if bound is None else bound[n]
+        out.append(row)
+        print(f"chip_smoke: {where}: power solve at {ref['Vd']} V, rtol_scale {scale}: "
+              f"I_macro {I_macro:.6e} (akmc_tpu {g['I_macro']:.6e}), P_tot {P_tot:.6e} "
+              f"({g['P_tot']:.6e}), {iters} iterations ({g['power_cg_iterations']}), {ms:.1f} ms")
+        for key in ("I_macro", "P_tot"):
+            if not (math.isfinite(row[key]) and row[f"{key}_rel"] <= row[f"{key}_bound"]):
+                bad.append(f"{where}, rtol_scale {scale}: {key} {row[key]!r} is "
+                           f"{row[key + '_rel']:.3e} from akmc_tpu's {g[key]!r}, beyond "
+                           f"{row[key + '_bound']:.3e}")
+    cb_finite = bool(torch.isfinite(state.cb_edge).all())
+    return {"solves": out, "cb_edge_finite": cb_finite, "cb_iterations": model.cb_iterations,
+            "problems": bad}
+
+
+def max_abs_current(ref: dict, got: dict) -> float:
+    """The largest |I_macro| difference [A] between two records' supersteps."""
+    return max(abs(h["I_macro"] - g["I_macro"])
+               for g, h in zip(ref["supersteps"], got["supersteps"]))
+
+
+def heat_close(got: float, want: float, T0: float) -> bool:
+    """A temperature within FULL_POWER_RTOL of akmc_tpu's rise over ``T0``
+    plus HEAT_T_ULPS units in the last place of the temperature."""
+    return abs(got - want) <= FULL_POWER_RTOL * abs(want - T0) + HEAT_T_ULPS * math.ulp(want)
+
+
+def heating_part(dev, kind: str, ref: dict) -> dict:
+    """Four supersteps of the heating deck copy, stepped as the driver steps a
+    full-physics sweep, held to akmc_tpu's: events and final elements exact,
+    KMC times within GOLDEN_KMC_RTOL, T_bg and every site temperature within
+    ``heat_close``."""
+    from akmc_tpu_torch.config import KMCParameters
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.runtime.synth_deck import write_heating_deck
+
+    deck = write_heating_deck(DECK, os.path.join(FULL_DIR + "_heating", kind), kind)
+    p = KMCParameters.from_file(deck)
+    model, state = full_model(deck, dev, pair_table_budget=8e9)   # the driver's budget
+    stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
+    rows, m_warm, last_I = [], None, None
+    T0 = p.background_temp
+    for Vd, t_bias in zip(p.V_switch, p.t_switch):
+        state = model.update_cb_edge(state, Vd)
+        kmc_time = 0.0
+        state = state.replace(kmc_time=state.kmc_time * 0.0)
+        while kmc_time < t_bias and len(rows) < len(ref["supersteps"]):
+            rscale = 1e-2 if last_I is not None and abs(last_I) < 1e-9 else 1.0
+            state, stats, m_warm = model.superstep_full(state, Vd, stream, m_prev=m_warm,
+                                                        rtol_scale=rscale)
+            last_I = stats["I_macro"]
+            kmc_time += stats["event_time"]
+            rows.append({"bias": Vd, "kmc_time": kmc_time, **stats})
+        if len(rows) >= len(ref["supersteps"]):
+            break
+    bad = []
+    for i, (g, h) in enumerate(zip(ref["supersteps"], rows)):
+        if (g["bias"], g["n_events"]) != (h["bias"], h["n_events"]):
+            bad.append(f"heating {kind}, superstep {i}: (bias, events) differ")
+        if _rel(h["kmc_time"], g["kmc_time"]) > GOLDEN_KMC_RTOL:
+            bad.append(f"heating {kind}, superstep {i}: kmc_time {h['kmc_time']!r} != "
+                       f"{g['kmc_time']!r}")
+        if not heat_close(h["T_bg"], g["T_bg"], T0):
+            bad.append(f"heating {kind}, superstep {i}: T_bg {h['T_bg']!r} != {g['T_bg']!r}")
+    elements = "".join(str(int(e)) for e in state.element.cpu().numpy())
+    if len(rows) != len(ref["supersteps"]) or elements != ref["final_elements"]:
+        bad.append(f"heating {kind}: superstep count or final elements differ")
+    temp = state.temperature.cpu().numpy()
+    moved = np.nonzero(temp != T0)[0]
+    want = np.full_like(temp, T0)         # the golden keeps the entries that moved
+    for i, v in ref["temperature_moved"]:
+        want[i] = v
+    far = [i for i in range(len(temp)) if not heat_close(float(temp[i]), float(want[i]), T0)]
+    if far:
+        bad.append(f"heating {kind}: {len(far)} site temperatures differ from akmc_tpu's, "
+                   f"first {far[0]}: {temp[far[0]]!r} != {want[far[0]]!r}")
+    return {"supersteps": len(rows), "T_bg": [r["T_bg"] for r in rows],
+            "T_bg_akmc_tpu": [g["T_bg"] for g in ref["supersteps"]],
+            "T_bg_max_abs_dev_vs_akmc_tpu": max(abs(h["T_bg"] - g["T_bg"])
+                                                for g, h in zip(ref["supersteps"], rows)),
+            "temperature_moved": len(moved),
+            "temperature_moved_akmc_tpu": len(ref["temperature_moved"]),
+            "temperature_max_abs_dev": float(np.abs(temp - T0).max()),
+            "power_cg_iterations": [r["power_cg_iterations"] for r in rows],
+            "power_cg_iterations_akmc_tpu": [g["power_cg_iterations"] for g in ref["supersteps"]],
+            "problems": bad}
+
+
+def run_full(dev):
+    """(full line, what is wrong with it or None)."""
+    from akmc_tpu_torch.runtime import golden, synth_deck
+
+    with open(FULL_GOLDEN) as f:
+        gold = json.load(f)
+    spread = gold["spread"]["band_vs_gather"]
+    parts = gold["parts"]
+    problems = []
+
+    # the whole sweep through the driver, held to the golden
+    with full_physics_probe() as (steps, cb):
+        summary, rows, counts = drive(DECK, FULL_DIR, synthesize_crossbar=N_YZ,
+                                      committed_parity=False, dia_pallas=True)
+    check_launches("full", summary, rows, counts)
+    got = golden.summarize(FULL_DIR)
+    dist = golden.distance(gold, got)
+    bad = golden.compare(gold, got, GOLDEN_KMC_RTOL, power_rtol=FULL_POWER_RTOL)
+    I_abs = max_abs_current(gold, got)
+    if I_abs > FULL_CURRENT_ATOL:
+        bad.append(f"I_macro {I_abs:.3e} A from the golden, beyond {FULL_CURRENT_ATOL:.1e} A")
+    if bad:
+        problems.append("full-physics sweep disagrees with the golden: " + "; ".join(bad[:10]))
+    with open(os.path.join(FULL_DIR, "output1_0.txt")) as f:
+        n_current = sum(line.startswith("Current [uA]: ") for line in f)
+    if n_current != len(rows):
+        problems.append(f"{n_current} 'Current [uA]' lines for {len(rows)} supersteps")
+    line = {
+        "deck": "decks/iv_sweep_5nm.txt --synthesize-crossbar 24 --full-physics",
+        "supersteps": len(rows), "events": sum(r["n_events"] for r in rows),
+        "model": summary["model"], "k_solves": summary["k_solves"],
+        "dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
+        "cg_iterations_counted_on_device": counts["cg_iterations_counted_on_device"],
+        "kmc_time_max_rel_vs_golden": dist["kmc_time_max_rel"],
+        "I_macro_max_rel_vs_golden": dist["I_macro_max_rel"],
+        "P_tot_max_rel_vs_golden": dist["P_tot_max_rel"],
+        "I_macro_max_abs_vs_golden": I_abs,
+        "bounds": {"kmc_rtol": GOLDEN_KMC_RTOL, "P_tot_rtol": FULL_POWER_RTOL,
+                   "I_macro_atol": FULL_CURRENT_ATOL},
+        "akmc_tpu_band_vs_gather_I_macro_abs": max_abs_current(gold, parts["gather"]),
+        "akmc_tpu_band_vs_gather": spread,
+        "power_cg_iterations_vs_golden": dist["power_cg_iterations"],
+        "I_macro": [r["I_macro"] for r in rows], "P_tot": [r["P_tot"] for r in rows],
+        "power_rtol_scale": [r["power_rtol_scale"] for r in rows],
+        "cb_edge_solves": cb, **_summarize_steps(steps),
+        "superstep_s": [r["superstep_s"] for r in rows],
+        "driver_total_s": summary["total_time_s"], "driver_supersteps_s": summary["supersteps_s"],
+        "driver_snapshot_s": summary["snapshot_s"],
+        "host_syncs": counts["host_syncs"], "host_syncs_per_superstep":
+        counts["host_syncs"] / len(rows), "peak_mem_gb": counts["peak_mem_gb"],
+        "wall_s": counts["wall_s"],
+    }
+    print(f"chip_smoke: full sweep: {len(rows)} supersteps, P_tot {dist['P_tot_max_rel']:.3e} "
+          f"and I_macro {dist['I_macro_max_rel']:.3e} from the golden (relative)")
+
+    # --wkb-f32: three supersteps, held to akmc_tpu's f32 run within its f32-vs-f64 spread
+    f32_ref, f32_spread = parts["wkb_f32"], gold["spread"]["wkb_f32_vs_f64"]
+    _, rows32, counts32 = drive(DECK, FULL_DIR + "_wkb_f32", synthesize_crossbar=N_YZ,
+                                committed_parity=False, dia_pallas=True, wkb_f32=True,
+                                max_supersteps=len(f32_ref["supersteps"]))
+    got32 = golden.summarize(FULL_DIR + "_wkb_f32")
+    # the golden keeps no final elements of this run: the events are held to the f64 run's
+    f32_ref = {**f32_ref, "final_elements": got32["final_elements"]}
+    bad32 = golden.compare(f32_ref, got32, GOLDEN_KMC_RTOL,
+                           power_rtol=f32_spread["P_tot_max_rel"])
+    I_abs32 = max_abs_current(f32_ref, got32)
+    if I_abs32 > FULL_CURRENT_ATOL:
+        bad32.append(f"I_macro {I_abs32:.3e} A from akmc_tpu's, beyond {FULL_CURRENT_ATOL:.1e} A")
+    if [(r["bias"], r["n_events"]) for r in rows32] != [
+            (r["bias"], r["n_events"]) for r in rows[: len(rows32)]]:
+        bad32.append("the f32 run's events differ from the f64 run's")
+    if bad32:
+        problems.append("--wkb-f32: " + "; ".join(bad32[:5]))
+    d32 = golden.distance(f32_ref, got32)
+    line["wkb_f32"] = {"supersteps": len(rows32), "I_macro_max_rel": d32["I_macro_max_rel"],
+                       "P_tot_max_rel": d32["P_tot_max_rel"],
+                       "I_macro_max_abs": I_abs32,
+                       "bounds": {"P_tot_rtol": f32_spread["P_tot_max_rel"],
+                                  "I_macro_atol": FULL_CURRENT_ATOL},
+                       "akmc_tpu_f32_vs_f64": f32_spread,
+                       "dia_launches": counts32["dia_launches"]}
+
+    # one power solve at three tolerances, on the crossbar and on the disordered stand-in
+    model, state = full_model(DECK, dev)
+    line["tolerances_crossbar"] = tolerance_solves(model, state, parts["rtol"], "crossbar",
+                                                   power_rtol=CROSSBAR_SOLVE_POWER_RTOL)
+    synth_dir = FULL_DIR + "_synth"
+    shutil.rmtree(synth_dir, ignore_errors=True)
+    synth = synth_deck.write_synth_deck(DECK, synth_dir, N_YZ)
+    model, state = full_model(synth, dev, synth_dir=synth_dir)
+    line["tolerances_disordered"] = tolerance_solves(
+        model, state, parts["synth_rtol"], "disordered stand-in",
+        current_rtol=(STANDIN_SOLVE_CURRENT_RTOL,) * 3, power_rtol=(STANDIN_SOLVE_POWER_RTOL,) * 3)
+    del model, state
+    for key in ("tolerances_crossbar", "tolerances_disordered"):
+        problems += line[key].pop("problems")
+
+    # three supersteps of the stand-in through the driver, tunneling live
+    ref = parts["synth_sweep"]
+    with full_physics_probe() as (steps_s, cb_s):
+        _, rows_s, counts_s = drive(synth, synth_dir + "_out", committed_parity=False,
+                                    max_supersteps=len(ref["supersteps"]))
+    got_s = golden.summarize(synth_dir + "_out")
+    spread_s = gold["spread"]["synth_sweep_band_vs_gather"]
+    bad_s = golden.compare(ref, got_s, SYNTH_KMC_RTOL, current_rtol=spread_s["I_macro_max_rel"],
+                           power_rtol=STANDIN_STEP_POWER_RTOL)
+    if counts_s["dia_launches"] or counts_s["dia_cg_launches"]:
+        bad_s.append(f"a DIA kernel was launched on the disordered path: {counts_s}")
+    if bad_s:
+        problems.append("disordered full-physics supersteps: " + "; ".join(bad_s[:5]))
+    d_s = golden.distance(ref, got_s)
+    line["disordered_supersteps"] = {
+        "supersteps": len(rows_s), "I_macro": [r["I_macro"] for r in rows_s],
+        "I_macro_max_rel": d_s["I_macro_max_rel"], "P_tot_max_rel": d_s["P_tot_max_rel"],
+        "kmc_time_max_rel": d_s["kmc_time_max_rel"],
+        "power_cg_iterations_vs_golden": d_s["power_cg_iterations"],
+        "bounds": {"I_macro_rtol": spread_s["I_macro_max_rel"],
+                   "P_tot_rtol": STANDIN_STEP_POWER_RTOL},
+        "akmc_tpu_band_vs_gather": spread_s,
+        "cb_edge_solves": cb_s, **_summarize_steps(steps_s),
+        "host_syncs_per_superstep": counts_s["host_syncs"] / len(rows_s),
+        "peak_mem_gb": counts_s["peak_mem_gb"],
+    }
+
+    # the two heat models, four supersteps each
+    for kind in ("global", "local"):
+        h = heating_part(dev, kind, parts["heating_" + kind])
+        problems += h.pop("problems")
+        line["heating_" + kind] = h
+    return line, "; ".join(problems) or None
+
+
 def _final_potentials_finite(workdir: str) -> bool:
     from akmc_tpu_torch.runtime.golden import _final_snapshot
 
@@ -1501,7 +1915,7 @@ def _final_potentials_finite(workdir: str) -> bool:
     return bool(vals) and all(math.isfinite(v) for v in vals)
 
 
-PHASES = ("kernels", "sweep", "disordered", "tiled", "batched")
+PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full")
 
 
 def main(argv=None) -> int:
@@ -1545,7 +1959,8 @@ def main(argv=None) -> int:
                       ("tiled", lambda: run_tiled(dev)),
                       ("batched", lambda: run_batched(
                           dev, [int(n) for n in args.crossbar_n_yz.split(",")],
-                          sweep_rows or None))):
+                          sweep_rows or None)),
+                      ("full", lambda: run_full(dev))):
         if name in phases:
             t0 = time.perf_counter()
             lines[name], problem = run()
@@ -1560,6 +1975,8 @@ def main(argv=None) -> int:
             kern["launches_per_superstep"] = kern["launches"] / lines["sweep"]["supersteps"]
         if "tiled" in lines:
             kern["launches_tiled_path"] = lines["tiled"][key]
+        if "full" in lines:
+            kern["launches_full_path"] = lines["full"][key]
         if "disordered" in lines:
             kern["launches_disordered_path"] = 0      # asserted: no DIA form there
         # the crossbar path: the same keys once more, read at its shapes (the

@@ -342,6 +342,6 @@ def test_command_line_flags(tmp_path, capsys):
     assert [r["step"] for r in _rows(tmp_path / "w")] == [1, 2, 3, 4]
     # what is still to port keeps its refusal
     for flags in (["--steps-per-dispatch", "2"], ["--warmup"], ["--devices", "2"],
-                  ["--concern-split", "1:3"], ["--wkb-f32"]):
+                  ["--concern-split", "1:3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdriver.main(common + ["--workdir", str(tmp_path / "x")] + flags)

@@ -332,3 +332,91 @@ def test_topk_smallest_card_matches_cpu(card):
             v0, i0 = _topk_smallest(t, B)
             v1, i1 = _topk_smallest(t.to(card), B)
             assert torch.equal(v1.cpu(), v0) and torch.equal(i1.cpu(), i0)
+
+
+def _full_toy(heating):
+    """The full-physics toy of tests/test_full_physics.py, from the port's own
+    toy_device (30% vacancies), with its heat constants."""
+    from akmc_tpu_torch.models.crossbar import toy_device
+
+    p, lat = toy_device(nx=10, ny=3, nz=3, contact_layers=3, vacancy_fraction=0.3)
+    p = p.replace(solve_current=True, solve_heating_global=heating == "global",
+                  solve_heating_local=heating == "local", dissipation_constant=1e-13,
+                  t_ox=5e-9, A=(12 * 2.0e-10) ** 2, c_p=1.92, delta_t=1e-13,
+                  L_char=3.5e-10, k_th_non_vacancy=0.5, k_th_vacancies=5.0,
+                  num_atoms_contact=p.num_atoms_first_layer * p.num_layers_contact)
+    return p, lat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heating", ["global", "local"])
+def test_full_physics_superstep_card_matches_cpu(card, heating):
+    """Three full-physics supersteps on the card and on the CPU from the same
+    state and stream: events and power-CG counts equal, I_macro within 1e-6,
+    P_tot within 1e-8, the heat model's rise within 1e-6; on the card each K
+    solve launched the fused CG once."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = _full_toy(heating)
+    out = {}
+    for where in ("cpu", card):
+        m = VCMModel(p, lat, device=where, vmax=64, ne_max=512)
+        s = m.update_cb_edge(make_device_state(lat, p.background_temp, torch.device(where)), 2.0)
+        stream, mw, rows = BufferedStream(ReferenceRNG(1)), None, []
+        launches = dia_cg.dia_cg_solve.launches
+        for _ in range(3):
+            s, st, mw = m.superstep_full(s, 2.0, stream, m_prev=mw)
+            rows.append(st)
+        out[str(where)] = (rows, s, m.k_solves, dia_cg.dia_cg_solve.launches - launches)
+    (rc, sc, _, _), (rg, sg, k_solves, launches) = out["cpu"], out[str(card)]
+    for a, b in zip(rc, rg):
+        assert (b["n_events"], b["power_cg_iterations"]) == (a["n_events"], a["power_cg_iterations"])
+        np.testing.assert_allclose(b["I_macro"], a["I_macro"], rtol=1e-6)
+        np.testing.assert_allclose(b["P_tot"], a["P_tot"], rtol=1e-8)
+        np.testing.assert_allclose(b["T_bg"] - 300.0, a["T_bg"] - 300.0, rtol=1e-6)
+    assert torch.equal(sg.element.cpu(), sc.element)
+    rise = sc.temperature - 300.0
+    np.testing.assert_allclose((sg.temperature.cpu() - 300.0).numpy(), rise.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(rise.abs().max()))
+    assert launches == k_solves == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True], ids=["f64", "wkb_f32"])
+def test_wkb_blocks_card_match_cpu(card, f32):
+    """build_power_system on the card against the CPU on the toy's atoms with
+    a synthetic CB-edge profile of +-1 eV: the W blocks within 1e-12 (f64) or
+    2e-6 of each entry with a floor of 1e-7 of the largest (f32), the
+    energy-loop bound equal."""
+    from akmc_tpu_torch.config import EV_TO_J
+    from akmc_tpu_torch.solvers.current import build_current_tables, build_power_system
+
+    p, lat = _full_toy("global")
+    n_src = p.num_atoms_first_layer
+    ct = build_current_tables(lat.element0, np.stack([lat.x, lat.y, lat.z], 1),
+                              np.asarray(p.lattice), False, p.nn_dist, p.metals, n_src, n_src,
+                              p.num_layers_contact, p.max_num_neighbors)
+    n_atom = ct.atom_ind.numel()
+    rng = np.random.RandomState(2)
+    elem = torch.as_tensor(lat.element0[ct.atom_ind.numpy()])
+    charge = torch.where((elem == int(ELEM.VACANCY)) & torch.tensor(rng.rand(n_atom) < 0.5), 2, 0)
+    cb = torch.tensor((np.linspace(1.0, -1.0, n_atom) + 0.05 * rng.randn(n_atom)) * EV_TO_J)
+    built = {}
+    for where in ("cpu", card):
+        built[str(where)] = build_power_system(
+            ct.to(where), elem.to(where), charge.to(where), cb.to(where),
+            torch.tensor(np.asarray(p.lattice, np.float64), device=where), False, p.nn_dist,
+            p.high_G * 1e5, p.low_G, p.high_G * 1e7, p.q * 0.01, p.m_e, p.V0,
+            vmax=64, ne_max=512, wkb_f32=f32)
+    (pc, stc), (pg, stg) = built["cpu"], built[str(card)]
+    assert stc == stg and stc.ct_bounds[0] > 1
+    for name in ("W_tt", "W_ct", "W_cc", "diag"):
+        a, b = getattr(pc, name), getattr(pg, name).cpu()
+        scale = float(a.abs().max())
+        if f32:
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-6, atol=1e-7 * scale)
+        else:
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-12, atol=1e-12 * scale)

@@ -133,7 +133,7 @@ def test_driver_refuses_what_is_not_ported(tmp_path):
                     steps_per_dispatch=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdriver.run(DECK, workdir=str(tmp_path), synthesize_crossbar=6, device="cpu",
-                    committed_parity=False)
+                    devices=2)
     with pytest.raises(TypeError):
         tdriver.run(DECK, workdir=str(tmp_path), device="cpu", no_such_option=1)
     assert torch.get_default_dtype() == torch.float32   # the port never changes it
