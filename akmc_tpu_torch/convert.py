@@ -58,6 +58,7 @@ def lattice(lat) -> Lattice:
         k_neigh_idx=np.asarray(lat.k_neigh_idx).copy(),
         site_layer=np.asarray(lat.site_layer).copy(),
         grid=None if lat.grid is None else tuple(lat.grid),
+        cutoff_idx=np.asarray(lat.cutoff_idx).copy(),
     )
 
 
@@ -156,8 +157,9 @@ def local_heat(lh, device="cpu") -> LocalHeat:
 
 
 def fields(fr, device="cpu") -> FieldsResult:
-    """A frozen fields state (charges, potentials, the rate table, event types
-    and the log rate scale) from akmc_tpu's FieldsResult."""
+    """A frozen fields state (charges, potentials, the rate table, event types,
+    the log rate scale and, after a carried-residual solve, the K solve's
+    carry) from akmc_tpu's FieldsResult."""
     def flag(a):
         return torch.as_tensor(False if a is None else bool(a), device=device)
 
@@ -172,6 +174,7 @@ def fields(fr, device="cpu") -> FieldsResult:
         v_overflow=flag(fr.v_overflow),
         ln_S=None if fr.ln_S is None else tensor(fr.ln_S, device),
         c_overflow=flag(fr.c_overflow),
+        k_carry=None if fr.k_carry is None else k_carry(fr.k_carry, device),
     )
 
 

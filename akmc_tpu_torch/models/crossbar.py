@@ -9,6 +9,8 @@
   reference's crossbar decks ship without their structure files, so the
   driver's ``--synthesize-crossbar N_YZ`` builds a stand-in stack from the
   deck's parameters (``synthesize_deck_structure``).
+* ``sort_crossbar`` orders a crossbar's sites into word lines, oxide and bit
+  lines.
 """
 
 from __future__ import annotations
@@ -579,3 +581,45 @@ def build_grid_crossbar(
     )
     mask_null_slots(lat)
     return p, lat
+
+
+def sort_crossbar(
+    element: np.ndarray,
+    x: np.ndarray,
+    y: np.ndarray,
+    z: np.ndarray,
+    split_y: float,
+    split_z: float,
+) -> Tuple[np.ndarray, ...]:
+    """Reorder crossbar sites so that the boundary-condition contacts sit at
+    the beginning and the end, grouped into word and bit lines (the
+    reference's postprocessing/sort_crossbar.py:49-115).
+
+    The left contact is every leading Ti/N site up to the first oxide (Hf/O)
+    site, the right contact the same count of trailing Ti/N sites; the left
+    contact splits into two word lines by z < split_z, the right into two
+    bit lines by y < split_y. Returns (element, x, y, z) ordered word line
+    1, word line 2, oxide, bit line 1, bit line 2 (the reference script
+    stops after bit line 1; the whole structure is written here)."""
+    is_metal = np.isin(element, [int(ELEM.Ti), int(ELEM.N)])
+    is_oxide = np.isin(element, [int(ELEM.Hf), int(ELEM.O)])
+    n = len(element)
+    first_oxide = int(np.argmax(is_oxide)) if is_oxide.any() else n
+    left = np.arange(first_oxide)[is_metal[:first_oxide]]
+    num_contact = len(left)
+    # trailing Ti/N sites, scanning backwards until an oxide site or the count
+    right = []
+    for i in range(n - 1, -1, -1):
+        if is_oxide[i] or len(right) == num_contact:
+            break
+        if is_metal[i]:
+            right.append(i)
+    right = np.array(right[::-1], dtype=np.int64)
+    middle = np.setdiff1d(np.arange(n), np.concatenate([left, right]))
+
+    word1 = left[z[left] < split_z]
+    word2 = left[z[left] >= split_z]
+    bit1 = right[y[right] < split_y]
+    bit2 = right[y[right] >= split_y]
+    order = np.concatenate([word1, word2, middle, bit1, bit2])
+    return element[order], x[order], y[order], z[order]

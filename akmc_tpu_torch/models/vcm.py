@@ -39,6 +39,7 @@ from akmc_tpu_torch.device import resolve_device
 from akmc_tpu_torch.lattice import ELEM, Lattice, metal_mask
 from akmc_tpu_torch.ops.charge import update_charge_compact
 from akmc_tpu_torch.ops.events import (
+    GeneratorDraws,
     build_event_table,
     run_event_loop,
     run_event_loop_batched,
@@ -55,8 +56,10 @@ from akmc_tpu_torch.ops.pairwise import (
 from akmc_tpu_torch.solvers.banded import (
     BandedK,
     BandMeta,
+    KCarry,
     build_banded_k,
     solve_potential_boundary_banded,
+    solve_potential_boundary_banded_carry,
 )
 from akmc_tpu_torch.solvers.current import (
     CurrentTables,
@@ -119,6 +122,7 @@ class FieldsResult(NamedTuple):
     v_overflow: torch.Tensor        # vacancy count exceeded vmax
     ln_S: Optional[torch.Tensor]    # log rate scale (rate_normalize mode)
     c_overflow: torch.Tensor        # tiled pairwise: per-tile candidate cap exceeded
+    k_carry: Optional[KCarry] = None  # the banded solve's carry (``k_carry_residual``)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,6 +150,7 @@ class VCMModel:
         ne_max: int = 2048,
         wkb_f32: bool = False,
         power_rtol_scale: float = 1.0,
+        k_carry_residual: bool = False,
     ):
         """``qmax``/``vmax``: static caps on the charged and vacancy counts
         (sized from the initial population; doubled on overflow).
@@ -165,8 +170,15 @@ class VCMModel:
         ``wkb_f32`` evaluates the W_tt / W_ct / W_cc transmission planes in
         f32 (Kahan-compensated integral; f64 is the default and the oracle);
         ``power_rtol_scale`` is the default multiplier on the power CG's
-        relative tolerance."""
+        relative tolerance.
+
+        ``k_carry_residual``: in ``superstep_multi`` on the banded operator,
+        steps 2..k of a batch start their K-CG from the previous step's final
+        residual rebased by the exact change of the matrix
+        (``solve_potential_boundary_banded_carry``) instead of a fresh matvec;
+        the first step of every batch runs the fresh one."""
         self.params, self.lat = params, lat
+        self.k_carry_residual = bool(k_carry_residual)
         self.ne_max = int(ne_max)
         self.wkb_f32 = bool(wkb_f32)
         self.power_rtol_scale = power_rtol_scale
@@ -407,7 +419,25 @@ class VCMModel:
             )
         return pot_pair, q_overflow, c_overflow
 
-    def _fields(self, element, charge, potential_boundary_prev, T_bg, Vd) -> FieldsResult:
+    def _solve_boundary_carry(self, element, charge, pb_prev, Vd, carry):
+        """The banded K solve with a carried residual (``carry`` None: the
+        fresh entry matvec), counted as ``_solve_boundary`` counts."""
+        p = self.params
+        pot, cg, new_carry = solve_potential_boundary_banded_carry(
+            self.banded, self.band_meta, element, charge, pb_prev, Vd,
+            p.high_G, p.low_G, p.num_atoms_first_layer, p.nn_dist,
+            self._lattice_t, bool(p.pbc), self.vmax, carry=carry,
+        )
+        self.k_solves += 1
+        self.k_iterations += cg.iterations
+        return pot, cg, new_carry
+
+    def _fields(self, element, charge, potential_boundary_prev, T_bg, Vd,
+                k_carry=None) -> FieldsResult:
+        """The fields before an event loop. ``k_carry``: None runs the plain
+        K solve; on the banded operator "init" runs the carry solve with a
+        fresh entry matvec and a ``KCarry`` the rebased one, and the result
+        holds the new carry (other operators ignore it, as akmc_tpu's do)."""
         t, p = self.tables, self.params
         # every vmax-capped compaction (charge update, cvac correction)
         # truncates at vmax; vacancy generation grows the population, so
@@ -416,9 +446,16 @@ class VCMModel:
         charge = update_charge_compact(
             element, charge, t.neigh_idx, t.any_metal_nbr, self.vmax
         )
-        pot_boundary, cg = self._solve_boundary(
-            element, charge, potential_boundary_prev, Vd
-        )
+        k_carry_new = None
+        if k_carry is not None and isinstance(self.kop, BandedK):
+            pot_boundary, cg, k_carry_new = self._solve_boundary_carry(
+                element, charge, potential_boundary_prev, Vd,
+                None if isinstance(k_carry, str) else k_carry,
+            )
+        else:
+            pot_boundary, cg = self._solve_boundary(
+                element, charge, potential_boundary_prev, Vd
+            )
         pot_pair, q_overflow, c_overflow = self._pairwise(charge)
         pot_sum = pot_pair + pot_boundary   # sum_AB_into_A (psg.cu:1130-1151)
         P, etype, ln_S = self._build_rates(element, charge, pot_sum, T_bg)
@@ -426,7 +463,7 @@ class VCMModel:
             charge=charge, potential_boundary=pot_boundary, potential_sum=pot_sum,
             P=P, etype=etype, cg_iterations=cg.iterations,
             q_overflow=q_overflow, v_overflow=v_overflow, ln_S=ln_S,
-            c_overflow=c_overflow,
+            c_overflow=c_overflow, k_carry=k_carry_new,
         )
 
     def _grow(self, q_ovf, v_ovf, c_ovf) -> bool:
@@ -439,18 +476,20 @@ class VCMModel:
             self.pair_cand_cap *= 2
         return bool(q_ovf or v_ovf or c_ovf)
 
-    def _fields_grown(self, state: DeviceState, Vd: float, pb_start=None) -> FieldsResult:
+    def _fields_grown(self, state: DeviceState, Vd: float, pb_start=None,
+                      k_carry=None) -> FieldsResult:
         """``_fields`` on ``state`` (K solve started from ``pb_start``, default
-        the state's boundary potential). On an overflow of qmax, vmax or the
-        tiled path's candidate cap, the exceeded caps double and the fields
-        are recomputed from the same inputs. Draws nothing, so the event
-        loops that follow never have to replay a draw. ``fields_s`` keeps
-        the host time of the last call: the read of the cap flags drains the
-        device, so that is the fields' time on a card too."""
+        the state's boundary potential; ``k_carry`` as ``_fields`` takes it).
+        On an overflow of qmax, vmax or the tiled path's candidate cap, the
+        exceeded caps double and the fields are recomputed from the same
+        inputs. Draws nothing, so the event loops that follow never have to
+        replay a draw. ``fields_s`` keeps the host time of the last call: the
+        read of the cap flags drains the device, so that is the fields' time
+        on a card too."""
         t0 = time.perf_counter()
         pb = state.potential_boundary if pb_start is None else pb_start
         while True:
-            fr = self._fields(state.element, state.charge, pb, state.T_bg, Vd)
+            fr = self._fields(state.element, state.charge, pb, state.T_bg, Vd, k_carry)
             if not self._grow(*torch.stack(
                     [fr.q_overflow, fr.v_overflow, fr.c_overflow]).tolist()):
                 self.fields_s = time.perf_counter() - t0
@@ -475,19 +514,18 @@ class VCMModel:
         stream.advance(res.draws_used)
         return res
 
-    def _events_to_the_end(self, element, fr: FieldsResult, stream, rand_chunk):
-        """The serial loop on the fields ``fr`` until the superstep is done:
-        (last chunk's result, events of all chunks)."""
-        res = self._events(element, fr.charge, fr.P, fr.etype, stream, rand_chunk,
-                           ln_S=fr.ln_S)
+    def _events_to_the_end(self, element, charge, P, etype, ln_S, stream, rand_chunk):
+        """The serial loop on the rate table ``P`` until the superstep is
+        done: (last chunk's result with the events of all chunks)."""
+        res = self._events(element, charge, P, etype, stream, rand_chunk, ln_S=ln_S)
         n_events = res.n_events
         while not res.done:
             # the rand buffer ran out mid-superstep: continue with the
             # mutated table and the carried waiting time
-            res = self._events(res.element, res.charge, res.P, fr.etype, stream,
-                               rand_chunk, event_time_in=res.event_time, ln_S=fr.ln_S)
+            res = self._events(res.element, res.charge, res.P, etype, stream,
+                               rand_chunk, event_time_in=res.event_time, ln_S=ln_S)
             n_events += res.n_events
-        return res, n_events
+        return res._replace(n_events=n_events)
 
     def superstep(
         self, state: DeviceState, Vd: float, stream, rand_chunk: int = 8192
@@ -495,9 +533,73 @@ class VCMModel:
         """One full KMC superstep. ``stream`` is a ``rng.BufferedStream``
         over the KMC mt19937 stream; it advances by exactly the draws the
         event loop used. Caps that overflow grow first (``_fields_grown``)."""
+        new_state, stats, _ = self._step(state, Vd, stream, rand_chunk)
+        return new_state, stats
+
+    def _step(self, state, Vd, stream, rand_chunk, k_carry=None):
+        """``superstep`` with ``_fields``'s ``k_carry``: (state', stats, the
+        fields' new carry)."""
+        fr = self._fields_grown(state, Vd, k_carry=k_carry)
+        res = self._events_to_the_end(state.element, fr.charge, fr.P, fr.etype, fr.ln_S,
+                                      stream, rand_chunk)
+        return (*self._finish(state, fr, res), fr.k_carry)
+
+    def superstep_multi(
+        self, state: DeviceState, Vd: float, stream, k: int, rand_chunk: int = 2048,
+    ) -> Tuple[DeviceState, list]:
+        """k supersteps that share one rand buffer through a running cursor:
+        the same stats list, the same final state and the same advance of
+        ``stream`` as k sequential ``superstep(..., rand_chunk=rand_chunk)``
+        calls (``akmc_tpu/models/vcm.py::superstep_multi``). With
+        ``k_carry_residual`` on the banded operator, step 1 runs the carry
+        solve with a fresh entry matvec and steps 2..k rebase the previous
+        step's residual.
+
+        akmc_tpu runs the k steps as one executable and, when a step's rand
+        window runs out or a cap overflows, discards the batch and replays
+        it step by step. Here caps grow before any draw (``_fields_grown``)
+        and an event loop whose window runs out goes on in the next one, so
+        no batch is ever discarded, and the result is the one akmc_tpu's
+        replay gives (on a grown cap the carry is kept, where akmc_tpu's
+        replay solves fresh). The event counts and waiting times come from
+        the serial loop's own reads and the CG counts from the solves'; k
+        supersteps in one CUDA graph wait for loops that stay on the card."""
+        use_kc = self.k_carry_residual and isinstance(self.kop, BandedK)
+        kc = "init" if use_kc else None
+        stats_list = []
+        for _ in range(k):
+            state, stats, kc = self._step(state, Vd, stream, rand_chunk, k_carry=kc)
+            stats_list.append(stats)
+        return state, stats_list
+
+    def fields_only(self, state: DeviceState, Vd: float) -> Tuple[DeviceState, dict]:
+        """Charges and both potentials without the event step
+        (``perturb_structure = 0``, kmc_main.cpp:484), caps grown: the
+        state's charge, boundary and summed potentials replaced."""
         fr = self._fields_grown(state, Vd)
-        res, n_events = self._events_to_the_end(state.element, fr, stream, rand_chunk)
-        return self._finish(state, fr, res._replace(n_events=n_events))
+        new_state = state.replace(
+            charge=fr.charge,
+            potential_boundary=fr.potential_boundary,
+            potential_charge=fr.potential_sum,
+        )
+        return new_state, {"cg_iterations": fr.cg_iterations}
+
+    def superstep_events_only(
+        self, state: DeviceState, stream, rand_chunk: int = 8192
+    ) -> Tuple[DeviceState, dict]:
+        """The event step on the state's current (stale) charge and summed
+        potential (``solve_potential = 0``: the reference's event step reads
+        whatever ``site_potential_charge`` holds, kmc_main.cpp:491): the rate
+        table, then the serial loop to its end over rand chunks; ``stream``
+        advances by exactly the draws used."""
+        P, etype, ln_S = self._build_rates(
+            state.element, state.charge, state.potential_charge, state.T_bg)
+        res = self._events_to_the_end(state.element, state.charge, P, etype, ln_S,
+                                      stream, rand_chunk)
+        new_state = state.replace(element=res.element, charge=res.charge,
+                                  kmc_time=state.kmc_time + res.event_time)
+        return new_state, {"n_events": res.n_events, "event_time": res.event_time_h,
+                           "cg_iterations": 0}
 
     def _finish(self, state, fr, res, **more) -> Tuple[DeviceState, dict]:
         """The new state and the stats every superstep returns."""
@@ -560,10 +662,10 @@ class VCMModel:
             cg_iterations=cg.iterations, q_overflow=q_ovf, v_overflow=v_ovf, ln_S=ln_S,
             c_overflow=c_ovf,
         )
-        (res, n_events), dt_events = timed(
-            lambda: self._events_to_the_end(state.element, fr, stream, rand_chunk))
+        res, dt_events = timed(lambda: self._events_to_the_end(
+            state.element, charge, P, etype, ln_S, stream, rand_chunk))
         return self._finish(
-            state, fr, res._replace(n_events=n_events),
+            state, fr, res,
             t_charge=dt_charge, t_boundary=dt_boundary, t_pairwise=dt_pair,
             t_rates=dt_rates, t_events=dt_events,
         )
@@ -628,6 +730,57 @@ class VCMModel:
             n_cut_conflict=res.n_cut_conflict, n_cut_mass=res.n_cut_mass,
         )
 
+
+    def warmup(self, state: DeviceState, Vd: float, full_physics: bool = False,
+               batched: int = 0) -> dict:
+        """What superstep 0 would otherwise pay for, done before it. On a
+        CUDA device: both kernel sources built (``ops/cuda_build.py``) and,
+        on the DIA operator, each kernel loaded by one K solve from ``state``
+        at ``Vd`` cut off after its entry matvec (``max_iterations = 0``;
+        counted in ``k_solves`` and ``k_iterations`` as any solve). Under
+        ``full_physics`` the lazy tables the run uses: ``current_tables``,
+        ``power_band`` and, with the local heat model, ``local_heat``. With
+        ``batched`` B, a throwaway generator on the device draws once. No
+        tensor of ``state`` changes and no stream is drawn from (akmc_tpu's
+        ``warmup`` compiles its executables instead). Returns the host
+        seconds of each item."""
+        out = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            out[name] = time.perf_counter() - t0
+
+        if self.device.type == "cuda":
+            from akmc_tpu_torch.ops import cuda_build
+            from akmc_tpu_torch.ops import dia_matvec
+            from akmc_tpu_torch.solvers import dia_cg
+
+            timed("cuda_build", lambda: cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL]))
+            if isinstance(self.kop, DiaK):
+                timed("dia_kernels", lambda: self._empty_dia_solve(state, Vd))
+        if full_physics:
+            timed("current_tables", lambda: self.current_tables)
+            timed("power_band", lambda: self.power_band)
+            if self.params.solve_heating_local:
+                timed("local_heat", lambda: self.local_heat)
+        if batched:
+            timed(f"batched_B{batched}", lambda: GeneratorDraws.seeded(0, self.device).uniform(
+                (batched,), torch.float64, self.device))
+        return out
+
+    def _empty_dia_solve(self, state: DeviceState, Vd: float) -> None:
+        """One DIA K solve of ``state`` cut off after its entry matvec: one
+        launch of each kernel, which loads it."""
+        p = self.params
+        _, cg = solve_potential_boundary_dia(
+            self.dia, self.dia_meta, state.element, state.charge, state.potential_boundary,
+            Vd, p.high_G, p.low_G, p.num_atoms_first_layer, max_iterations=0,
+        )
+        self.k_solves += 1
+        self.k_iterations += cg.iterations
 
     # ------------------------------------------------------------------
     # full physics: CB edge, current and dissipated power, heat
@@ -798,18 +951,57 @@ class VCMModel:
             m_prev = torch.zeros(self.n_atom + 2, dtype=torch.float64, device=self.device)
         if rtol_scale is None:
             rtol_scale = self.power_rtol_scale
+        new_state, stats, m_new, on_device = self._full_step(
+            state, Vd, stream, m_prev, rand_chunk, rtol_scale)
+        _add_full_stats(stats, on_device.tolist())
+        return new_state, stats, m_new
+
+    def _full_step(self, state, Vd, stream, m_prev, rand_chunk, rtol_scale):
+        """``superstep_full`` without the read of its device scalars:
+        (state', stats, m, the (I_macro, T_bg, P_tot) tensor)."""
         fr = self._fields_grown(state, Vd)
         I_macro, site_power, m_new, pow_iters = self._power(
             state.element, fr.charge, state.cb_edge, m_prev, Vd, rtol_scale)
-        res, n_events = self._events_to_the_end(state.element, fr, stream, rand_chunk)
+        res = self._events_to_the_end(state.element, fr.charge, fr.P, fr.etype, fr.ln_S,
+                                      stream, rand_chunk)
         T_new, temp_new = self._heat(state.T_bg, state.temperature, site_power, res.element,
                                      res.event_time, res.event_time_h)
-        I_h, T_h, P_h = torch.stack([I_macro, T_new, torch.sum(site_power)]).tolist()
-        new_state, stats = self._finish(
-            state, fr, res._replace(n_events=n_events), I_macro=I_h, T_bg=T_h,
-            power_cg_iterations=pow_iters, P_tot=P_h,
-        )
-        return new_state.replace(power=site_power, temperature=temp_new, T_bg=T_new), stats, m_new
+        new_state, stats = self._finish(state, fr, res, power_cg_iterations=pow_iters)
+        new_state = new_state.replace(power=site_power, temperature=temp_new, T_bg=T_new)
+        return new_state, stats, m_new, torch.stack([I_macro, T_new, torch.sum(site_power)])
+
+    def superstep_full_multi(
+        self, state: DeviceState, Vd: float, stream, k: int, m_prev=None,
+        rand_chunk: int = 2048, rtol_scale=None,
+    ) -> Tuple[DeviceState, list, torch.Tensor]:
+        """k full-physics supersteps on one rand cursor, the power solve's warm
+        start ``m`` threaded from each step to the next and ``rtol_scale``
+        held for the batch: the same (state', stats list, m) as k sequential
+        ``superstep_full(..., rand_chunk=rand_chunk)`` calls, under the
+        batching contract of ``superstep_multi``. The k steps' I_macro, T_bg
+        and P_tot stay on the device until one read at the end."""
+        if m_prev is None:
+            m_prev = torch.zeros(self.n_atom + 2, dtype=torch.float64, device=self.device)
+        if rtol_scale is None:
+            rtol_scale = self.power_rtol_scale
+        stats_list, on_device = [], []
+        m = m_prev
+        for _ in range(k):
+            state, stats, m, scalars = self._full_step(state, Vd, stream, m, rand_chunk,
+                                                        rtol_scale)
+            stats_list.append(stats)
+            on_device.append(scalars)
+        for stats, vals in zip(stats_list, torch.stack(on_device).tolist()):
+            _add_full_stats(stats, vals)
+        return state, stats_list, m
+
+
+def _add_full_stats(stats: dict, vals) -> None:
+    """A full-physics superstep's stats with its (I_macro, T_bg, P_tot)
+    values, in akmc_tpu's key order."""
+    I_h, T_h, P_h = vals
+    iters = stats.pop("power_cg_iterations")
+    stats.update(I_macro=I_h, T_bg=T_h, power_cg_iterations=iters, P_tot=P_h)
 
 
 def _max_in_reach_count(

@@ -18,6 +18,16 @@ snapshot as one digit per site. A full-physics run (``--full-physics``) adds
 the current ``I_macro`` [A], the dissipated power ``P_tot`` [W], the
 background temperature ``T_bg`` [K], the power CG's tolerance multiplier
 ``power_rtol_scale`` and its iterations ``power_cg_iterations``.
+
+The record of the two deck modes (``runtime/synth_deck.py::MODES``) is made
+from three workdirs of akmc_tpu's driver on the mode decks: the fields-only
+sweep with ``--dia-pallas`` (the golden) and without it (its spread), and
+the events-only sweep:
+
+    python -m akmc_tpu_torch.runtime.golden --modes FO_PALLAS FO_XLA EO > modes.json
+
+The fields-only part adds the snapshots' potentials (``potentials``) and the
+spread between the two matvecs (``spread``).
 """
 
 from __future__ import annotations
@@ -59,6 +69,58 @@ def summarize(workdir: str) -> dict:
             for r in rows
         ],
         "final_elements": elements,
+    }
+
+
+def _snapshot_potentials(path: str) -> list:
+    with open(path) as f:
+        return [float(ln.split()[4]) for ln in f.read().splitlines()[2:] if ln.strip()]
+
+
+def potentials(workdir: str) -> dict:
+    """The potential column of each bias point's last snapshot: its sum of
+    absolute values per bias point (``abs_sums``), and every value of the
+    run's last snapshot (``final``), as the snapshots print them."""
+    with open(os.path.join(workdir, "output1_0.txt")) as f:
+        folders = re.findall(r"^Created folder: (\S+)$", f.read(), re.M)
+    sums = []
+    for folder in folders:
+        path = os.path.join(workdir, folder)
+        last = max(int(m.group(1)) for name in os.listdir(path)
+                   if (m := re.fullmatch(r"snapshot_(\d+)\.xyz", name)))
+        sums.append(math.fsum(abs(v) for v in _snapshot_potentials(
+            os.path.join(path, f"snapshot_{last}.xyz"))))
+    return {"abs_sums": sums, "final": _snapshot_potentials(_final_snapshot(workdir))}
+
+
+def potential_distance(golden: dict, got: dict) -> dict:
+    """How far ``got``'s potentials (``potentials``) are from ``golden``'s: the
+    largest relative difference of a bias point's sum, and the largest
+    absolute difference of a site in the final snapshot [V]."""
+    gs, hs = golden["abs_sums"], got["abs_sums"]
+    gf, hf = golden["final"], got["final"]
+    if len(gs) != len(hs) or len(gf) != len(hf):
+        return {"abs_sum_max_rel": math.inf, "final_max_abs": math.inf}
+    return {"abs_sum_max_rel": max((_rel(h, g) for g, h in zip(gs, hs)), default=0.0),
+            "final_max_abs": max((abs(h - g) for g, h in zip(gf, hf)), default=0.0)}
+
+
+def modes_record(fields_golden: str, fields_other: str, events: str) -> dict:
+    """The golden of the two deck modes from akmc_tpu's three workdirs (see
+    the module docstring), with the fields-only sweep's spread between its
+    two matvecs: CG counts per pass and potentials."""
+    fo, fo_other = summarize(fields_golden), summarize(fields_other)
+    pot, pot_other = potentials(fields_golden), potentials(fields_other)
+    return {
+        "fields_only": {**fo, "potentials": pot},
+        "spread": {
+            "cg_iterations_max_abs": max(
+                (abs(a["cg_iterations"] - b["cg_iterations"])
+                 for a, b in zip(fo["supersteps"], fo_other["supersteps"])), default=0),
+            **potential_distance(pot, pot_other),
+            "mismatches": compare(fo, fo_other, 0.0),
+        },
+        "events_only": summarize(events),
     }
 
 
@@ -134,7 +196,9 @@ def distance(golden: dict, got: dict) -> dict:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3:
+    if sys.argv[1] == "--modes":
+        json.dump(modes_record(*sys.argv[2:5]), sys.stdout)     # one line: 30k potentials
+    elif len(sys.argv) == 3:
         json.dump(distance(load(sys.argv[1]), load(sys.argv[2])), sys.stdout)
     else:
         json.dump(summarize(sys.argv[1]), sys.stdout, indent=1)

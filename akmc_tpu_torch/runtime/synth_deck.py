@@ -21,7 +21,9 @@ both drivers run the same sweep from the same files:
 
 ``write_heating_deck`` writes a copy of a deck with one of the two heat
 models switched on (``solve_heating_global`` or ``solve_heating_local``) and
-the heat constants of ``HEAT_CONSTANTS``.
+the heat constants of ``HEAT_CONSTANTS``; ``write_mode_deck`` a copy that
+runs the fields only (``perturb_structure = 0``) or the events only
+(``solve_potential = 0``); ``write_deck_copy`` one with any keys set.
 """
 
 from __future__ import annotations
@@ -98,26 +100,55 @@ def write_heating_deck(template: str, workdir: str, kind: str) -> str:
         **HEAT_CONSTANTS,
         "A": f"{float(lattice[1])}e-10 {float(lattice[2])}e-10",
     }
+    return write_deck_copy(text, values, os.path.join(workdir, f"deck_heating_{kind}.txt"))
+
+
+# the deck flags of each mode that runs a part of the superstep
+# (kmc_main.cpp gates the field modules on solve_potential and the event step
+# on perturb_structure)
+MODES = {
+    "fields_only": {"perturb_structure": "0", "solve_potential": "1"},
+    "events_only": {"perturb_structure": "1", "solve_potential": "0"},
+}
+
+
+def write_mode_deck(template: str, workdir: str, mode: str) -> str:
+    """``template`` with the flags of ``MODES[mode]``, written to
+    ``<workdir>/deck_<mode>.txt``; returns its path."""
+    if mode not in MODES:
+        raise ValueError(f"mode is one of {sorted(MODES)}, not {mode!r}")
+    with open(template) as f:
+        text = f.read()
+    return write_deck_copy(text, MODES[mode], os.path.join(workdir, f"deck_{mode}.txt"))
+
+
+def write_deck_copy(text: str, values: dict, deck: str) -> str:
+    """The deck ``text`` with each key of ``values`` set (appended where the
+    deck lacks it), written to ``deck``."""
     for key, value in values.items():
         text, n = re.subn(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
         if n > 1:
             raise ValueError(f"the template deck sets {key!r} more than once")
         if n == 0:
             text = text.rstrip("\n") + f"\n{key} = {value}\n"
-    os.makedirs(workdir, exist_ok=True)
-    deck = os.path.join(workdir, f"deck_heating_{kind}.txt")
+    os.makedirs(os.path.dirname(deck) or ".", exist_ok=True)
     with open(deck, "w") as f:
         f.write(text)
     return deck
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="write the disordered stand-in deck")
+    ap = argparse.ArgumentParser(description="write the disordered stand-in deck, or with "
+                                             "--mode a copy of the template in that mode")
     ap.add_argument("workdir")
     ap.add_argument("--n-yz", type=int, default=24)
     ap.add_argument("--template", default=os.path.join("decks", "iv_sweep_5nm.txt"))
+    ap.add_argument("--mode", choices=sorted(MODES), default=None)
     args = ap.parse_args(argv)
-    print(write_synth_deck(args.template, args.workdir, args.n_yz))
+    if args.mode:
+        print(write_mode_deck(args.template, args.workdir, args.mode))
+    else:
+        print(write_synth_deck(args.template, args.workdir, args.n_yz))
 
 
 if __name__ == "__main__":

@@ -120,11 +120,43 @@ line is printed):
            energy-loop bounds, the power solve in ms and per iteration, host
            reads, peak memory.
 
+8. driver  the deck modes and options of the driver, on the sizes above
+           (``runtime/synth_deck.py`` writes the deck copies), against
+           ``akmc_tpu_torch/golden/iv_sweep_5nm_n24_modes.json``. Fields only
+           (``perturb_structure = 0``): the whole sweep, 30 passes, pass count,
+           events (none) and elements exact, each pass's CG count and every
+           potential of the final snapshot within akmc_tpu's own spread
+           between its two matvecs, each bias point's sum of |potential|
+           within FIELDS_POT_SUM_RTOL, DIA launches equal to the K solves.
+           Events only (``solve_potential = 0``): at most the sweep's 24
+           supersteps, events, superstep count and elements exact, KMC times
+           within EVENTS_KMC_RTOL, no K solve and no launch.
+           ``--steps-per-dispatch 4``: the sweep (every bias point runs whole
+           batches, so it passes ``t_switch`` by up to three supersteps; the
+           rows before the first such overshoot are the sweep phase's), and,
+           on a copy of the deck whose ``t_switch`` lets ``max_supersteps``
+           end the run, 24 serial and 4 full-physics supersteps equal to
+           single supersteps row for row (``superstep_s`` aside). On the
+           stand-in, ``superstep_multi`` 3 x 4 from one state with the
+           carried-residual K solve and without: events, CG counts, elements
+           and ``kmc_time`` equal. ``--warmup`` on three full-physics
+           supersteps: output equal to the run without it (timing aside),
+           the first superstep's time with and without it and the warmup's
+           items printed. ``--cache-dir`` on the stand-in twice: the second
+           run reads the list file (building the lists would raise) and gives the
+           first run's rows and final snapshot; both list times printed.
+           ``runtime/profiling.py::trace`` around one superstep writes a
+           non-empty trace; ``device_memory_stats`` goes into the line. Every
+           path that solves on the DIA operator launches each kernel once per
+           K solve the model counted, with the iterations counted on the
+           device equal to the model's.
+
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered``, ``tiled``, ``batched`` and ``full``, the card's name and power
-limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``.
-``--only PHASE[,PHASE]`` (of kernels, sweep, disordered, tiled, batched, full)
-runs a part of it while developing. Needs one card, no network, and no JAX.
+``disordered``, ``tiled``, ``batched``, ``full`` and ``driver``, the card's
+name and power limit from nvidia-smi, and last ``{"ok": true, "device":
+{...}}``. ``--only PHASE[,PHASE]`` (of kernels, sweep, disordered, tiled,
+batched, full, driver) runs a part of it while developing. Needs one card, no
+network, and no JAX.
 """
 
 from __future__ import annotations
@@ -224,6 +256,23 @@ STANDIN_STEP_POWER_RTOL = 1e-6
 # units in the last place of T itself (a 1e-11 K rise at 300 K is a few hundred
 # of them)
 HEAT_T_ULPS = 4
+MODES_GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24_modes.json")
+DRIVER_DIR = os.path.join(HERE, "build", "chip_smoke", "driver")
+N_SWEEP = 24                     # the sweep's supersteps: the events-only run's cap
+SPD = 4                          # --steps-per-dispatch of the driver phase
+# events-only KMC times against akmc_tpu's (rates on the zero potential, no
+# CG): an H100 80GB HBM3 at 700 W and the port on the CPU read 2.01e-16; a few
+# ulps more
+EVENTS_KMC_RTOL = 1e-15
+# fields-only sweep against its golden (iv_sweep_5nm_n24_modes.json): each
+# pass's CG count and every potential of the final snapshot within
+# akmc_tpu's own spread between its two matvecs (the golden's "spread": 1
+# iteration, 2.65e-5 V; the H100 reads 1 and 2.63e-5), and each bias point's
+# sum of |potential| within FIELDS_POT_SUM_RTOL: that spread is 3.55e-7, the
+# H100 (and the port on the CPU) reads 4.30e-7 at 1 V, where it stops at the
+# golden's 312 iterations and the other matvec at 311 (the sum moves with
+# where the CG stops); the reading rounded up
+FIELDS_POT_SUM_RTOL = 5e-7
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 F64_FLOP_PER_S = 34e12           # H100 SXM, f64 outside the tensor cores
 
@@ -1629,11 +1678,11 @@ def _summarize_steps(steps: list) -> dict:
     }
 
 
-def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0):
+def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0, **model_kw):
     """The port's model and first state for ``deck`` on the N_YZ crossbar, or
     with ``synth_dir`` on the disordered stand-in's files there, built as the
     driver builds them; no static pair table unless ``pair_table_budget``
-    says so (power solves alone need none)."""
+    says so (power solves alone need none). ``model_kw`` goes to the model."""
     from akmc_tpu_torch.config import KMCParameters
     from akmc_tpu_torch.lattice import build_lattice
     from akmc_tpu_torch.models.crossbar import mask_null_slots, synthesize_deck_structure
@@ -1653,7 +1702,7 @@ def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0):
     if not synth_dir:
         mask_null_slots(lat)
     model = VCMModel(p, lat, device=dev, rate_normalize=True,
-                     pair_table_budget=pair_table_budget)
+                     pair_table_budget=pair_table_budget, **model_kw)
     return model, make_device_state(lat, p.background_temp, dev)
 
 
@@ -1907,6 +1956,268 @@ def run_full(dev):
     return line, "; ".join(problems) or None
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the rest of the driver
+# ---------------------------------------------------------------------------
+def _rows_but_time(workdir: str) -> list:
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    for r in rows:
+        r.pop("superstep_s")
+    return rows
+
+
+def _log_but_time(workdir: str) -> list:
+    """output1_0.txt without its timing values and without the warmup line."""
+    import re
+
+    with open(os.path.join(workdir, "output1_0.txt")) as f:
+        lines = f.read().splitlines()
+    return [re.sub(r"[-+.0-9e]+$", "", ln) if ln.startswith("Z - calculation time") else ln
+            for ln in lines if not ln.startswith("AOT warmup:")]
+
+
+def _first_difference(a: list, b: list) -> str:
+    i = next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), min(len(a), len(b)))
+    return f"row {i} of {len(a)} against {len(b)}"
+
+
+def _launches_of(counts: dict, summary: dict) -> dict:
+    return {"dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
+            "k_solves": summary["k_solves"]}
+
+
+@contextlib.contextmanager
+def lists_never_built():
+    """Building the port's neighbor lists raises inside the block: a run in
+    it must read its lists from the cache."""
+    from akmc_tpu_torch import lattice
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the neighbor lists were built, not read from the cache")
+
+    built = lattice.build_neighbor_list
+    lattice.build_neighbor_list = refuse
+    try:
+        yield
+    finally:
+        lattice.build_neighbor_list = built
+
+
+def run_driver(dev, sweep_rows):
+    """(driver line, what is wrong with it or None): the deck modes and the
+    options the port gained last, each through ``runtime.driver.run`` on the
+    card (see the module docstring, phase 8)."""
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.runtime import golden, profiling, synth_deck
+
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    with open(MODES_GOLDEN) as f:
+        gold = json.load(f)
+    problems, line, launches = [], {}, {}
+    with open(DECK) as f:
+        template = f.read()
+
+    # fields only: the whole sweep, two passes per bias point
+    deck = synth_deck.write_mode_deck(DECK, DRIVER_DIR, "fields_only")
+    wd = os.path.join(DRIVER_DIR, "fields_only")
+    summary, rows, counts = drive(deck, wd, synthesize_crossbar=N_YZ, dia_pallas=True)
+    check_launches("fields-only", summary, rows, counts)
+    launches["fields_only"] = _launches_of(counts, summary)
+    ref, spread = gold["fields_only"], gold["spread"]
+    got = golden.summarize(wd)
+    bad = golden.compare(ref, got, 0.0)       # KMC times are 0 and t_switch: exact
+    cg_diff = max(abs(g["cg_iterations"] - h["cg_iterations"])
+                  for g, h in zip(ref["supersteps"], got["supersteps"]))
+    if cg_diff > spread["cg_iterations_max_abs"]:
+        bad.append(f"a pass's CG count is {cg_diff} from the golden's, akmc_tpu's own spread "
+                   f"{spread['cg_iterations_max_abs']}")
+    pot = golden.potential_distance(ref["potentials"], golden.potentials(wd))
+    for key, bound in (("abs_sum_max_rel", FIELDS_POT_SUM_RTOL),
+                       ("final_max_abs", spread["final_max_abs"])):
+        if not pot[key] <= bound:
+            bad.append(f"potentials: {key} {pot[key]:.3e} beyond {bound:.3e}")
+    if bad:
+        problems.append("fields-only sweep: " + "; ".join(bad[:5]))
+    line["fields_only"] = {
+        "passes": len(rows), "k_solves": summary["k_solves"],
+        "cg_per_pass": [r["cg_iterations"] for r in rows],
+        "cg_max_abs_vs_golden": cg_diff, "potentials_vs_golden": pot,
+        "bounds": {"cg_iterations_max_abs": spread["cg_iterations_max_abs"],
+                   "abs_sum_max_rel": FIELDS_POT_SUM_RTOL, "final_max_abs": spread["final_max_abs"]},
+        "akmc_tpu_pallas_vs_xla": {k: spread[k] for k in
+                                   ("cg_iterations_max_abs", "abs_sum_max_rel", "final_max_abs")},
+        "superstep_s": [r["superstep_s"] for r in rows],
+        "driver_total_s": summary["total_time_s"], "driver_snapshot_s": summary["snapshot_s"],
+        "host_syncs_per_pass": counts["host_syncs"] / len(rows), **launches["fields_only"],
+    }
+
+    # events only, on the stale (zero) potential: no K solve, no kernel
+    deck = synth_deck.write_mode_deck(DECK, DRIVER_DIR, "events_only")
+    wd = os.path.join(DRIVER_DIR, "events_only")
+    summary, rows, counts = drive(deck, wd, synthesize_crossbar=N_YZ, max_supersteps=N_SWEEP)
+    launches["events_only"] = _launches_of(counts, summary)
+    if any(launches["events_only"].values()):
+        problems.append(f"the events-only sweep solved or launched: {launches['events_only']}")
+    ref = gold["events_only"]
+    got = golden.summarize(wd)
+    bad = golden.compare(ref, got, EVENTS_KMC_RTOL)
+    if bad:
+        problems.append("events-only sweep: " + "; ".join(bad[:5]))
+    line["events_only"] = {
+        "supersteps": len(rows), "events": sum(r["n_events"] for r in rows),
+        "kmc_time_max_rel_vs_golden": golden.distance(ref, got)["kmc_time_max_rel"],
+        "kmc_rtol": EVENTS_KMC_RTOL, "superstep_s": [r["superstep_s"] for r in rows],
+        "host_syncs_per_superstep": counts["host_syncs"] / len(rows), **launches["events_only"],
+    }
+
+    # --steps-per-dispatch on the sweep: a bias point runs whole batches, so
+    # it passes t_switch by up to k - 1 supersteps; up to the first bias
+    # point's last single-step superstep the rows are the sweep phase's
+    if sweep_rows is None:
+        drive(DECK, WORKDIR, synthesize_crossbar=N_YZ, dia_pallas=True)
+        sweep_rows = _rows_but_time(WORKDIR)
+    else:
+        sweep_rows = [{k: v for k, v in r.items() if k != "superstep_s"} for r in sweep_rows]
+    wd = os.path.join(DRIVER_DIR, "sweep_spd")
+    summary, rows, counts = drive(DECK, wd, synthesize_crossbar=N_YZ, dia_pallas=True,
+                                  steps_per_dispatch=SPD)
+    check_launches("--steps-per-dispatch sweep", summary, rows, counts)
+    launches["sweep_steps_per_dispatch"] = _launches_of(counts, summary)
+    rows = _rows_but_time(wd)
+    first = sweep_rows[: next((i for i, r in enumerate(sweep_rows)
+                               if r["bias"] != sweep_rows[0]["bias"]), len(sweep_rows))]
+    steps_per_point = []
+    for r in rows:
+        if r["step"] == 1:
+            steps_per_point.append(0)
+        steps_per_point[-1] += 1
+    if rows[: len(first)] != first:
+        problems.append("the --steps-per-dispatch sweep's first rows differ from the sweep's: "
+                        + _first_difference(rows, first))
+    if any(n % SPD for n in steps_per_point) or len(steps_per_point) != 15:
+        problems.append(f"the --steps-per-dispatch sweep ran {steps_per_point} supersteps "
+                        f"per bias point, not whole batches of {SPD} at 15 points")
+    line["sweep_steps_per_dispatch"] = {
+        "k": SPD, "supersteps": len(rows), "supersteps_per_bias_point": steps_per_point,
+        "rows_equal_to_sweep": len(first), **launches["sweep_steps_per_dispatch"],
+    }
+
+    # --steps-per-dispatch against single steps where neither overshoots: the
+    # sweep's deck with t_switch long enough that max_supersteps ends the run
+    long_deck = synth_deck.write_deck_copy(
+        template, {"t_switch": " ".join(["1e3"] * 15)}, os.path.join(DRIVER_DIR, "deck_long.txt"))
+    pair = {}
+    for name, extra, depth in (("serial", {}, N_SWEEP),
+                               ("full", dict(committed_parity=False, power_rtol_scale="1.0"), SPD)):
+        runs = []
+        for k in (1, SPD):
+            wd = os.path.join(DRIVER_DIR, f"long_{name}_k{k}")
+            summary, rows_k, counts = drive(long_deck, wd, synthesize_crossbar=N_YZ,
+                                            dia_pallas=True, max_supersteps=depth,
+                                            steps_per_dispatch=k, **extra)
+            check_launches(f"--steps-per-dispatch {k} ({name})", summary, rows_k, counts)
+            runs.append((_rows_but_time(wd), summary, counts, rows_k))
+        (rows1, _, _, raw1), (rowsk, summary_k, counts_k, rawk) = runs
+        if rowsk != rows1 or len(rowsk) != depth:
+            problems.append(f"--steps-per-dispatch {SPD} ({name}) differs from single supersteps: "
+                            + _first_difference(rowsk, rows1))
+        launches[f"{name}_steps_per_dispatch"] = _launches_of(counts_k, summary_k)
+        pair[name] = {"supersteps": len(rowsk), "events": sum(r["n_events"] for r in rowsk),
+                      "cg_iterations": sum(r["cg_iterations"] for r in rowsk),
+                      "sum_superstep_s_single": sum(r["superstep_s"] for r in raw1),
+                      "sum_superstep_s_batched": sum(r["superstep_s"] for r in rawk),
+                      **launches[f"{name}_steps_per_dispatch"]}
+    line["steps_per_dispatch_vs_single"] = pair
+
+    # --warmup on three full-physics supersteps: the same output, and the
+    # first superstep's wall time with and without it (a reading)
+    warm = {}
+    for flag in (True, False):
+        wd = os.path.join(DRIVER_DIR, f"full_warmup_{flag}")
+        summary, rows_w, counts = drive(DECK, wd, synthesize_crossbar=N_YZ, dia_pallas=True,
+                                        committed_parity=False, max_supersteps=3, warmup=flag)
+        check_launches(f"--warmup {flag}", summary, rows_w, counts)
+        with open(os.path.join(wd, "output1_0.txt")) as f:
+            aot = [ln for ln in f.read().splitlines() if ln.startswith("AOT warmup:")]
+        warm[flag] = {"first_superstep_s": rows_w[0]["superstep_s"],
+                      "superstep_s": [r["superstep_s"] for r in rows_w],
+                      "aot_line": aot[0] if aot else None, **_launches_of(counts, summary)}
+    if _log_but_time(os.path.join(DRIVER_DIR, "full_warmup_True")) != _log_but_time(
+            os.path.join(DRIVER_DIR, "full_warmup_False")) or _rows_but_time(
+            os.path.join(DRIVER_DIR, "full_warmup_True")) != _rows_but_time(
+            os.path.join(DRIVER_DIR, "full_warmup_False")):
+        problems.append("--warmup changed the full-physics output")
+    if not warm[True]["aot_line"] or warm[False]["aot_line"]:
+        problems.append(f"the 'AOT warmup:' line is wrong: {warm[True]['aot_line']!r}, "
+                        f"{warm[False]['aot_line']!r}")
+    launches["warmup"] = {k: warm[True][k] for k in ("dia_launches", "dia_cg_launches", "k_solves")}
+    line["warmup"] = {"with": warm[True], "without": warm[False]}
+
+    # the disordered stand-in: --cache-dir twice, the second run reading the file
+    synth_dir = os.path.join(DRIVER_DIR, "synth")
+    synth = synth_deck.write_synth_deck(DECK, synth_dir, N_YZ)
+    cache = os.path.join(DRIVER_DIR, "cache")
+    cached = []
+    for i in range(2):
+        wd = os.path.join(DRIVER_DIR, f"cache_run{i}")
+        with lists_never_built() if i else contextlib.nullcontext():
+            summary, rows_c, counts = drive(synth, wd, cache_dir=cache, max_supersteps=3)
+        files = sorted(os.listdir(cache))
+        cached.append({"lattice_s": summary["lattice_s"], "files": files,
+                       "rows": _rows_but_time(wd),
+                       "snapshot": open(golden._final_snapshot(wd), "rb").read()})
+    if cached[0]["files"] != cached[1]["files"] or len(cached[0]["files"]) != 1:
+        problems.append(f"the cache holds {cached[1]['files']} after two runs")
+    if cached[0]["rows"] != cached[1]["rows"] or cached[0]["snapshot"] != cached[1]["snapshot"]:
+        problems.append("the run that read the list cache differs from the one that wrote it")
+    line["cache_dir"] = {"lattice_s_built": cached[0]["lattice_s"],
+                         "lattice_s_read": cached[1]["lattice_s"], "file": cached[0]["files"],
+                         "supersteps": len(cached[0]["rows"])}
+
+    # the stand-in: superstep_multi with the carried residual and without,
+    # from one state, 3 x 4 supersteps
+    model, state0 = full_model(synth, dev, synth_dir=synth_dir, pair_table_budget=8e9)
+    multi = {}
+    for flag in (False, True):
+        model.k_carry_residual = flag
+        state, stream = state0, BufferedStream(ReferenceRNG(model.params.rnd_seed_kmc))
+        evs, cgs, wall = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, stats = model.superstep_multi(state, 2.0, stream, k=SPD)
+            wall.append(time.perf_counter() - t0)
+            evs += [s["n_events"] for s in stats]
+            cgs += [s["cg_iterations"] for s in stats]
+        multi[flag] = (evs, cgs, state, wall)
+    (e0, c0, s0, w0), (e1, c1, s1, w1) = multi[False], multi[True]
+    if (e0, c0) != (e1, c1) or not torch.equal(s0.element, s1.element) or float(
+            s0.kmc_time) != float(s1.kmc_time):
+        problems.append(f"the carried residual changed the stand-in's trajectory: events "
+                        f"{e0} / {e1}, CG {c0} / {c1}")
+    line["carried_residual"] = {
+        "model": model.describe(), "events": e1, "cg_iterations": c1,
+        "kmc_time": float(s1.kmc_time), "batch_s_fresh": w0, "batch_s_carried": w1,
+        "potential_boundary_max_abs_diff": float((s0.potential_boundary - s1.potential_boundary)
+                                                 .abs().max()),
+    }
+
+    # profiling.trace around one superstep
+    trace_dir = os.path.join(DRIVER_DIR, "trace")
+    with profiling.trace(trace_dir):       # a warm superstep: one CG iteration
+        profiling.pull_sync(model.superstep(s1, 2.0, BufferedStream(
+            ReferenceRNG(model.params.rnd_seed_kmc))))
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+    sizes = [os.path.getsize(t) for t in traces]
+    if len(traces) != 1 or not sizes[0]:
+        problems.append(f"profiling.trace wrote {list(zip(traces, sizes))}")
+    line["trace"] = {"files": len(traces), "bytes": sizes}
+    line["device_memory_stats"] = profiling.device_memory_stats()
+    line["launches"] = launches
+    del model, state0, s0, s1
+    return line, "; ".join(problems) or None
+
+
 def _final_potentials_finite(workdir: str) -> bool:
     from akmc_tpu_torch.runtime.golden import _final_snapshot
 
@@ -1915,7 +2226,7 @@ def _final_potentials_finite(workdir: str) -> bool:
     return bool(vals) and all(math.isfinite(v) for v in vals)
 
 
-PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full")
+PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver")
 
 
 def main(argv=None) -> int:
@@ -1960,7 +2271,8 @@ def main(argv=None) -> int:
                       ("batched", lambda: run_batched(
                           dev, [int(n) for n in args.crossbar_n_yz.split(",")],
                           sweep_rows or None)),
-                      ("full", lambda: run_full(dev))):
+                      ("full", lambda: run_full(dev)),
+                      ("driver", lambda: run_driver(dev, sweep_rows or None))):
         if name in phases:
             t0 = time.perf_counter()
             lines[name], problem = run()
@@ -1977,6 +2289,9 @@ def main(argv=None) -> int:
             kern["launches_tiled_path"] = lines["tiled"][key]
         if "full" in lines:
             kern["launches_full_path"] = lines["full"][key]
+        if "driver" in lines:
+            kern["launches_driver_path"] = {
+                path: n[key] for path, n in lines["driver"]["launches"].items()}
         if "disordered" in lines:
             kern["launches_disordered_path"] = 0      # asserted: no DIA form there
         # the crossbar path: the same keys once more, read at its shapes (the

@@ -341,7 +341,6 @@ def test_command_line_flags(tmp_path, capsys):
                            "--resume-from", str(tmp_path / "w" / "checkpoint.npz")])
     assert [r["step"] for r in _rows(tmp_path / "w")] == [1, 2, 3, 4]
     # what is still to port keeps its refusal
-    for flags in (["--steps-per-dispatch", "2"], ["--warmup"], ["--devices", "2"],
-                  ["--concern-split", "1:3"]):
+    for flags in (["--devices", "2"], ["--concern-split", "1:3"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdriver.main(common + ["--workdir", str(tmp_path / "x")] + flags)

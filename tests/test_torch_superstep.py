@@ -130,7 +130,7 @@ def test_driver_sweep_matches(tmp_path):
 def test_driver_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdriver.run(DECK, workdir=str(tmp_path), synthesize_crossbar=6, device="cpu",
-                    steps_per_dispatch=2)
+                    concern_split=(1, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdriver.run(DECK, workdir=str(tmp_path), synthesize_crossbar=6, device="cpu",
                     devices=2)
