@@ -11,6 +11,16 @@
 // per solve for the conductive-vacancy degrees; the CG's own matvecs are fused
 // into dia_cg.cu, which computes the same sums in the same order.
 //
+// Row window. The kernel computes rows [row0, row0 + R) of the N-row operator
+// from a (D, R) array of their codes, reading x and xv over all N columns: a
+// rank of a sharded K solve (solvers/dia_cg.py) holds only its rows' codes and
+// calls it in every CG iteration. row0 = 0, R = N is the whole operator. The
+// range checks use the global N, so a window's rows give the sums the whole
+// operator gives them, bit for bit. The codes are staged with 16-byte loads
+// when R is a multiple of 16 and the array is 16-byte aligned: an array of its
+// own is, a view into a larger array at an odd row0 is not and takes the byte
+// loads.
+//
 // Design. The TPU kernel carried f64 as hi/lo f32 pairs with a twoSum chain
 // and clustered the offsets into sliding windows staged through VMEM; both
 // were TPU workarounds. Here f64 is native, one thread owns one row, and a
@@ -59,25 +69,29 @@ constexpr int kGroup = 32;     // diagonals packed into one pair of masks
 constexpr int kGather = 16;    // edges whose gathers are in flight together
 
 __global__ void __launch_bounds__(kThreads) dia_combined_matvec_kernel(
-    const int8_t* __restrict__ diags,      // (D, N) codes, row-major
+    const int8_t* __restrict__ diags,      // (D, R) codes of rows [row0, row0 + R), row-major
     const int64_t* __restrict__ offsets,   // (D,) ascending offsets
     int D,
-    int64_t N,
+    int64_t N,                             // rows and columns of the whole operator
+    int64_t row0,                          // first row of the window
+    int64_t R,                             // rows of the window
     const double* __restrict__ x,          // (N,)
     const double* __restrict__ xv,         // (N,)
     double val_low,
     double val_high,
-    double* __restrict__ y,                // (N,) out
-    double* __restrict__ v) {              // (N,) out
+    double* __restrict__ y,                // (R,) out
+    double* __restrict__ v) {              // (R,) out
   __shared__ __align__(16) int8_t s_codes[kGroup * kThreads];
   __shared__ int64_t s_off[kGroup];
   __shared__ int64_t s_span[2];              // least and largest offset of the group (or 0)
   const int t = threadIdx.x;
-  const bool aligned = (N & 15) == 0 && (reinterpret_cast<uintptr_t>(diags) & 15) == 0;
-  const int64_t tiles = (N + kThreads - 1) / kThreads;
+  const bool aligned = (R & 15) == 0 && (reinterpret_cast<uintptr_t>(diags) & 15) == 0;
+  const int64_t tiles = (R + kThreads - 1) / kThreads;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t r0 = tile * kThreads;
-    const int64_t i = r0 + t;
+    const int64_t l0 = tile * kThreads;      // the tile's first row in the window
+    const int64_t l = l0 + t;                // this thread's row in the window
+    const int64_t r0 = row0 + l0;            // and both in the whole operator
+    const int64_t i = row0 + l;
     double acc = 0.0, s = 0.0;
     for (int d0 = 0; d0 < D; d0 += kGroup) {
       const int nd = D - d0 < kGroup ? D - d0 : kGroup;
@@ -98,25 +112,25 @@ __global__ void __launch_bounds__(kThreads) dia_combined_matvec_kernel(
           s_span[1] = hi;
         }
       }
-      if (aligned && r0 + kThreads <= N) {
+      if (aligned && l0 + kThreads <= R) {
         constexpr int kWords = kThreads / 16;          // 16-byte words per diagonal
         uint4* dst = reinterpret_cast<uint4*>(s_codes);
         for (int q = t; q < nd * kWords; q += kThreads) {
           const int d = q / kWords, w = q % kWords;
           dst[q] = *(reinterpret_cast<const uint4*>(
-                         diags + static_cast<int64_t>(d0 + d) * N + r0) + w);
+                         diags + static_cast<int64_t>(d0 + d) * R + l0) + w);
         }
       } else {
         for (int d = 0; d < nd; ++d)
           s_codes[d * kThreads + t] =
-              i < N ? diags[static_cast<int64_t>(d0 + d) * N + i] : int8_t(0);
+              l < R ? diags[static_cast<int64_t>(d0 + d) * R + l] : int8_t(0);
       }
       __syncthreads();
       // ---- this row's edges of the group, as masks
       // (a tile whose every column i + o_d lies in [0, N) skips the range checks)
       const bool inside = r0 + s_span[0] >= 0 && r0 + kThreads - 1 + s_span[1] < N;
       uint32_t edge = 0u, high = 0u;
-      if (i < N) {
+      if (l < R) {
 #pragma unroll
         for (int u = 0; u < kGroup; ++u) {
           if (u < nd) {
@@ -156,9 +170,9 @@ __global__ void __launch_bounds__(kThreads) dia_combined_matvec_kernel(
       }
       __syncthreads();                       // the tile is staged again for the next group
     }
-    if (i < N) {
-      y[i] = acc;
-      v[i] = s;
+    if (l < R) {
+      y[l] = acc;
+      v[l] = s;
     }
   }
 }
@@ -172,26 +186,31 @@ unsigned grid_for(long long N) {
 
 }  // namespace
 
-// The static operator, validated and filled in once by the wrapper.
+// The static operator, validated and filled in once by the wrapper: the codes
+// of rows [row0, row0 + rows) of an N x N operator (row0 = 0, rows = N: all of
+// it), as a (D, rows) array of their own.
 struct DiaOp {
   const int8_t* diags;
   const int64_t* offsets;
   int D;
   long long N;
   double val_low, val_high;
+  long long row0, rows;
 };
 
 // Launches on `stream` (a cudaStream_t passed as a pointer) and returns the
-// cudaGetLastError() code, 0 on success. y and v are the two halves of one
-// (2, N) output. Allocates nothing and does not synchronise.
+// cudaGetLastError() code, 0 on success. x and xv hold all N columns; y and v
+// are the two halves of one (2, rows) output. Allocates nothing and does not
+// synchronise.
 extern "C" int dia_combined_matvec_launch(
     const DiaOp* op, const void* x, const void* xv, void* out, void* stream) {
-  if (op->N <= 0) return 0;
+  if (op->rows <= 0) return 0;
   double* y = static_cast<double*>(out);
-  dia_combined_matvec_kernel<<<grid_for(op->N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dia_combined_matvec_kernel<<<grid_for(op->rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       op->diags, op->offsets, op->D, static_cast<int64_t>(op->N),
+      static_cast<int64_t>(op->row0), static_cast<int64_t>(op->rows),
       static_cast<const double*>(x), static_cast<const double*>(xv),
-      op->val_low, op->val_high, y, y + op->N);
+      op->val_low, op->val_high, y, y + op->rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -63,12 +63,18 @@ from akmc_tpu_torch.solvers.banded import (
 )
 from akmc_tpu_torch.solvers.current import (
     CurrentTables,
+    PowerShard,
     build_current_tables,
     build_power_band,
     build_power_system,
     solve_power,
 )
-from akmc_tpu_torch.solvers.dia import DiaK, build_dia_k, solve_potential_boundary_dia
+from akmc_tpu_torch.solvers.dia import (
+    DiaK,
+    build_dia_k,
+    solve_potential_boundary_dia,
+    solve_potential_boundary_dia_sharded,
+)
 from akmc_tpu_torch.solvers.heat import (
     LocalHeat,
     build_local_heat,
@@ -188,6 +194,7 @@ class VCMModel:
         self._local_heat: Optional[LocalHeat] = None
         self.cb_iterations = 0      # CG iterations of the last ``update_cb_edge``
         self.power_timing = {}      # host seconds of the last power solve's parts
+        self.power_bytes = {}       # bytes this rank held of the last power system's blocks
         self.device = dev = resolve_device(device)
         self.rate_normalize = bool(rate_normalize)
         self.pair_cand_cap = pair_cand_cap
@@ -195,6 +202,12 @@ class VCMModel:
         self.k_solves = 0           # K-system solves made so far (``_solve_boundary``)
         self.k_iterations = 0       # and the CG iterations of all of them
         self.fields_s = 0.0         # host seconds of the last ``_fields_grown``
+        # sharded runs (parallel/mesh.py::shard_model): the rank's Mesh, every
+        # rank's row ranges per sharded table, and the rank's rows of the
+        # event table's row sites and neighbors
+        self.mesh = None
+        self.shards = {}
+        self.act_local = None
         p = params
         i64 = dict(dtype=torch.int64, device=dev)
         f64 = dict(dtype=torch.float64, device=dev)
@@ -349,6 +362,7 @@ class VCMModel:
         kop = self.kop
         out = {
             "N": self.lat.N,
+            "ranks": 1 if self.mesh is None else self.mesh.size,
             "k_operator": {DiaK: "dia", BandedK: "banded"}.get(type(kop), "ell"),
             "pairwise": "table" if t.pair_table is not None
             else "tiled" if t.pair_tiling is not None else "on_the_fly",
@@ -362,37 +376,77 @@ class VCMModel:
             out["pair_cand_cap"] = self.pair_cand_cap
         return out
 
+    def held_bytes(self) -> dict:
+        """Bytes this process holds of each table that a mesh shards: the
+        pairwise table, the DIA codes, the band blocks, and the last power
+        system's W blocks and G_nbr (``power_bytes``)."""
+        t = self.tables
+        out = {}
+        if t.pair_table is not None:
+            out["pair_table"] = t.pair_table.numel() * t.pair_table.element_size()
+        if t.pair_tiling is not None:
+            out["pair_tiling"] = sum(a.numel() * a.element_size() for a in t.pair_tiling)
+        if self.dia is not None:
+            out["dia_codes"] = self.dia.diags.numel()
+        if self.banded is not None:
+            out["band_blocks"] = self.banded.blocks.numel()
+        if self._power_band is not None:
+            out["power_band_blocks"] = self._power_band.blocks.numel()
+        out.update(self.power_bytes)
+        return out
+
     # ------------------------------------------------------------------
     def _build_rates(self, element, charge, pot_sum, T_bg):
-        t, p = self.tables, self.params
-        return build_event_table(
+        """The rate table; under a mesh each rank builds its rows and the
+        table is gathered whole (the event loop runs on every rank)."""
+        t, p, mesh = self.tables, self.params, self.mesh
+        rows, neigh = (t.act_idx, t.act_neigh) if mesh is None else self.act_local
+        P, etype, ln_S = build_event_table(
             element, charge, pot_sum, T_bg,
-            t.act_neigh, t.act_self2, t.act_layer,
+            neigh, t.act_self2, t.act_layer,
             t.E_gen, t.E_rec, t.E_Vdiff, t.E_Odiff,
-            p.freq, rows=t.act_idx, normalize=self.rate_normalize,
+            p.freq, rows=rows, normalize=self.rate_normalize,
+            reduce_min=None if mesh is None else mesh.min,
         )
+        if mesh is not None:
+            P = mesh.gather_rows(P, self.shards["act"])
+            etype = mesh.gather_rows(etype, self.shards["act"])
+        return P, etype, ln_S
 
-    def _solve_boundary(self, element, charge, pb_prev, Vd):
-        """K-system solve through whichever operator the structure supports.
-        ``k_solves`` and ``k_iterations`` count the solves and their CG
-        iterations, those of a pass that a grown cap discards included."""
+    def _shard(self, name):
+        """(mesh, every rank's ranges of table ``name``) under a mesh, else None."""
+        return None if self.mesh is None else (self.mesh, self.shards[name])
+
+    def _solve_boundary(self, element, charge, pb_prev, Vd, max_iterations=10000):
+        """K-system solve through whichever operator the structure supports
+        (under a mesh, its sharded form). ``k_solves`` and ``k_iterations``
+        count the solves and their CG iterations, those of a pass that a
+        grown cap discards included."""
         t, p = self.tables, self.params
         kop = self.kop
-        if isinstance(kop, DiaK):
+        if isinstance(kop, DiaK) and self.mesh is not None:
+            pot, cg = solve_potential_boundary_dia_sharded(
+                kop, self.dia_meta, self.mesh, self.shards["dia"], element, charge,
+                pb_prev, Vd, p.high_G, p.low_G, p.num_atoms_first_layer,
+                max_iterations=max_iterations,
+            )
+        elif isinstance(kop, DiaK):
             pot, cg = solve_potential_boundary_dia(
                 kop, self.dia_meta, element, charge, pb_prev, Vd,
-                p.high_G, p.low_G, p.num_atoms_first_layer,
+                p.high_G, p.low_G, p.num_atoms_first_layer, max_iterations=max_iterations,
             )
         elif isinstance(kop, BandedK):
             pot, cg = solve_potential_boundary_banded(
                 kop, self.band_meta, element, charge, pb_prev, Vd,
                 p.high_G, p.low_G, p.num_atoms_first_layer, p.nn_dist,
-                self._lattice_t, bool(p.pbc), self.vmax,
+                self._lattice_t, bool(p.pbc), self.vmax, max_iterations=max_iterations,
+                shard=self._shard("band"),
             )
         else:
             pot, cg = solve_potential_boundary(
                 element, charge, pb_prev, t.k_neigh_idx, t.metal_edge, Vd,
-                p.high_G, p.low_G, p.num_atoms_first_layer,
+                p.high_G, p.low_G, p.num_atoms_first_layer, max_iterations=max_iterations,
+                shard=self._shard("int"),
             )
         self.k_solves += 1
         self.k_iterations += cg.iterations
@@ -400,23 +454,35 @@ class VCMModel:
 
     def _pairwise(self, charge):
         """Pairwise potential through the path the structure got: (potential,
-        qmax overflow, candidate-cap overflow)."""
-        t, p = self.tables, self.params
+        qmax overflow, candidate-cap overflow). Under a mesh each rank
+        computes its site columns of the table, its tiles (when the tiles
+        are sharded) or its rows of the on-the-fly plane, and the potential
+        is gathered whole; the flags are the same on every rank."""
+        t, p, mesh = self.tables, self.params, self.mesh
         c_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         if t.pair_table is not None:
             pot_pair, q_overflow = pairwise_potential_table(
                 t.pair_table, t.abs2act, charge, self.qmax
             )
+            if mesh is not None:
+                pot_pair = mesh.gather_rows(pot_pair, self.shards["sites"])
         elif t.pair_tiling is not None:
             pot_pair, q_overflow, c_overflow = pairwise_potential_tiled(
                 t.pair_tiling, self._pair_r_tile, t.pos, charge,
                 p.cutoff_radius, p.sigma, p.k, qmax=self.qmax,
                 cand_cap=self.pair_cand_cap, plane_f32=self.pair_f32,
             )
+            if mesh is not None and "tiles" in self.shards:
+                # each site lies in one tile, so the other ranks add exact zeros
+                pot_pair = mesh.sum_partials(pot_pair)
+                c_overflow = torch.tensor(mesh.any(c_overflow), device=self.device)
         else:
             pot_pair, q_overflow = pairwise_potential(
-                t.pos, charge, p.cutoff_radius, p.sigma, p.k, qmax=self.qmax
+                t.pos, charge, p.cutoff_radius, p.sigma, p.k, qmax=self.qmax,
+                row_range=None if mesh is None else self.shards["sites"][mesh.rank],
             )
+            if mesh is not None:
+                pot_pair = mesh.gather_rows(pot_pair, self.shards["sites"])
         return pot_pair, q_overflow, c_overflow
 
     def _solve_boundary_carry(self, element, charge, pb_prev, Vd, carry):
@@ -426,7 +492,7 @@ class VCMModel:
         pot, cg, new_carry = solve_potential_boundary_banded_carry(
             self.banded, self.band_meta, element, charge, pb_prev, Vd,
             p.high_G, p.low_G, p.num_atoms_first_layer, p.nn_dist,
-            self._lattice_t, bool(p.pbc), self.vmax, carry=carry,
+            self._lattice_t, bool(p.pbc), self.vmax, carry=carry, shard=self._shard("band"),
         )
         self.k_solves += 1
         self.k_iterations += cg.iterations
@@ -773,14 +839,10 @@ class VCMModel:
 
     def _empty_dia_solve(self, state: DeviceState, Vd: float) -> None:
         """One DIA K solve of ``state`` cut off after its entry matvec: one
-        launch of each kernel, which loads it."""
-        p = self.params
-        _, cg = solve_potential_boundary_dia(
-            self.dia, self.dia_meta, state.element, state.charge, state.potential_boundary,
-            Vd, p.high_G, p.low_G, p.num_atoms_first_layer, max_iterations=0,
-        )
-        self.k_solves += 1
-        self.k_iterations += cg.iterations
+        launch of each kernel, which loads it (under a mesh: two launches of
+        the row-window matvec)."""
+        self._solve_boundary(state.element, state.charge, state.potential_boundary, Vd,
+                             max_iterations=0)
 
     # ------------------------------------------------------------------
     # full physics: CB edge, current and dissipated power, heat
@@ -791,7 +853,7 @@ class VCMModel:
         p, t = self.params, self.tables
         cb, res = solve_cb_edge(
             state.element, state.charge, state.cb_edge, t.k_neigh_idx, t.metal_or_edge, Vd,
-            p.high_G * 100000, p.low_G, p.num_atoms_first_layer,
+            p.high_G * 100000, p.low_G, p.num_atoms_first_layer, shard=self._shard("int"),
         )
         self.cb_iterations = res.iterations
         return state.replace(cb_edge=cb)
@@ -831,8 +893,31 @@ class VCMModel:
             )
             if built is not None:
                 self._power_band, self._power_band_meta = built[0].to(self.device), built[1]
+                if self.mesh is not None:
+                    from akmc_tpu_torch.parallel.mesh import _shard_band
+
+                    self._power_band, self.shards["power_band"] = _shard_band(
+                        self._power_band, self.mesh)
             self._power_band_built = True
         return self._power_band
+
+    def _shard_power_system(self) -> Optional[PowerShard]:
+        """Under a mesh, this rank's rows of the next power system: the
+        compacted vacancy list (W_tt), the contact list (W_cc, W_ct), the
+        atoms (G_nbr) and the power band's blocks, as ``build_power_system``
+        and ``solve_power`` take them; None on one device. Each rank then
+        holds about 1/ranks of the W bytes (akmc_tpu row-shards the same
+        blocks, ``_shard_power_system`` there)."""
+        if self.mesh is None:
+            return None
+        mesh, ct, n = self.mesh, self.current_tables, self.n_atom
+        band = self.shards.get("power_band")
+        T = None if band is None else self._power_band_meta.block_rows
+        return PowerShard(
+            mesh, vac=mesh.split(self.vmax), con=mesh.split(ct.contact_idx.shape[0]),
+            atom=mesh.split(n), band=band,
+            band_rows=None if band is None else [(min(a * T, n), min(b * T, n)) for a, b in band],
+        )
 
     @property
     def local_heat(self) -> LocalHeat:
@@ -857,6 +942,8 @@ class VCMModel:
         tol = p.q * 0.01
         alpha = 1.0                          # kmc_main.cpp:302 (p.alpha unused)
 
+        pband = self.power_band             # built on first use, outside the timings
+        shard = self._shard_power_system()
         marks = [self._device_mark()]
         t0 = time.perf_counter()
         atom_elem = element[ct.atom_ind]
@@ -864,17 +951,18 @@ class VCMModel:
         ps, wkb = build_power_system(
             ct, atom_elem, atom_charge, cb_edge[ct.atom_ind], self._lattice_t, bool(p.pbc),
             p.nn_dist, high_G, p.low_G, loop_G, tol, p.m_e, p.V0,
-            vmax=self.vmax, ne_max=self.ne_max, wkb_f32=self.wkb_f32,
+            vmax=self.vmax, ne_max=self.ne_max, wkb_f32=self.wkb_f32, shard=shard,
         )
+        self.power_bytes = {name: getattr(ps, name).numel() * getattr(ps, name).element_size()
+                            for name in ("W_tt", "W_ct", "W_cc", "G_nbr")}
         t1 = time.perf_counter()
         marks.append(self._device_mark())
-        pband = self.power_band
         cvac = (atom_elem == int(ELEM.VACANCY)) & (atom_charge == 0)
         I_macro, atom_power, m, iters = solve_power(
             ct, ps, Vd, high_G, loop_G, G0, alpha, m_prev, atom_elem,
             band=pband, band_meta=self._power_band_meta if pband is not None else None,
             cvac=cvac, nn_dist=p.nn_dist, lattice=self._lattice_t, pbc=bool(p.pbc),
-            rtol_scale=rtol_scale,
+            rtol_scale=rtol_scale, shard=shard,
         )
         site_power = torch.zeros(element.shape[0], dtype=atom_power.dtype, device=self.device)
         site_power[ct.atom_ind] = atom_power

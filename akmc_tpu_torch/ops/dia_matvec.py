@@ -47,6 +47,7 @@ class _DiaOp(ctypes.Structure):
         ("diags", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
         ("D", ctypes.c_int), ("N", ctypes.c_longlong),
         ("val_low", ctypes.c_double), ("val_high", ctypes.c_double),
+        ("row0", ctypes.c_longlong), ("rows", ctypes.c_longlong),
     ]
 
 
@@ -76,17 +77,29 @@ class DiaOperator:
     matvecs, builds it once and calls it many times: a call then checks only
     its two vectors, and on the card it passes the kernel one prepared
     argument block. It holds the tensors, so the pointers stay
-    valid for its lifetime."""
+    valid for its lifetime.
+
+    Row window: with ``row0`` and ``n``, ``diags`` is the (D, R) array of the
+    codes of rows [row0, row0 + R) of an n-row operator, and a product gives
+    those R rows of (W @ x, adjacency @ xv) from x and xv over all n columns
+    (a rank's share of a sharded K solve). Keep the array one of its own: a
+    view into a larger array loses the kernel's 16-byte code loads."""
 
     def __init__(self, diags: torch.Tensor, offsets: torch.Tensor,
-                 val_low: float, val_high: float):
+                 val_low: float, val_high: float, row0: int = 0,
+                 n: Optional[int] = None):
         dev = diags.device
         if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"DiaOperator: unsupported device {dev}")
         if diags.dim() != 2:
             raise ValueError(f"diags must be (D, N), got {tuple(diags.shape)}")
-        self.D, self.n = diags.shape
-        require_tensor("diags", diags, torch.int8, (self.D, self.n), dev)
+        self.D, self.rows = diags.shape
+        self.row0 = int(row0)
+        self.n = self.rows if n is None else int(n)
+        if self.row0 < 0 or self.row0 + self.rows > self.n:
+            raise ValueError(f"rows [{self.row0}, {self.row0 + self.rows}) lie outside "
+                             f"the operator's {self.n}")
+        require_tensor("diags", diags, torch.int8, (self.D, self.rows), dev)
         require_tensor("offsets", offsets, torch.int64, (self.D,), dev)
         self.diags, self.offsets = diags, offsets
         self.val_low, self.val_high = float(val_low), float(val_high)
@@ -94,7 +107,7 @@ class DiaOperator:
         self._offsets_list: Optional[Sequence[int]] = None
         if dev.type == "cuda":
             self._op = _DiaOp(diags.data_ptr(), offsets.data_ptr(), self.D, self.n,
-                              self.val_low, self.val_high)
+                              self.val_low, self.val_high, self.row0, self.rows)
             self._op_ref = ctypes.byref(self._op)
             self._launch = _launcher()
 
@@ -107,21 +120,22 @@ class DiaOperator:
 
     def matvec(self, x: torch.Tensor, xv: torch.Tensor,
                out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(W @ x, adjacency @ xv): the kernel on the card, the plain twin
-        on the CPU. ``out``, if given, is a (2, N) f64 tensor that receives
-        both results (the card only)."""
+        """(W @ x, adjacency @ xv) on the operator's rows: the kernel on the
+        card, the plain twin on the CPU. ``out``, if given, is a (2, rows) f64
+        tensor that receives both results (the card only)."""
         dev = self.device
         if dev.type == "cpu":
             return dia_combined_matvec_plain(
-                self.diags, self.offsets_list, self.val_low, self.val_high, x, xv
+                self.diags, self.offsets_list, self.val_low, self.val_high, x, xv,
+                row0=self.row0,
             )
         n = self.n
         require_tensor("x", x, torch.float64, (n,), dev)
         require_tensor("xv", xv, torch.float64, (n,), dev)
         if out is None:
-            out = torch.empty((2, n), dtype=torch.float64, device=dev)
+            out = torch.empty((2, self.rows), dtype=torch.float64, device=dev)
         else:
-            require_tensor("out", out, torch.float64, (2, n), dev)
+            require_tensor("out", out, torch.float64, (2, self.rows), dev)
         args = (self._op_ref, x.data_ptr(), xv.data_ptr(), out.data_ptr(),
                 current_raw_stream(dev.index))
         if torch.cuda.current_device() == dev.index:
@@ -161,11 +175,16 @@ def dia_combined_matvec_plain(
     val_high: float,
     x: torch.Tensor,
     xv: torch.Tensor,
+    row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin on any device: one shifted multiply-add per
     diagonal over zero-padded copies of x and xv, in ascending d — the loop
-    of ``akmc_tpu/solvers/dia.py::dia_combined_matvec``."""
+    of ``akmc_tpu/solvers/dia.py::dia_combined_matvec``. With ``row0``,
+    ``diags`` holds the codes of rows [row0, row0 + R) and the result is
+    those rows of the whole product: each row's terms are the same, in the
+    same order."""
     n = x.shape[0]
+    rows = diags.shape[1]
     maxo = max(abs(int(o)) for o in offsets)
     xp = torch.zeros(n + 2 * maxo, dtype=x.dtype, device=x.device)
     xp[maxo : maxo + n] = x
@@ -173,12 +192,12 @@ def dia_combined_matvec_plain(
     vp[maxo : maxo + n] = xv
     hi = torch.tensor(float(val_high), dtype=x.dtype, device=x.device)
     lo = torch.tensor(float(val_low), dtype=x.dtype, device=x.device)
-    y = torch.zeros_like(x)
-    yv = torch.zeros_like(xv)
+    y = torch.zeros(rows, dtype=x.dtype, device=x.device)
+    yv = torch.zeros(rows, dtype=xv.dtype, device=xv.device)
     for d, o in enumerate(offsets):
         c = diags[d]
         bf = torch.where(c == 2, hi, torch.where(c == 1, lo, 0.0))
-        s = maxo + int(o)
-        y = y + bf * xp[s : s + n]
-        yv = yv + torch.where(c != 0, vp[s : s + n], 0.0)
+        s = maxo + int(row0) + int(o)
+        y = y + bf * xp[s : s + rows]
+        yv = yv + torch.where(c != 0, vp[s : s + rows], 0.0)
     return y, yv

@@ -55,6 +55,7 @@ def build_event_table(
     freq: float,
     rows: torch.Tensor,        # (R,) int64 absolute site of each row, -1 padded
     normalize: bool = False,
+    reduce_min=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Rates P (R, NN) f64, event types (R, NN) int32 and ln_S.
 
@@ -66,7 +67,9 @@ def build_event_table(
     ``normalize=True``: shifted-exponent rates P~ = exp(z_min - z) <= 1 with
     z = EA / kB T_bg (same selection order, sums bounded by the row count)
     and the log scale ln_S = ln(freq) - z_min, from which the event loop
-    rebuilds waiting times in log space."""
+    rebuilds waiting times in log space. ``reduce_min``: where ``rows`` are a
+    rank's share of the table, the function that turns this share's z_min
+    into the whole table's (the minimum over ranks)."""
     f64 = potential.dtype
     valid = neigh_idx >= 0
     j = neigh_idx.clamp(min=0)
@@ -120,6 +123,8 @@ def build_event_table(
     else:
         z = EA / kT
         z_min = torch.min(torch.where(any_event, z, math.inf))
+        if reduce_min is not None:
+            z_min = reduce_min(z_min)
         z_min = torch.where(torch.isfinite(z_min), z_min, 0.0)
         P = torch.where(any_event, torch.exp(z_min - z), 0.0)
         ln_S = math.log(freq) - z_min

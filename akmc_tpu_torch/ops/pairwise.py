@@ -67,13 +67,16 @@ def pairwise_potential(
     qmax: int = 2048,
     row_block: Optional[int] = None,
     plane_budget: int = 512 * 1024 * 1024,
+    row_range: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """On-the-fly solve. Returns ((N,) potential [V], overflow flag).
 
     Rows are independent, so any partition into row blocks gives the same
     values; planes past ``plane_budget`` bytes are cut into blocks of 4096
-    rows."""
+    rows. ``row_range`` (start, stop): only those rows' potentials (a rank's
+    share)."""
     n = pos.shape[0]
+    start, stop = (0, n) if row_range is None else row_range
     if row_block is None:
         row_block = n if n * qmax * 8 <= plane_budget else 4096
     q_idx, qv, q_pos, q_val, overflow = _charged_list(pos, charge, qmax)
@@ -81,9 +84,9 @@ def pairwise_potential(
     inv_sig = 1.0 / (sigma * math.sqrt(2.0))
     cut2 = cutoff_radius * cutoff_radius
     kq = k * Q_E
-    rows = torch.arange(n, device=pos.device)
-    out = torch.empty(n, dtype=pos.dtype, device=pos.device)
-    for s in range(0, n, row_block):
+    rows = torch.arange(start, stop, device=pos.device)
+    out = torch.empty(stop - start, dtype=pos.dtype, device=pos.device)
+    for s in range(0, stop - start, row_block):
         r = rows[s : s + row_block]
         # exact difference-based d^2 (same rounding class as the reference's
         # site_dist_gpu)
@@ -141,15 +144,22 @@ def pairwise_potential_table(
     qmax: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ((N,) potential [V], overflow flag: more than ``qmax``
-    charged sites, in which case the caller doubles qmax and repeats)."""
+    charged sites, in which case the caller doubles qmax and repeats).
+
+    ``table`` may hold some of the N site columns only (a rank's share): the
+    result is then those sites' potentials. Each column adds its terms one
+    after the other in the charged list's order (a running sum down the
+    rows), an order that depends neither on how many columns there are nor
+    on the device, so any split of the columns gives the same bits."""
     np_rows = table.shape[0]
     charged = charge != 0
     q_idx, qv = compact_mask(charged, qmax)
     qi = q_idx.clamp(min=0)
     q_val = torch.where(qv, charge[qi], 0).to(table.dtype)
     cols = site2col[qi].clamp(0, np_rows - 1)
-    rows = table[cols]                                   # (Q, N) contiguous rows
-    pot = torch.sum(rows.T * q_val[None, :], dim=1)      # (N, Q) -> (N,)
+    rows = table[cols]                                   # (Q, N) contiguous rows, a copy
+    rows.mul_(q_val[:, None])
+    pot = rows.cumsum_(0)[-1]                            # sequential down each column
     return pot, charged.sum() > qmax
 
 

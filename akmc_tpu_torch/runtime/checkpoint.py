@@ -6,7 +6,8 @@ RNG state, in-bias kmc_time, temperature and field vectors across restarts.
 A full checkpoint (npz) captures everything: element, charge and the field
 vectors, T_bg, kmc_time, bias index, superstep count, and the exact mt19937
 position of the KMC stream with its unconsumed draws, so a resumed serial run
-is bit-identical to an uninterrupted one. The generator of the batched event
+is bit-identical to an uninterrupted one. In a sharded run rank 0 writes the
+file and every rank reads it. The generator of the batched event
 loop is not stored: a resumed ``--batched-events`` run is a valid run of the
 same law from a reseeded generator.
 
@@ -40,7 +41,14 @@ def save_checkpoint(
     vt_counter: int = 0,
     kmc_step_count: int = 0,
     extra: Optional[dict] = None,
+    mesh=None,
 ) -> None:
+    """Save the run's state. Under a mesh (``parallel/mesh.py``) every rank
+    calls it: rank 0 writes, and no rank returns before the file is whole,
+    so every rank can read it back at once."""
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return
     mt, mti, buf = kmc_stream.get_state()
     payload = {name: getattr(state, name).cpu().numpy() for name in _INT_FIELDS + _F64_FIELDS}
     payload.update(
@@ -57,6 +65,8 @@ def save_checkpoint(
     tmp = path + ".tmp.npz"
     np.savez_compressed(tmp, **payload)
     os.replace(tmp, path)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def load_checkpoint(path: str, device=None) -> Tuple[DeviceState, BufferedStream, int, int, dict]:

@@ -11,12 +11,24 @@ Usage:
         [--full-physics [--wkb-f32] [--power-rtol-scale auto|S]] \
         [--batched-events B [--clock-f32] [--mass-eps E] [--k-extrap C]] \
         [--module-timing] [--checkpoint-every N] [--resume-from checkpoint.npz] \
-        [--steps-per-dispatch K] [--warmup] [--cache-dir DIR]
+        [--steps-per-dispatch K] [--warmup] [--cache-dir DIR] \
+        [--devices N | --concern-split K:P]
 
 Without ``--synthesize-crossbar`` the deck's structure files are read
 (``restart_xyz_file``, or the atom and interstitial files), with ``pbc = 1``
 decks included; the model then picks the K operator and the pairwise path the
 structure supports (models/vcm.py).
+
+Scale-out (the reference is born distributed, ``mpirun runKMC``).
+``--devices N`` runs the deck on N ranks, one process each
+(``parallel/launch.py``): on CUDA one card per rank over NCCL, which needs N
+visible cards; with ``--device cpu`` N gloo ranks. The tables row-shard and
+the fields replicate (``parallel/mesh.py``); every other option runs as on one
+device. ``--concern-split K:P`` runs the K solve and the pairwise solve on two
+disjoint groups of ranks (``parallel/mesh.py::ConcernGroups``), over the
+visible cards (on the CPU, K + P ranks). Rank 0 alone writes the log, the
+metrics, the snapshots and the checkpoints; ``run_on_mesh`` is what each rank
+runs.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from akmc_tpu_torch.config import KMCParameters
 from akmc_tpu_torch.device import resolve_device
@@ -40,20 +53,18 @@ from akmc_tpu_torch.lattice import (
 )
 from akmc_tpu_torch.models.vcm import VCMModel
 from akmc_tpu_torch.ops.events import GeneratorDraws
+from akmc_tpu_torch.parallel.mesh import check_replicas
 from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
 from akmc_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from akmc_tpu_torch.state import make_device_state, make_substoichiometric
 
-# options of akmc_tpu's driver that this port does not run yet, with the
-# value that leaves them off and the ROADMAP item that ports them
-_NOT_PORTED = {
-    "devices": (0, "torch.distributed scale-out"),
-    "concern_split": (None, "torch.distributed scale-out"),
-}
+class _NullLog:
+    """The log of a rank other than 0: it writes nothing."""
 
+    def write(self, s: str) -> None:
+        pass
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, '{item}'")
+    flush = close = lambda self: None
 
 
 class OutputLog:
@@ -115,7 +126,9 @@ def run(
     power_rtol_scale="auto",
     warmup: bool = False,
     device=None,
-    **not_ported,
+    devices: int = 0,
+    concern_split=None,
+    rank_timeout: Optional[float] = None,
 ) -> dict:
     """Run the full bias sweep on ``device`` (default: the CUDA card).
     Returns summary metrics.
@@ -150,24 +163,102 @@ def run(
     ``lists_<hash>.npz`` files that akmc_tpu reads and writes too
     (``lattice.build_lattice``). Decks with ``perturb_structure = 0`` run the
     fields only, two passes per bias point; decks with ``solve_potential =
-    0`` run the events on the state's stale potential. ``devices`` and
-    ``concern_split`` raise NotImplementedError unless left off."""
-    del dia_stacked, dia_pallas
-    device = resolve_device(device)
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"run() got an unexpected keyword argument {name!r}")
-        off, item = _NOT_PORTED[name]
-        if value != off:
-            raise _not_ported(f"--{name.replace('_', '-')}", item)
+    0`` run the events on the state's stale potential.
 
+    ``devices`` N > 1 runs the sweep on N ranks and ``concern_split`` (K, P)
+    on two rank groups (the module docstring): on CUDA over ``nccl``, one
+    card per rank (N visible cards needed; ``concern_split`` takes them
+    all), on the CPU over ``gloo`` (``concern_split``: K + P ranks).
+    ``rank_timeout`` bounds the whole run in seconds (None: no bound; a
+    collective still fails after ``parallel/launch.py``'s own limit). The
+    summary is rank 0's, with every rank's under ``"ranks"``."""
+    options = dict(
+        workdir=workdir, max_supersteps=max_supersteps, cache_dir=cache_dir, log=log,
+        committed_parity=committed_parity, checkpoint_every=checkpoint_every,
+        resume_from=resume_from, steps_per_dispatch=steps_per_dispatch,
+        module_timing=module_timing, synthesize_crossbar=synthesize_crossbar,
+        rate_normalize=rate_normalize, batched_events=batched_events,
+        batched_mass_eps=batched_mass_eps, batched_clock_f32=batched_clock_f32,
+        batched_k_extrap=batched_k_extrap, pair_f32=pair_f32, wkb_f32=wkb_f32,
+        power_rtol_scale=power_rtol_scale, warmup=warmup,
+    )
+    del dia_stacked, dia_pallas
+    if devices and devices > 1 and concern_split is not None:
+        raise ValueError("--devices and --concern-split are exclusive")
+    if not (devices and devices > 1) and concern_split is None:
+        return run_on_mesh(None, param_file, device=resolve_device(device), **options)
+
+    from akmc_tpu_torch.parallel.launch import spawn
+
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if concern_split is None:
+        ranks = devices
+    elif dev.type == "cuda":
+        ranks = torch.cuda.device_count()
+    else:
+        ranks = sum(concern_split)
+    if dev.type == "cuda":
+        # build every kernel once, here, before the ranks start: ranks must not
+        # race nvcc on one build directory
+        from akmc_tpu_torch.ops import cuda_build, dia_matvec
+        from akmc_tpu_torch.solvers import dia_cg
+
+        cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL])
+    outs = spawn(run_on_mesh, ranks, str(dev), backend, param_file,
+                 dict(options, concern_split=concern_split), timeout=rank_timeout)
+    return {**outs[0], "ranks": outs}
+
+
+def run_on_mesh(mesh, param_file: str, options: Optional[dict] = None, **kw) -> dict:
+    """The sweep of ``run`` on one rank of ``mesh`` (None: one device, the
+    ``device`` option). ``options`` (or keywords): ``run``'s, with
+    ``concern_split`` and without the other scale-out ones. The rank's
+    summary carries its kernel launches and K solves."""
+    return _run(mesh, param_file, **{**(options or {}), **kw})
+
+
+def _run(
+    mesh,
+    param_file: str,
+    workdir: str = ".",
+    max_supersteps: Optional[int] = None,
+    cache_dir: Optional[str] = None,
+    log: bool = True,
+    committed_parity: bool = True,
+    checkpoint_every: int = 0,
+    resume_from: Optional[str] = None,
+    steps_per_dispatch: int = 1,
+    module_timing: bool = False,
+    synthesize_crossbar: Optional[int] = None,
+    rate_normalize: Optional[bool] = None,
+    batched_events: int = 0,
+    batched_mass_eps: float = 1e-3,
+    batched_clock_f32: bool = False,
+    batched_k_extrap: float = 0.0,
+    pair_f32: bool = False,
+    wkb_f32: bool = False,
+    power_rtol_scale="auto",
+    warmup: bool = False,
+    device=None,
+    concern_split=None,
+) -> dict:
+    from akmc_tpu_torch.ops.dia_matvec import dia_combined_matvec
+
+    if mesh is not None:
+        device = mesh.device
+    root = mesh is None or mesh.rank == 0
+    sharded = mesh is not None and concern_split is None
     p = KMCParameters.from_file(param_file)
     base_dir = os.path.dirname(os.path.abspath(param_file))
     full_physics = p.solve_current and not committed_parity
 
-    os.makedirs(workdir, exist_ok=True)
-    out = OutputLog(os.path.join(workdir, "output1_0.txt"), append=bool(resume_from))
-    metrics = open(os.path.join(workdir, "metrics.jsonl"), "a" if resume_from else "w")
+    if root:
+        os.makedirs(workdir, exist_ok=True)
+        out = OutputLog(os.path.join(workdir, "output1_0.txt"), append=bool(resume_from))
+        metrics = open(os.path.join(workdir, "metrics.jsonl"), "a" if resume_from else "w")
+    else:
+        out, metrics, log = _NullLog(), _NullLog(), False
     try:
         if synthesize_crossbar:
             from akmc_tpu_torch.models.crossbar import synthesize_deck_structure
@@ -189,19 +280,48 @@ def run(
             )
 
         t_lat = time.perf_counter()
+        if mesh is not None and cache_dir and not root:
+            mesh.barrier()                  # rank 0 writes the list file, the others read it
         lat = build_lattice(element, x, y, z, p, cache_dir=cache_dir)
+        if mesh is not None and cache_dir and root:
+            mesh.barrier()
         lattice_s = time.perf_counter() - t_lat
         if synthesize_crossbar:
             from akmc_tpu_torch.models.crossbar import mask_null_slots
 
             mask_null_slots(lat)
 
+        # --devices N: the site axis padded with inert sites to a multiple of
+        # the ranks, as akmc_tpu pads it
+        n_real = lat.N
+        if sharded and lat.N % mesh.size:
+            from akmc_tpu_torch.parallel.mesh import pad_lattice
+
+            lat, n_real = pad_lattice(lat, mesh.size)
+            out.write(
+                f"Mesh padding: {lat.N - n_real} inert site(s) appended "
+                f"(site axis {lat.N} over {mesh.size} devices)\n"
+            )
         if rate_normalize is None:
             # shifted-exponent rates at high bias, as akmc_tpu's driver selects
             rate_normalize = bool(p.V_switch) and max(abs(v) for v in p.V_switch) >= 8.0
+        # the event table keeps its one-device padding (akmc_tpu pads it to
+        # 256 x devices for even shards; uneven rank ranges gather as well here,
+        # and the batched loop then draws what it draws on one device)
         model = VCMModel(p, lat, device=device, rate_normalize=rate_normalize,
                          pair_f32=pair_f32, wkb_f32=wkb_f32)
         state = make_device_state(lat, p.background_temp, model.device)
+        if sharded:
+            from akmc_tpu_torch.parallel.mesh import replicate_state, shard_model
+
+            shard_model(model, mesh)
+            state = replicate_state(state, mesh)
+            out.write(
+                f"Device mesh: {mesh.size} device(s) over the `sites` axis "
+                f"(N={lat.N}, row-sharded tables, replicated fields"
+                + ("; ranks share one card over gloo, collectives staged through host "
+                   "buffers" if mesh.staged else "") + ")\n"
+            )
         kmc_stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
         batch_draws = (GeneratorDraws.seeded(p.rnd_seed_kmc, model.device)
                        if batched_events else None)
@@ -224,8 +344,25 @@ def run(
                 + ")\n"
             )
 
-        # snapshots carry physical sites only (no NULL placeholder slots)
+        groups = None
+        if concern_split is not None:
+            # the K solve and the pairwise solve on disjoint rank groups
+            # (reference split=true, KMC_comm.h:132-223, default ratio {8,24})
+            from akmc_tpu_torch.parallel.mesh import ConcernGroups, replicate_state
+
+            if mesh is None:
+                raise ValueError("concern-group splitting needs >= 2 devices")
+            state = replicate_state(state, mesh)
+            groups = ConcernGroups(model, mesh, ratio=tuple(concern_split))
+            out.write(
+                f"Concern groups: {groups.mesh_k.size} K-solve device(s) + "
+                f"{groups.mesh_pair.size} pairwise device(s)\n"
+            )
+
+        # snapshots carry physical sites only (no NULL placeholder slots, no
+        # mesh-padding sites)
         snap_sel = np.asarray(lat.element0) != int(ELEM.NULL_ELEMENT)
+        snap_sel[n_real:] = False
         if snap_sel.all():
             snap_sel = slice(None)
         writer = SnapshotWriter(lat.x[snap_sel], lat.y[snap_sel], lat.z[snap_sel])
@@ -234,6 +371,8 @@ def run(
 
         def snapshot(path):
             nonlocal snapshot_s
+            if not root:
+                return
             t_snap = time.perf_counter()
             writer.write(
                 path,
@@ -248,9 +387,13 @@ def run(
         if resume_from:
             state, kmc_stream, resume_vt, resume_steps, _ = load_checkpoint(
                 resume_from, model.device)
+            if state.element.shape[0] != lat.N:
+                raise ValueError(f"{resume_from} holds {state.element.shape[0]} sites, the run "
+                                 f"{lat.N}")
             out.write(f"Resumed from checkpoint {resume_from}\n")
 
         total_steps = 0
+        replica_checks = 0   # supersteps after which every rank's state was rank 0's
         supersteps_s = 0.0
         t_code_start = time.perf_counter()
         visited_biases = set()
@@ -273,7 +416,8 @@ def run(
             if Vd in visited_biases:
                 folder = os.path.join(workdir, f"Results_{Vd:.6f}_{vt_counter}")
             visited_biases.add(Vd)
-            os.makedirs(folder, exist_ok=True)
+            if root:
+                os.makedirs(folder, exist_ok=True)
             out.write(f"Created folder: {os.path.basename(folder)}\n")
             snapshot(os.path.join(folder, "snapshot_init.xyz"))
 
@@ -339,9 +483,16 @@ def run(
                 elif steps_per_dispatch > 1:
                     state, stats_list = model.superstep_multi(state, Vd, kmc_stream,
                                                               k=steps_per_dispatch)
+                elif groups is not None:
+                    state, stats = groups.superstep(state, Vd, kmc_stream)
+                    stats_list = [stats]
                 else:
                     state, stats = model.superstep(state, Vd, kmc_stream)
                     stats_list = [stats]
+                if mesh is not None:
+                    # the event loop ran on every rank: their states must agree
+                    check_replicas(state, mesh)
+                    replica_checks += 1
                 batch_s = time.perf_counter() - t0
                 supersteps_s += batch_s
                 dt = batch_s / len(stats_list)
@@ -398,7 +549,7 @@ def run(
                     save_checkpoint(
                         os.path.join(workdir, "checkpoint.npz"), state, kmc_stream,
                         vt_counter=vt_counter, kmc_step_count=kmc_step_count,
-                        extra={"Vd": Vd},
+                        extra={"Vd": Vd}, mesh=mesh,
                     )
                 if max_supersteps and total_steps >= max_supersteps:
                     break
@@ -422,9 +573,13 @@ def run(
         "final_kmc_time": float(state.kmc_time),
         "model": model.describe(),
         # K-system solves of the run and their CG iterations (every DIA
-        # kernel launch belongs to one of them)
+        # kernel launch belongs to one of them); under a mesh, this rank's
         "k_solves": model.k_solves,
         "k_iterations": model.k_iterations,
+        "rank": 0 if mesh is None else mesh.rank,
+        "dia_matvec_launches": dia_combined_matvec.launches,
+        "replica_checks": replica_checks,
+        "held_bytes": model.held_bytes(),
     }
 
 
@@ -508,11 +663,26 @@ def main(argv=None):
     ap.add_argument("--power-rtol-scale", default="auto", metavar="S",
                     help="full physics: the power CG's tolerance multiplier, 'auto' "
                          "(default: 100x tighter after a sub-nA superstep) or a float")
-    # akmc_tpu options this port does not run yet: accepted, and refused
-    # with the ROADMAP item that ports them
-    ap.add_argument("--devices", type=int, default=0, help="not ported yet")
-    ap.add_argument("--concern-split", default=None, help="not ported yet")
+    ap.add_argument(
+        "--devices", type=int, default=0, metavar="N",
+        help="run the deck on N ranks, one process each (row-sharded tables, "
+             "replicated fields, dots over gathered partial sums: the reference's "
+             "`mpirun runKMC` row decomposition). On CUDA one card per rank over "
+             "NCCL (N visible cards needed); with --device cpu N gloo ranks. Pads the "
+             "site axis with inert sites when N_sites %% N != 0.",
+    )
+    ap.add_argument(
+        "--concern-split", default=None, metavar="K:P",
+        help="run the K and the pairwise solves on disjoint rank groups in ratio K:P "
+             "(reference split=true, KMC_comm.h:132-223; their default 8:24) over the "
+             "visible cards (with --device cpu: K + P gloo ranks). Needs >= 2 ranks; "
+             "the plain superstep path only; exclusive with --devices.",
+    )
     args = ap.parse_args(argv)
+    concern_split = None
+    if args.concern_split:
+        a, b = args.concern_split.split(":")
+        concern_split = (int(a), int(b))
     summary = run(
         args.parameters,
         workdir=args.workdir,
@@ -535,7 +705,8 @@ def main(argv=None):
         power_rtol_scale=args.power_rtol_scale,
         warmup=args.warmup,
         device=args.device,
-        **{name: getattr(args, name) for name in _NOT_PORTED},
+        devices=args.devices,
+        concern_split=concern_split,
     )
     print(f"Total code execution time: {summary['total_time_s']:.6g} s")
 

@@ -189,22 +189,38 @@ def build_banded_k(
     )
 
 
-def band_matvec(bk: BandedK, meta: BandMeta, x_p: torch.Tensor) -> torch.Tensor:
+def band_matvec(bk: BandedK, meta: BandMeta, x_p: torch.Tensor,
+                block0: int = 0) -> torch.Tensor:
     """y = BAND @ x in the solver frame. x_p: (N,) full-length (contacts
     included).
 
     Block t holds rows [t*T, (t+1)*T) against the window
     x[t*T - B : t*T + T + B]; the windows are a strided view of the
     zero-padded vector (no gather), and the product is one ``torch.bmm`` of
-    the decoded (nb, T, W) f64 blocks with them."""
+    the decoded (nb, T, W) f64 blocks with them. ``block0``: ``bk`` holds
+    blocks [block0, block0 + nb) of the band (a rank's share), and the
+    result is their rows."""
     n = x_p.shape[0]
     B, T, n_pad = meta.half_band, meta.block_rows, meta.n_pad
     W = T + 2 * B
+    nb = bk.blocks.shape[0]
     xe = torch.zeros(n_pad + 2 * B, dtype=x_p.dtype, device=x_p.device)
     xe[B : B + n] = x_p
-    windows = xe.unfold(0, W, T)                            # (nb, W), windows[t] = xe[t*T : t*T + W]
+    windows = xe.unfold(0, W, T)[block0 : block0 + nb]      # windows[t] = xe[t*T : t*T + W]
     y = torch.bmm(bk.values(meta), windows.unsqueeze(-1)).squeeze(-1)
-    return y.reshape(n_pad)[:n]
+    return y.reshape(nb * T)[: max(0, min(nb * T, n - block0 * T))]
+
+
+def sharded_band_matvec(bk: BandedK, meta: BandMeta, x_p: torch.Tensor, shard) -> torch.Tensor:
+    """``band_matvec`` whole on every rank: ``shard`` (mesh, every rank's
+    block range), ``bk`` this rank's blocks; each rank computes its blocks'
+    rows, which are gathered (``Mesh.gather_rows``). None: ``band_matvec``."""
+    if shard is None:
+        return band_matvec(bk, meta, x_p)
+    mesh, br = shard
+    n, T = x_p.shape[0], meta.block_rows
+    rows = [(min(a * T, n), min(b * T, n)) for a, b in br]
+    return mesh.gather_rows(band_matvec(bk, meta, x_p, br[mesh.rank][0]), rows)
 
 
 def cvac_correction(
@@ -253,7 +269,11 @@ class KCarry(NamedTuple):
 
 
 def _assemble_banded(bk, meta, element, charge, Vd, high_G, low_G,
-                     num_atoms_first_layer, nn_dist, lattice, pbc, vmax):
+                     num_atoms_first_layer, nn_dist, lattice, pbc, vmax, shard=None):
+    """The solve's pieces. ``shard`` (mesh, block ranges): ``bk`` holds this
+    rank's band blocks and the band product is gathered whole
+    (``sharded_band_matvec``); every vector stays whole on every rank, so the
+    CG computes on each what it computes on one device."""
     n = element.shape[0]
     dG = high_G - low_G
     cvac = (element == int(ELEM.VACANCY)) & (charge == 0)
@@ -279,7 +299,7 @@ def _assemble_banded(bk, meta, element, charge, Vd, high_G, low_G,
     def A_frame(x_p):
         # x_p: solver-frame full-length vector, contacts implicitly zero
         xz = torch.where(is_int_p, x_p, 0.0)
-        y = diag_p * xz - band_matvec(bk, meta, xz)
+        y = diag_p * xz - sharded_band_matvec(bk, meta, xz, shard)
         y = y - S_corr(xz, vidx, vv, Wv)
         # BAND includes edges to contact columns, but xz zeroes them; rows of
         # contacts are masked out of the solve entirely:
@@ -304,15 +324,17 @@ def solve_potential_boundary_banded(
     vmax: int,
     rtol_coeff: float = 1e-14,
     max_iterations: int = 10000,
+    shard=None,
 ) -> Tuple[torch.Tensor, CGResult]:
     """Drop-in replacement for poisson.solve_potential_boundary using the
-    static band + dynamic cvac correction."""
+    static band + dynamic cvac correction. ``shard`` (mesh, block ranges):
+    ``bk`` holds this rank's blocks (``_assemble_banded``)."""
     n = element.shape[0]
     n_int = n - 2 * num_atoms_first_layer
 
     _, _, diag_p, is_int_p, rhs_p, A_frame, _ = _assemble_banded(
         bk, meta, element, charge, Vd, high_G, low_G,
-        num_atoms_first_layer, nn_dist, lattice, pbc, vmax,
+        num_atoms_first_layer, nn_dist, lattice, pbc, vmax, shard,
     )
 
     # CG over the full-length frame with identity on contact rows: keeps the
@@ -345,6 +367,7 @@ def solve_potential_boundary_banded_carry(
     carry: Optional[KCarry],
     rtol_coeff: float = 1e-14,
     max_iterations: int = 10000,
+    shard=None,
 ) -> Tuple[torch.Tensor, CGResult, KCarry]:
     """Warm solve with an incrementally-rebased initial residual.
 
@@ -355,13 +378,14 @@ def solve_potential_boundary_banded_carry(
     carried compacted plane. b is constant within a bias (rhs = static
     contact sums × Vd). carry=None (a bias change, or a periodic re-base)
     runs the fresh path, which also re-bases any recurrence-residual drift
-    from the CG iterations of previous steps."""
+    from the CG iterations of previous steps. ``shard`` as
+    ``solve_potential_boundary_banded`` takes it."""
     n = element.shape[0]
     n_int = n - 2 * num_atoms_first_layer
 
     _, (vidx, vv, Wv), diag_p, is_int_p, rhs_p, A_frame, S_corr = _assemble_banded(
         bk, meta, element, charge, Vd, high_G, low_G,
-        num_atoms_first_layer, nn_dist, lattice, pbc, vmax,
+        num_atoms_first_layer, nn_dist, lattice, pbc, vmax, shard,
     )
     x0_p = torch.where(is_int_p, potential_boundary_prev[bk.perm], 0.0)
     inv_diag_p = torch.where(is_int_p, 1.0 / diag_p, 1.0)

@@ -44,7 +44,7 @@ matrix (set_ineg, 2353-2379); site power = -alpha * P_i on non-metal atoms.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -279,6 +279,64 @@ class PowerSystem(NamedTuple):
     diag1: float                 # injection-node diagonal
 
 
+class PowerShard(NamedTuple):
+    """A rank's share of the power system under a mesh
+    (``VCMModel._shard_power_system``): every rank's rows of the compacted
+    vacancy list (``vac``), of the contact list (``con``), of the atoms
+    (``atom``) and, with the power band, of its blocks (``band``). The rank
+    builds and holds those rows of W_tt, of W_cc and W_ct and of G_nbr;
+    products with them are gathered (``Mesh.gather_rows``), and the
+    transposed product W_ct^T v_c is added over ranks in rank order
+    (``Mesh.sum_partials``)."""
+
+    mesh: object
+    vac: list
+    con: list
+    atom: list
+    band: Optional[list] = None
+    band_rows: Optional[list] = None   # each rank's solver-frame rows of its band blocks
+
+
+def _mine(shard, name: str, n: int) -> slice:
+    """This rank's rows of list ``name`` (all ``n`` rows on one device)."""
+    if shard is None:
+        return slice(0, n)
+    a, b = getattr(shard, name)[shard.mesh.rank]
+    return slice(a, b)
+
+
+def _whole(shard, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The rows of ``t`` gathered whole (one device: ``t``)."""
+    return t if shard is None else shard.mesh.gather_rows(t, getattr(shard, name))
+
+
+def _over_ranks(shard, t: torch.Tensor) -> torch.Tensor:
+    """Per-rank partial sums ``t`` added in rank order (one device: ``t``)."""
+    return t if shard is None else shard.mesh.sum_partials(t)
+
+
+def _gathered(shard, pieces) -> list:
+    """Every piece whole, in one all-gather (``Mesh.gather_flat``): a piece
+    (t, name) is this rank's rows of list ``name`` of ``shard``; (t, None) is
+    this rank's partial sum, added over the ranks in rank order. One device:
+    the tensors as they are."""
+    if shard is None:
+        return [t for t, _ in pieces]
+    mesh = shard.mesh
+    flat = [(t, getattr(shard, name) if name else
+             [(r * t.shape[0], (r + 1) * t.shape[0]) for r in range(mesh.size)], t.device)
+            for t, name in pieces]
+    out = []
+    for (_, name), whole in zip(pieces, mesh.gather_flat(flat)):
+        if name is None:
+            parts = whole.reshape(mesh.size, -1)
+            whole = parts[0]
+            for part in parts[1:]:
+                whole = whole + part
+        out.append(whole)
+    return out
+
+
 class WkbStats(NamedTuple):
     """What one build of the W blocks did: the energy-loop step count of each
     integrated block (the shared bound akmc_tpu's loop runs to)."""
@@ -325,15 +383,20 @@ def build_power_system(
     vmax: int,
     ne_max: int,
     wkb_f32: bool = False,
+    shard: Optional[PowerShard] = None,
 ) -> Tuple[PowerSystem, WkbStats]:
-    nbr = ct.atom_neigh_idx
+    """The W blocks, G_nbr and the diagonal of the power system. ``shard``:
+    this rank's rows of W_tt, W_cc, W_ct and G_nbr only (``PowerShard``);
+    the diagonal is whole on every rank."""
+    sa = _mine(shard, "atom", ct.atom_neigh_idx.shape[0])
+    nbr = ct.atom_neigh_idx[sa]
     valid = nbr >= 0
     j = nbr.clamp(min=0)
     dev = atom_element.device
 
     metal_i = ct.atom_is_metal
     cvac = (atom_element == int(ELEM.VACANCY)) & (atom_charge == 0)
-    pair_high = (metal_i[:, None] & metal_i[j]) | (cvac[:, None] & cvac[j])
+    pair_high = (metal_i[sa, None] & metal_i[j]) | (cvac[sa, None] & cvac[j])
     hi = torch.tensor(high_G, dtype=F64, device=dev)
     G_nbr = torch.where(valid, torch.where(pair_high, hi, low_G), 0.0)
 
@@ -386,18 +449,22 @@ def build_power_system(
         ], dim=0)
 
     ones_c = cidx >= 0   # contact mask (pad slots carry exact-zero rows)
-    W_tt = wkb_block(pos_v, pos_v, cb[vi], cb[vi], vv, vv, vac_idx, vac_idx, False)
-    W_cc = wkb_block(pos_c, pos_c, cb[ci], cb[ci], ones_c, ones_c, cidx, cidx, False)
-    W_ct = wkb_block(pos_c, pos_v, cb[ci], cb[vi], ones_c, vv, cidx, vac_idx, True)
+    # this rank's rows of each block (all rows on one device): every entry
+    # is the whole block's, whichever rows a build holds
+    sv, sc = _mine(shard, "vac", vac_idx.shape[0]), _mine(shard, "con", cidx.shape[0])
+    cb_v, cb_c = cb[vi], cb[ci]
+    W_tt = wkb_block(pos_v[sv], pos_v, cb_v[sv], cb_v, vv[sv], vv, vac_idx[sv], vac_idx, False)
+    W_cc = wkb_block(pos_c[sc], pos_c, cb_c[sc], cb_c, ones_c[sc], ones_c, cidx[sc], cidx, False)
+    W_ct = wkb_block(pos_c[sc], pos_v, cb_c[sc], cb_v, ones_c[sc], vv, cidx[sc], vac_idx, True)
 
     # diagonal: all row sums positive (write_to_diag, iterative_solvers_gpu.cu:39-47);
     # the tunnel row sums accumulate in f64 when the blocks are stored f32
-    diag = torch.sum(G_nbr, dim=1)
+    diag = _whole(shard, "atom", torch.sum(G_nbr, dim=1))
     diag = diag + high_G * ct.inj_tie.to(F64) + high_G * ct.ext_tie.to(F64)
-    diag = _scatter_add(diag, vac_idx, torch.sum(W_tt, dim=1, dtype=F64)
-                        + torch.sum(W_ct, dim=0, dtype=F64))
-    diag = _scatter_add(diag, cidx, torch.sum(W_cc, dim=1, dtype=F64)
-                        + torch.sum(W_ct, dim=1, dtype=F64))
+    diag = _scatter_add(diag, vac_idx, _whole(shard, "vac", torch.sum(W_tt, dim=1, dtype=F64))
+                        + _over_ranks(shard, torch.sum(W_ct, dim=0, dtype=F64)))
+    diag = _scatter_add(diag, cidx, _whole(shard, "con", torch.sum(W_cc, dim=1, dtype=F64)
+                                           + torch.sum(W_ct, dim=1, dtype=F64)))
 
     ps = PowerSystem(
         G_nbr=G_nbr, vac_idx=vac_idx, W_tt=W_tt, W_ct=W_ct, W_cc=W_cc, diag=diag,
@@ -406,29 +473,42 @@ def build_power_system(
     return ps, WkbStats(ct_bounds=tuple(bounds))
 
 
-def _tunnel_matvec(W_tt, W_ct, W_cc, y, va, vi, vv, cidx):
+def _tunnel_matvec(W_tt, W_ct, W_cc, y, va, vi, vv, cidx, shard=None, first=None):
     """y plus the tunnel blocks' part, -(W_tt v_v + W_ct^T v_c) on the
     vacancy slots and -(W_cc v_c + W_ct v_v) on the contacts. The blocks are
     f64 here (f32 blocks are widened once per solve, the products akmc_tpu's
-    f32 * f64 promotion forms); each product is one matrix-vector call."""
+    f32 * f64 promotion forms); each product is one matrix-vector call.
+
+    ``shard``: the blocks are this rank's rows (``PowerShard``) and the
+    products are gathered in one all-gather, together with ``first`` (a
+    ``_gathered`` piece) when given; then ``y`` is a function that takes the
+    whole ``first`` and returns the vector the tunnel part is added to."""
     v_v = torch.where(vv, va[vi], 0.0)
     v_c = va[cidx.clamp(min=0)]
-    y_v = -torch.mv(W_tt, v_v) - torch.mv(W_ct.T, v_c)    # per vacancy slot
-    y_c = -torch.mv(W_cc, v_c) - torch.mv(W_ct, v_v)      # per contact
+    sc = _mine(shard, "con", cidx.shape[0])
+    pieces = [(torch.mv(W_tt, v_v), "vac"), (torch.mv(W_ct.T, v_c[sc]), None),
+              (-torch.mv(W_cc, v_c) - torch.mv(W_ct, v_v), "con")]
+    if first is not None:
+        head, tt, ctT, y_c = _gathered(shard, [first] + pieces)
+        y = y(head)
+    else:
+        tt, ctT, y_c = _gathered(shard, pieces)
+    y_v = -tt - ctT                                  # per vacancy slot
     y = _scatter_add(y, torch.where(vv, vi, -1), y_v)
-    return _scatter_add(y, cidx, y_c)
+    return _scatter_add(y, cidx, y_c)                # per contact
 
 
 def _X_atoms_matvec(ct: CurrentTables, ps: PowerSystem, va: torch.Tensor,
-                    blocks=None) -> torch.Tensor:
+                    blocks=None, shard=None) -> torch.Tensor:
     """Off-diagonal atom-atom part: (-G_nbr - W_tunnel) @ va, over all atoms.
     ``blocks``: (W_tt, W_ct, W_cc) in f64 (default: the system's, widened)."""
-    nbr = ct.atom_neigh_idx
-    y = -torch.sum(ps.G_nbr * va[nbr.clamp(min=0)], dim=1)
+    nbr = ct.atom_neigh_idx[_mine(shard, "atom", ct.atom_neigh_idx.shape[0])]
+    g = -torch.sum(ps.G_nbr * va[nbr.clamp(min=0)], dim=1)
     if blocks is None:
         blocks = (ps.W_tt.to(F64), ps.W_ct.to(F64), ps.W_cc.to(F64))
     vi = ps.vac_idx.clamp(min=0)
-    return _tunnel_matvec(*blocks, y, va, vi, ps.vac_idx >= 0, ct.contact_idx)
+    return _tunnel_matvec(*blocks, lambda y: y, va, vi, ps.vac_idx >= 0, ct.contact_idx, shard,
+                          first=(g, "atom"))
 
 
 def build_power_band(
@@ -455,11 +535,11 @@ def build_power_band(
     )
 
 
-def _cvac_fold(pos_v, cvac_v, vac_idx, lattice, pbc, nn_dist, dtype, dG):
+def _cvac_fold(pos_v, cvac_v, vac_idx, lattice, pbc, nn_dist, dtype, dG, rows=slice(None)):
     """dG * (neighbor & cvac_i & cvac_j) over the compacted vacancy list: the
     dynamic part of ``build_power_system``'s ``pair_high`` rule, which the
     static band codes cannot carry. Built in chunks of ``_WKB_ROW_BLOCK``
-    rows."""
+    rows; ``rows``: only those rows of the list (a rank's share)."""
     def block(chunk_pos, chunk_cvac, chunk_idx):
         _, dist_ang = _pair_dist_m(chunk_pos, pos_v, lattice, pbc)
         same = chunk_idx[:, None] == vac_idx[None, :]
@@ -467,10 +547,12 @@ def _cvac_fold(pos_v, cvac_v, vac_idx, lattice, pbc, nn_dist, dtype, dG):
         return torch.where(adj, torch.tensor(dG, dtype=dtype, device=pos_v.device),
                            torch.tensor(0, dtype=dtype, device=pos_v.device))
 
-    rows = pos_v.shape[0]
+    pos_r, cvac_r, idx_r = pos_v[rows], cvac_v[rows], vac_idx[rows]
     B = _WKB_ROW_BLOCK
-    return torch.cat([block(pos_v[s:s + B], cvac_v[s:s + B], vac_idx[s:s + B])
-                      for s in range(0, rows, B)], dim=0)
+    if pos_r.shape[0] == 0:
+        return torch.zeros((0, pos_v.shape[0]), dtype=dtype, device=pos_v.device)
+    return torch.cat([block(pos_r[s:s + B], cvac_r[s:s + B], idx_r[s:s + B])
+                      for s in range(0, pos_r.shape[0], B)], dim=0)
 
 
 def solve_power(
@@ -495,6 +577,7 @@ def solve_power(
     #                                  low-bias I-V points are a sub-nA cancellation
     #                                  of large virtual potentials, so callers
     #                                  tighten the solve there
+    shard: Optional[PowerShard] = None,   # the system and the band are this rank's rows
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Solve X m = b; returns (I_macro [A] (0-d), atom_power (N_atom,) [W],
     m (N_atom+2) unscaled, CG iterations).
@@ -504,7 +587,11 @@ def solve_power(
     band product, the cvac-cvac edges are folded into W_tt, the grounded
     atom's row is an identity row whose residual stays exactly 0); without
     it the neighbor part is a gather over the atom adjacency and the grounded
-    atom is dropped from the unknowns."""
+    atom is dropped from the unknowns.
+
+    Under ``shard`` the CG vectors stay whole on every rank and every rank
+    computes the same iterates: each product with a sharded block is the
+    rank's rows, gathered (``PowerShard``)."""
     n_atom = ct.atom_ind.shape[0]
     dev = m_prev.device
     inj = ct.inj_tie.to(F64)
@@ -528,18 +615,22 @@ def solve_power(
         vi_p = invp[vi]
         cidx_p = torch.where(ct.contact_idx >= 0, invp[ct.contact_idx.clamp(min=0)], -1)
 
+        sv = _mine(shard, "vac", vi.shape[0])
+        cvac_v = torch.where(vv, cvac[vi], False)
         W_tt = (ps.W_tt + _cvac_fold(
-            ct.atom_pos[vi], torch.where(vv, cvac[vi], False), ps.vac_idx,
-            lattice, pbc, nn_dist, ps.W_tt.dtype, dGv,
+            ct.atom_pos[vi], cvac_v, ps.vac_idx,
+            lattice, pbc, nn_dist, ps.W_tt.dtype, dGv, rows=sv,
         )).to(F64)
         W_ct, W_cc = ps.W_ct.to(F64), ps.W_cc.to(F64)
+        block0 = 0 if shard is None else shard.band[shard.mesh.rank][0]
 
         def A(v):
             # v: (N_atom + 2,) = [ext, inj, atoms (solver frame; grounded slot
             # pinned by the identity row)]
             va = torch.where(gmask, v[2:], 0.0)
-            y = diag_p * va - band_matvec(bk, meta, va)
-            y = _tunnel_matvec(W_tt, W_ct, W_cc, y, va, vi_p, vv, cidx_p)
+            y = _tunnel_matvec(W_tt, W_ct, W_cc, lambda bm: diag_p * va - bm, va, vi_p, vv,
+                               cidx_p, shard, first=(band_matvec(bk, meta, va, block0),
+                                                     "band_rows"))
             y = y - high_G * inj_p * v[1] - high_G * ext_p * v[0]
             y0 = ps.diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ext_pm, va, 0.0))
             y1 = ps.diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(inj_pm, va, 0.0))
@@ -559,7 +650,7 @@ def solve_power(
         def A(v):
             # v: (N_atom + 1,) = [ext, inj, atoms[:-1]]
             va = torch.cat([v[2:], torch.zeros(1, dtype=v.dtype, device=dev)])
-            y_at = ps.diag * va + _X_atoms_matvec(ct, ps, va, blocks)
+            y_at = ps.diag * va + _X_atoms_matvec(ct, ps, va, blocks, shard)
             y_at = y_at - high_G * inj * v[1] - high_G * ext * v[0]
             y0 = ps.diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ct.ext_tie, va, 0.0))
             y1 = ps.diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(ct.inj_tie, va, 0.0))
@@ -587,23 +678,25 @@ def solve_power(
         fwd = (ical < 0) if forward_neg else (ical > 0)
         return torch.where(fwd, -ical, 0.0)
 
-    nbr = ct.atom_neigh_idx
+    sa = _mine(shard, "atom", n_atom)
+    sv = _mine(shard, "vac", vi.shape[0])
+    sc = _mine(shard, "con", ct.contact_idx.shape[0])
+    nbr = ct.atom_neigh_idx[sa]
     jm = m_at[nbr.clamp(min=0)]
-    ineg_n = ineg_contrib(ps.G_nbr, m_at[:, None], jm)
-    pdisp = torch.sum(ineg_n * (jm - m_at[:, None]), dim=1)
+    ineg_n = ineg_contrib(ps.G_nbr, m_at[sa, None], jm)
+    pdisp = _whole(shard, "atom", torch.sum(ineg_n * (jm - m_at[sa, None]), dim=1))
 
     m_v = torch.where(vv, m_at[vi], 0.0)
     m_c = m_at[ct.contact_idx.clamp(min=0)]
-    in_tt = ineg_contrib(ps.W_tt, m_v[:, None], m_v[None, :])
-    in_cc = ineg_contrib(ps.W_cc, m_c[:, None], m_c[None, :])
-    in_ct = ineg_contrib(ps.W_ct, m_c[:, None], m_v[None, :])
-    in_tc = ineg_contrib(ps.W_ct.T, m_v[:, None], m_c[None, :])
-    p_v = torch.sum(in_tt * (m_v[None, :] - m_v[:, None]), dim=1) + torch.sum(
-        in_tc * (m_c[None, :] - m_v[:, None]), dim=1
+    in_tt = ineg_contrib(ps.W_tt, m_v[sv, None], m_v[None, :])
+    in_cc = ineg_contrib(ps.W_cc, m_c[sc, None], m_c[None, :])
+    in_ct = ineg_contrib(ps.W_ct, m_c[sc, None], m_v[None, :])
+    in_tc = ineg_contrib(ps.W_ct.T, m_v[:, None], m_c[None, sc])
+    p_v = _whole(shard, "vac", torch.sum(in_tt * (m_v[None, :] - m_v[sv, None]), dim=1)) + (
+        _over_ranks(shard, torch.sum(in_tc * (m_c[None, sc] - m_v[:, None]), dim=1))
     )
-    p_c = torch.sum(in_cc * (m_c[None, :] - m_c[:, None]), dim=1) + torch.sum(
-        in_ct * (m_v[None, :] - m_c[:, None]), dim=1
-    )
+    p_c = _whole(shard, "con", torch.sum(in_cc * (m_c[None, :] - m_c[sc, None]), dim=1)
+                 + torch.sum(in_ct * (m_v[None, :] - m_c[sc, None]), dim=1))
     pdisp = _scatter_add(pdisp, torch.where(vv, vi, -1), p_v)
     pdisp = _scatter_add(pdisp, ct.contact_idx, p_c)
 

@@ -28,7 +28,7 @@ import torch
 from akmc_tpu_torch.lattice import ELEM
 from akmc_tpu_torch.ops.dia_matvec import DiaOperator
 from akmc_tpu_torch.solvers.cg import CGResult
-from akmc_tpu_torch.solvers.dia_cg import dia_cg_solve
+from akmc_tpu_torch.solvers.dia_cg import dia_cg_solve, dia_cg_solve_sharded
 
 
 @dataclass
@@ -46,13 +46,15 @@ class DiaK:
     def to(self, device: torch.device) -> "DiaK":
         return DiaK(**{f.name: getattr(self, f.name).to(device) for f in fields(self)})
 
-    def operator(self, meta: "DiaMeta") -> DiaOperator:
+    def operator(self, meta: "DiaMeta", row0: int = 0, n: Optional[int] = None) -> DiaOperator:
         """The codes and offsets as the kernels take them, checked once and
-        kept for every later solve."""
+        kept for every later solve. ``row0``/``n``: these codes are rows
+        [row0, row0 + R) of an n-row operator (a rank's slab)."""
         op = self.__dict__.get("_operator")
-        if op is None or (op.val_low, op.val_high) != (meta.val_low, meta.val_high):
+        want = (meta.val_low, meta.val_high, row0, self.diags.shape[1] if n is None else n)
+        if op is None or (op.val_low, op.val_high, op.row0, op.n) != want:
             op = self.__dict__["_operator"] = DiaOperator(
-                self.diags, self.offsets, meta.val_low, meta.val_high
+                self.diags, self.offsets, meta.val_low, meta.val_high, row0=row0, n=n
             )
         return op
 
@@ -131,7 +133,7 @@ class KSystem(NamedTuple):
     """The once-per-solve vectors of one boundary-potential K solve: what
     ``solvers/dia_cg.py::dia_cg_solve`` takes beside the operator."""
 
-    cvac: torch.Tensor       # (N,) bool: conductive vacancy
+    cvac: torch.Tensor       # (N,) bool: conductive vacancy (all rows)
     is_int: torch.Tensor     # (N,) bool: interior row with at least one edge
     diag_i: torch.Tensor     # (N,) f64: K diagonal, 1 outside the interior
     dgc: torch.Tensor        # (N,) f64: high_G - low_G on conductive vacancies
@@ -150,23 +152,29 @@ def k_system(
     high_G: float,
     low_G: float,
     num_atoms_first_layer: int,
+    row0: int = 0,
 ) -> KSystem:
     """Matrix diagonal, right-hand side and start of the K solve; one
-    combined-matvec call for the conductive-vacancy degrees."""
+    combined-matvec call for the conductive-vacancy degrees. ``row0``: ``dia``
+    holds rows [row0, row0 + R) of the operator (a rank's slab), and every
+    vector but ``cvac`` (whole) is those rows of the whole solve's."""
     n = element.shape[0]
+    rows = dia.diags.shape[1]
     L = R = num_atoms_first_layer
     dG = high_G - low_G
     f64 = torch.float64
+    sl = slice(row0, row0 + rows)
 
     # conductive vacancies couple through the same nn_dist adjacency: the
     # combined matvec's V half on the vacancy indicator counts each site's
     # conductive-vacancy neighbours
     cvac = (element == int(ELEM.VACANCY)) & (charge == 0)
     cv = cvac.to(f64)
-    vdeg = dia.operator(meta).matvec(cv, cv)[1]
-    diag = dia.deg_static + dG * torch.where(cvac, vdeg, 0.0)
+    vdeg = dia.operator(meta, row0, n).matvec(cv, cv)[1]
+    cvac_r = cvac[sl]
+    diag = dia.deg_static + dG * torch.where(cvac_r, vdeg, 0.0)
 
-    idxs = torch.arange(n, device=element.device)
+    idxs = torch.arange(row0, row0 + rows, device=element.device)
     is_int = (idxs >= L) & (idxs < n - R) & dia.active_row
 
     rhs = (dia.lsum * (-Vd / 2.0) + dia.rsum * (Vd / 2.0)) * is_int
@@ -175,8 +183,8 @@ def k_system(
     # are masked, A passes exterior rows through), so the masks fold into
     # these once-per-solve vectors
     diag_i = torch.where(is_int, diag, 1.0)
-    dgc = torch.where(cvac, torch.tensor(dG, dtype=f64, device=diag.device), 0.0)
-    x0 = torch.where(is_int, potential_boundary_prev, 0.0)
+    dgc = torch.where(cvac_r, torch.tensor(dG, dtype=f64, device=diag.device), 0.0)
+    x0 = torch.where(is_int, potential_boundary_prev[sl], 0.0)
     inv_diag = torch.where(is_int, 1.0 / diag_i, 1.0)
     return KSystem(cvac=cvac, is_int=is_int, diag_i=diag_i, dgc=dgc,
                    inv_diag=inv_diag, rhs=rhs, x0=x0)
@@ -207,3 +215,34 @@ def solve_potential_boundary_dia(
     res = dia_cg_solve(dia.operator(meta), *ks, rtol_coeff * n_int, max_iterations)
     res = res._replace(iterations=int(res.iterations))   # on the card: the one host read
     return torch.where(ks.is_int, res.x, 0.0), res
+
+
+def solve_potential_boundary_dia_sharded(
+    dia: DiaK,
+    meta: DiaMeta,
+    mesh,
+    ranges,
+    element: torch.Tensor,
+    charge: torch.Tensor,
+    potential_boundary_prev: torch.Tensor,
+    Vd: float,
+    high_G: float,
+    low_G: float,
+    num_atoms_first_layer: int,
+    rtol_coeff: float = 1e-14,
+    max_iterations: int = 10000,
+) -> Tuple[torch.Tensor, CGResult]:
+    """``solve_potential_boundary_dia`` over the ranks of ``mesh``: ``dia``
+    holds this rank's rows ``ranges[mesh.rank]`` (whole 256-row chunks; the
+    last rank takes the ragged end) and the solve is
+    ``solvers/dia_cg.py::dia_cg_solve_sharded``, one row-window matvec per
+    rank for the degrees and one per CG iteration. Returns the whole
+    potential on every rank, equal to the one-device solve's to the bit."""
+    r0, _ = ranges[mesh.rank]
+    ks = k_system(dia, meta, element, charge, potential_boundary_prev, Vd,
+                  high_G, low_G, num_atoms_first_layer, row0=r0)
+    n_int = element.shape[0] - 2 * num_atoms_first_layer
+    op = dia.operator(meta, r0, element.shape[0])
+    res = dia_cg_solve_sharded(op, mesh, ranges, *ks, rtol_coeff * n_int, max_iterations)
+    pot = mesh.gather_rows(torch.where(ks.is_int, res.x, 0.0), ranges)
+    return pot, res

@@ -1,6 +1,6 @@
 """The whole Jacobi-CG of one boundary-potential K solve: the fused CUDA
-kernel (``csrc/dia_cg.cu``, one cooperative launch per solve) and its plain
-PyTorch twin.
+kernel (``csrc/dia_cg.cu``, one cooperative launch per solve), its plain
+PyTorch twin, and its form sharded over ranks (``dia_cg_solve_sharded``).
 
 ``dia_cg_solve(op, cvac, is_int, diag_i, dgc, inv_diag, rhs, x0, rtol, max_it)``
 is ``solvers/cg.py::jacobi_cg`` with the operator of ``solvers/dia.py``,
@@ -24,6 +24,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -68,17 +69,29 @@ def _chunked(t: torch.Tensor) -> torch.Tensor:
     return F.pad(t, (0, rows * CHUNK - t.shape[0])).reshape(rows, CHUNK)
 
 
-def blocked_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a . b in the fixed order of the fused kernel, which depends on the
-    length alone: rounded products; per chunk of 256 consecutive entries the
-    tree of ``_tree``; then, over the chunk sums laid out as rows of 256
-    (padded with +0.0), the rows added in ascending order and the same tree
-    over the 256 column sums."""
-    rows = _chunked(_tree(_chunked(a * b)))
+def chunk_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The first level of ``blocked_vdot``: rounded products, and per chunk
+    of 256 consecutive entries (the last padded with +0.0) the tree of
+    ``_tree``. A rank whose rows are whole chunks computes its chunks' sums
+    as the whole vector's dot computes them."""
+    return _tree(_chunked(a * b))
+
+
+def finish_chunks(sums: torch.Tensor) -> torch.Tensor:
+    """The second level of ``blocked_vdot`` over all chunk sums in order: laid
+    out as rows of 256 (padded with +0.0), the rows added in ascending order,
+    then the same tree over the 256 column sums."""
+    rows = _chunked(sums)
     acc = rows[0]
     for m in range(1, rows.shape[0]):
         acc = acc + rows[m]
     return _tree(acc)
+
+
+def blocked_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b in the fixed order of the fused kernel, which depends on the
+    length alone: ``chunk_sums``, then ``finish_chunks``."""
+    return finish_chunks(chunk_sums(a, b))
 
 
 def dia_cg_solve_plain(
@@ -104,6 +117,78 @@ def dia_cg_solve_plain(
 
     return jacobi_cg(A, rhs, x0, inv_diag, relative_tolerance, max_iterations,
                      dot_fn=blocked_vdot)
+
+
+def dia_cg_solve_sharded(
+    op: DiaOperator,          # this rank's row window of the operator
+    mesh,                     # parallel/mesh.py::Mesh
+    ranges,                   # every rank's [row0, row1): whole CHUNKs, the last ragged
+    cvac: torch.Tensor,       # (N,) bool, replicated
+    is_int: torch.Tensor,     # the rank's rows of the vectors of ``dia_cg_solve``
+    diag_i: torch.Tensor,
+    dgc: torch.Tensor,
+    inv_diag: torch.Tensor,
+    rhs: torch.Tensor,
+    x0: torch.Tensor,
+    relative_tolerance: float,
+    max_iterations: int,
+) -> CGResult:
+    """``dia_cg_solve`` with its rows sharded over the ranks of ``mesh``: the
+    iteration of ``solvers/cg.py::jacobi_cg`` on the rank's rows of x, r, z
+    and p. A product runs the row-window matvec (``ops/dia_matvec.py``; the
+    CUDA kernel on the card) on the rank's rows of the whole p. A dot product
+    gathers every rank's ``chunk_sums`` and finishes them on the host
+    (``finish_chunks``: the same additions in the same order as on the card).
+    The rows are whole chunks, so every rank holds what the fused kernel and
+    ``dia_cg_solve_plain`` compute, to the bit, iteration count included.
+
+    Two all-gathers per iteration (``Mesh.gather_flat``): p.Ap's chunk sums,
+    then z's rows with r.z's chunk sums, from which every rank forms the
+    whole next p = z + beta p itself (its own rows of it are its p: the same
+    operations on the same values). ``x`` and ``r`` of the result are the
+    rank's rows; ``iterations`` is an int."""
+    chunk_ranges = [(a // CHUNK, -(-b // CHUNK)) for a, b in ranges]
+    dev = rhs.device
+    tol2 = relative_tolerance ** 2
+
+    def A(p_whole, p):
+        mv, corr = op.matvec(p_whole, torch.where(cvac, p_whole, 0.0))
+        return torch.where(is_int, diag_i * p - mv - dgc * corr, p)
+
+    def gather(rows=None, pairs=()):
+        """(``rows`` whole on the device, or None; the dot of each pair)."""
+        pieces = [] if rows is None else [(rows, ranges, dev)]
+        pieces += [(chunk_sums(a, b), chunk_ranges, "cpu") for a, b in pairs]
+        out = mesh.gather_flat(pieces)
+        dots = [np.float64(finish_chunks(c)) for c in out[len(out) - len(pairs):]]
+        return (None if rows is None else out[0]), dots
+
+    def quotient(a, b):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.float64(a) / np.float64(b)    # IEEE, as 0-d tensors divide
+
+    x = x0
+    x0_whole, _ = gather(x0)
+    r = rhs - A(x0_whole, x0)
+    z = r * inv_diag
+    p = z
+    p_whole, (norm2_rhs, rz) = gather(z, [(rhs, rhs), (r, z)])
+    k = 1
+    while k <= max_iterations and quotient(rz, norm2_rhs) > tol2:
+        Ap = A(p_whole, p)
+        _, (pAp,) = gather(pairs=[(p, Ap)])
+        a = float(quotient(rz, pAp))
+        x = x + a * p
+        r = r - a * Ap
+        z = r * inv_diag
+        z_whole, (rz_new,) = gather(z, [(r, z)])
+        beta = float(quotient(rz_new, rz))
+        p = z + beta * p
+        p_whole = z_whole + beta * p_whole
+        rz = rz_new
+        k += 1
+    return CGResult(x=x, iterations=k, residual_sq=torch.tensor(float(rz), dtype=rhs.dtype),
+                    r=r)
 
 
 def _launcher():
@@ -148,6 +233,8 @@ def dia_cg_solve(
     tensors. On the card nothing is read back: ``iterations`` and
     ``residual_sq`` of the result are 0-d tensors on the device."""
     dev = op.device
+    if op.rows != op.n:
+        raise ValueError("dia_cg_solve takes the whole operator, not a row window")
     if dev.type == "cpu":
         return dia_cg_solve_plain(op, cvac, is_int, diag_i, dgc, inv_diag, rhs, x0,
                                   relative_tolerance, max_iterations)

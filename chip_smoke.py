@@ -151,12 +151,43 @@ line is printed):
            K solve the model counted, with the iterations counted on the
            device equal to the model's.
 
+9. sharded  scale-out over torch.distributed, with 2 and 4 ranks sharing this
+           card over gloo (NCCL refuses two ranks on one card; the gloo
+           collectives are staged through host buffers): correctness and
+           launches, not speed. The row-window matvec against its twin (its
+           own slab, x and xv whole) at the first, a middle and the last
+           rank's 256-row-chunk window of N = 58,752 split 2 and 4 ways and of
+           409,600 split 4 ways, bit-equal, then timed beside the twin and a
+           sparse product on the window's rows. Through the driver's per-rank
+           function (``runtime/driver.py::run_on_mesh``): the sweep phase's
+           24 supersteps on 2 and 4 ranks, every metrics row and the final
+           elements equal to one rank's, the golden within GOLDEN_KMC_RTOL,
+           each rank's row-window launches equal to its K-CG iterations plus
+           one per solve, every rank's state equal to rank 0's after every
+           superstep, per-rank bytes of the pair table and the DIA codes about
+           1/ranks; concern groups 1:1 and 1:3 (fields and three supersteps
+           equal to one rank's to the bit); on 4 ranks, three batched
+           supersteps at 409,600 slots (integer state and counts equal to one
+           rank's, peak memory per rank), four full-physics supersteps
+           (against one rank: events, elements and power-CG counts exact, KMC
+           times within SHARDED_KMC_RTOL, P_tot within SHARDED_P_TOT_RTOL,
+           I_macro within SHARDED_I_MACRO_ATOL, T_bg within 1e-12; against
+           the golden's first four supersteps: the full phase's bounds; W
+           bytes per rank about a quarter of one rank's), three supersteps of
+           the disordered stand-in (against one rank: events, elements and CG
+           counts exact, KMC times within SHARDED_SYNTH_KMC_RTOL; against its
+           golden: the disordered phase's bounds) and the CG harness (K-class at n = 100,000, T-class at the
+           reference's 102,722 / 14,854: rel L2 error below 1e-8, iterations
+           within 2 of one rank's).
+
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered``, ``tiled``, ``batched``, ``full`` and ``driver``, the card's
-name and power limit from nvidia-smi, and last ``{"ok": true, "device":
-{...}}``. ``--only PHASE[,PHASE]`` (of kernels, sweep, disordered, tiled,
-batched, full, driver) runs a part of it while developing. Needs one card, no
-network, and no JAX.
+``disordered``, ``tiled``, ``batched``, ``full``, ``driver`` and ``sharded``,
+the card's name and power limit from nvidia-smi, and last ``{"ok": true,
+"device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels, sweep, disordered,
+tiled, batched, full, driver, sharded) runs a part of it while developing;
+``--only nccl`` (never run by default) runs the sharded phase's sweep and
+batched path, under the same checks, on 2 and 4 ranks with a card each over
+NCCL, on a machine with four cards. Needs one card, no network, and no JAX.
 """
 
 from __future__ import annotations
@@ -855,7 +886,7 @@ def run_sweep():
         # the sweep loop's time: supersteps, xyz snapshots, and the rest (log,
         # metrics file, folders)
         "driver_supersteps_s": summary["supersteps_s"],
-        "driver_snapshot_s": summary["snapshot_s"],
+        "driver_snapshot_s": summary["snapshot_s"], "held_bytes": summary["held_bytes"],
         "driver_other_s": summary["total_time_s"] - summary["supersteps_s"] - summary["snapshot_s"],
         "superstep_s": [r["superstep_s"] for r in rows],
         "cg_per_superstep": [r["cg_iterations"] for r in rows],
@@ -2226,7 +2257,609 @@ def _final_potentials_finite(workdir: str) -> bool:
     return bool(vals) and all(math.isfinite(v) for v in vals)
 
 
-PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver")
+# ----------------------------------------------------------------------
+# sharded: scale-out over torch.distributed, the ranks sharing this card over
+# gloo (NCCL refuses two ranks on one card)
+# ----------------------------------------------------------------------
+SHARDED_DIR = os.path.join(HERE, "build", "chip_smoke", "sharded")
+SHARDED_BATCHED_N_YZ = 64            # 409,600 slots
+SHARDED_BATCHED_STEPS = 3
+SHARDED_FULL_STEPS = 4
+SHARDED_SYNTH_STEPS = 3
+SHARDED_CONCERN_STEPS = 3
+HARNESS_K_N = 100_000
+HARNESS_T_N, HARNESS_T_SUB = 102_722, 14_854   # the reference's instance (cg_harness.py)
+HARNESS_RTOL = 1e-8
+HARNESS_ITER_SLACK = 2
+# the T-class solve's stop coefficient: at akmc_tpu's default 1e-14 the stop
+# rule (relative to ||b||) leaves a solution error near 1e-6 on the
+# reference's instance (one rank and four alike), which the dense subblock's
+# conditioning sets; the check solves the same system to 1e-17 as well
+HARNESS_T_RTOL_COEFF = 1e-17
+# a rank's share of a sharded table may exceed total / ranks by its rounding
+# to whole rows, chunks or blocks
+SHARE_SLACK = 1.1
+# tests/test_sharding.py's tolerances (akmc_tpu's sharded against one device)
+SHARDED_T_BG_RTOL = 1e-12
+SHARDED_KMC_RTOL = 1e-9
+# Sharded against one rank where the ranks add in another order: full physics
+# (W_ct's column sums and W_ct^T v_c added over ranks in rank order) and the
+# disordered stand-in (torch.bmm over a rank's band blocks). An H100 80GB HBM3
+# at 700 W read the same in every run: full physics I_macro 3.90e-16 A apart
+# (3.3e-3 relative: each current there is a power-CG stopping point below
+# 5e-12 A, so tests/test_sharding.py's rtol 1e-5 cannot hold), P_tot 2.87e-7
+# (past its 1e-8), power-CG counts and KMC times equal; the stand-in's KMC
+# times 1.98e-7 with equal CG counts. Each bound is its reading with room.
+SHARDED_I_MACRO_ATOL = 1e-15
+SHARDED_P_TOT_RTOL = 1e-6
+SHARDED_SYNTH_KMC_RTOL = 1e-6
+
+
+def window_library(slab, offsets, val_low, val_high, row0, n, dev):
+    """The row window's function as one PyTorch sparse product: the CSR rows
+    [row0, row0 + R) of [[W, 0], [0, adjacency]] against [x; xv]."""
+    D, rows = slab.shape
+    c = slab.cpu().numpy()
+    d_idx, r = np.nonzero(c)
+    cols = r + row0 + offsets.cpu().numpy()[d_idx]
+    keep = (cols >= 0) & (cols < n)
+    d_idx, r, cols = d_idx[keep], r[keep], cols[keep]
+    w = np.where(c[d_idx, r] == 2, val_high, val_low)
+    all_rows = np.concatenate([r, r + rows])
+    all_cols = np.concatenate([cols, cols + n])
+    vals = np.concatenate([w, np.ones_like(w)])
+    order = np.lexsort((all_cols, all_rows))
+    crow = np.zeros(2 * rows + 1, np.int64)
+    np.cumsum(np.bincount(all_rows, minlength=2 * rows), out=crow[1:])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(crow), torch.from_numpy(all_cols[order]),
+            torch.from_numpy(vals[order]), size=(2 * rows, 2 * n), dtype=torch.float64,
+        ).to(dev)
+
+
+def window_bound(slab, offsets, row0, n) -> dict:
+    """The least time of one row-window matvec: the window's codes, the reach
+    of x and xv its rows read, the two outputs; 2 flops per nonzero code and
+    3 per row."""
+    D, rows = slab.shape
+    offs = offsets.tolist()
+    reach = min(n, row0 + rows + max(offs)) - max(0, row0 + min(offs))
+    nnz = int((slab != 0).sum())
+    n_bytes = D * rows + D * 8 + 2 * reach * 8 + 2 * rows * 8
+    n_ops = 2 * nnz + 3 * rows
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F64_FLOP_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "shape": {"D": D, "rows": rows, "row0": row0, "N": n, "nnz": nnz,
+                      "bytes": n_bytes, "ops": n_ops}}
+
+
+def check_row_window(dev, operators) -> dict:
+    """The row-window matvec against its twin (the full-N twin's rows, and the
+    twin on the slab) at the first, a middle and the last rank's window of
+    each split, bit for bit; then timed on the middle window of the last
+    split of the first operator beside the twin and a sparse product."""
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.parallel.mesh import Mesh
+    from akmc_tpu_torch.solvers.dia_cg import CHUNK
+
+    rng = np.random.default_rng(8)
+    checked, timing = [], None
+    for label, diags, offsets, lo, hi, splits in operators:
+        D, n = diags.shape
+        offs = offsets.tolist()
+        x = torch.tensor(rng.standard_normal(n) * np.exp(rng.standard_normal(n)), device=dev)
+        xv = torch.where(torch.tensor(rng.random(n) < 0.05, device=dev), x, 0.0)
+        yf, vf = mv.dia_combined_matvec_plain(diags, offs, lo, hi, x, xv)
+        for size in splits:
+            ranges = Mesh(0, size, dev, "gloo").split(n, CHUNK)
+            for r in sorted({0, size // 2, size - 1}):
+                r0, r1 = ranges[r]
+                slab = diags[:, r0:r1].clone()          # an array of its own, as a rank holds it
+                op = mv.DiaOperator(slab, offsets, lo, hi, row0=r0, n=n)
+                y, v = op.matvec(x, xv)
+                y0, v0 = mv.dia_combined_matvec_plain(slab, offs, lo, hi, x, xv, row0=r0)
+                torch.cuda.synchronize()
+                err = max(float((y - y0).abs().max()), float((v - v0).abs().max()))
+                if not (torch.equal(y, y0) and torch.equal(v, v0)
+                        and torch.equal(y, yf[r0:r1]) and torch.equal(v, vf[r0:r1])):
+                    fail(f"row-window kernel is not bit-equal to its twin on {label}, "
+                         f"{size} ranks, rank {r} [{r0}, {r1}) (max abs {err:.3e})")
+                checked.append({"operator": label, "ranks": size, "rank": r,
+                                "rows": [r0, r1], "max_abs_err": err})
+                if timing is None and size == splits[-1] and r == size // 2:
+                    timing = (label, slab, offsets, lo, hi, r0, n, x, xv, op)
+        print(f"chip_smoke: row-window matvec == twin on {label} (D={D}, N={n}), "
+              f"splits {splits}")
+    label, slab, offsets, lo, hi, r0, n, x, xv, op = timing
+    offs = offsets.tolist()
+    lib = window_library(slab, offsets, lo, hi, r0, n, dev)
+    xcat = torch.cat([x, xv])
+    yl = lib @ xcat
+    y, v = op.matvec(x, xv)
+    lib_err = float((yl - torch.cat([y, v])).abs().max() / torch.cat([y, v]).abs().max())
+    if lib_err > MATVEC_RTOL:
+        fail(f"the window's library yardstick computes another function ({lib_err:.3e})")
+    out = torch.empty((2, slab.shape[1]), dtype=torch.float64, device=dev)
+    calls = {
+        "kernel": lambda: op.matvec(x, xv, out=out),
+        "plain": lambda: mv.dia_combined_matvec_plain(slab, offs, lo, hi, x, xv, row0=r0),
+        "library": lambda: lib @ xcat,
+    }
+    call_ms = {k: cuda_time_ms(f, reps=50 if k == "plain" else 1000) for k, f in calls.items()}
+    dev_ms = {k: device_ms(f) for k, f in calls.items()}
+    times = {k: dev_ms[k] if dev_ms[k] is not None else call_ms[k] for k in calls}
+    bound = window_bound(slab, offsets, r0, n)
+    return {
+        "checked": checked, "bitwise_equal_to_twin": True,
+        "max_abs_err": max(c["max_abs_err"] for c in checked),
+        "timed_on": label, "ms": times["kernel"], "plain_ms": times["plain"],
+        "library_ms": times["library"], "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "shape": bound["shape"], "call_ms": call_ms,
+        "time_source": "profiler device time" if dev_ms["kernel"] is not None else "CUDA events",
+        "library": "torch.sparse_csr_tensor @ vector on the window's rows",
+    }
+
+
+def _reset_counts():
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.solvers import dia_cg
+
+    mv.dia_combined_matvec.launches = 0
+    dia_cg.dia_cg_solve.launches = 0
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _rank_counts(summary=None) -> dict:
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.solvers import dia_cg
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    out = {"row_window_launches": mv.dia_combined_matvec.launches,
+           "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+    if summary is not None:
+        out.update({k: summary[k] for k in ("k_solves", "k_iterations", "replica_checks",
+                                            "held_bytes")})
+    return out
+
+
+def _sharded_drive(mesh, workdir, deck=DECK, **options):
+    """The driver on this rank of ``mesh``, the counts set to 0 just before and
+    read just after; rank 0 adds the run's record (``runtime/golden.py``)."""
+    from akmc_tpu_torch.runtime import driver, golden
+
+    if mesh.rank == 0:
+        shutil.rmtree(workdir, ignore_errors=True)
+    mesh.barrier()
+    _reset_counts()
+    t0 = time.perf_counter()
+    summary = driver.run_on_mesh(mesh, deck, workdir=workdir, log=False, **options)
+    counts = _rank_counts(summary)
+    out = {"wall_s": time.perf_counter() - t0, **counts}
+    if mesh.rank == 0:
+        out["record"] = golden.summarize(workdir)
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            out["rows"] = [json.loads(ln) for ln in f if ln.strip()]
+        with open(os.path.join(workdir, "output1_0.txt")) as f:
+            out["mesh_lines"] = [ln.strip() for ln in f if ln.startswith(
+                ("Mesh padding:", "Device mesh:", "Concern groups:"))]
+    return out
+
+
+def _sharded_batched(mesh):
+    """Item 3: the production event path at 409,600 slots on this rank."""
+    from akmc_tpu_torch.models.crossbar import build_grid_crossbar
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops.events import GeneratorDraws
+    from akmc_tpu_torch.parallel.mesh import check_replicas, replicate_state, shard_model
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = build_grid_crossbar(n_yz=SHARDED_BATCHED_N_YZ, contact_slices=10, oxide_slices=22,
+                                 ti_slices=8, defect_fraction=0.1, vacancy_concentration=0.05,
+                                 seed=0)
+    dev = mesh.device if mesh is not None else (
+        torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available()
+        else torch.device("cpu"))
+    _reset_counts()
+    model = VCMModel(p, lat, device=dev, rate_normalize=True)
+    state = make_device_state(lat, p.background_temp, dev)
+    if mesh is not None:
+        shard_model(model, mesh)
+        state = replicate_state(state, mesh)
+    draws = GeneratorDraws.seeded(7, dev)
+    stats, pb_prev2 = [], None
+    t0 = time.perf_counter()
+    for _ in range(SHARDED_BATCHED_STEPS):
+        pb = state.potential_boundary
+        state, st = model.superstep_native_batched(state, CROSSBAR_VD, draws, batch=64,
+                                                   mass_eps=1e-3, pb_prev2=pb_prev2)
+        pb_prev2 = pb
+        check_replicas(state, mesh)
+        stats.append({k: st[k] for k in ("n_events", "n_batches", "cg_iterations",
+                                         "n_cut_conflict", "n_cut_mass")})
+    counts = _rank_counts()
+    out = {"wall_s": time.perf_counter() - t0, "stats": stats, "describe": model.describe(),
+           "kmc_time": float(state.kmc_time), **counts,
+           "k_solves": model.k_solves, "k_iterations": model.k_iterations,
+           "held_bytes": model.held_bytes()}
+    if mesh is None or mesh.rank == 0:
+        out["element"] = state.element.cpu().numpy()
+        out["charge"] = state.charge.cpu().numpy()
+    return out
+
+
+def _concern_fields(mesh, ratio):
+    """Item 5's fields: ``ConcernGroups.fields`` on the sweep's first state at
+    the deck's first bias, and (rank 0) the sequential ``_fields`` of a second,
+    unsharded model on the same state."""
+    from akmc_tpu_torch.parallel.mesh import ConcernGroups
+
+    model, state = full_model(DECK, mesh.device, pair_table_budget=8e9)
+    Vd = float(model.params.V_switch[0])
+    groups = ConcernGroups(model, mesh, ratio=ratio)
+    charge, pot_b, pot_sum, cg, *_ = groups.fields(
+        state.element, state.charge, state.potential_boundary, state.T_bg, Vd)
+    out = {"groups": [groups.mesh_k.ranks, groups.mesh_pair.ranks]}
+    if mesh.rank == 0:
+        ref, _ = full_model(DECK, mesh.device, pair_table_budget=8e9)
+        fr = ref._fields_grown(state, Vd)
+        out.update(
+            charge_equal=bool(torch.equal(charge, fr.charge)),
+            pot_b_equal=bool(torch.equal(pot_b, fr.potential_boundary)),
+            pot_sum_equal=bool(torch.equal(pot_sum, fr.potential_sum)),
+            cg=(cg, fr.cg_iterations),
+            pot_sum_max_abs_diff=float((pot_sum - fr.potential_sum).abs().max()),
+        )
+        del ref
+    del model
+    return out
+
+
+def _harness(mesh, klass):
+    from akmc_tpu_torch.solvers import cg_harness
+
+    if klass == "K":
+        return cg_harness._solve(mesh, None, HARNESS_K_N, 1e8, 1e-14)
+    return cg_harness._solve(mesh, None, HARNESS_T_N, 1e8, HARNESS_T_RTOL_COEFF,
+                             n_sub=HARNESS_T_SUB, more_rtol=(1e-14,))
+
+
+def sharded_rank(mesh, parts):
+    """What each rank of the sharded phase runs, part by part: {part: this
+    rank's readings}. Every rank runs the same parts in the same order."""
+    import_port()
+    out = {}
+    for name, kw in parts:
+        t0 = time.perf_counter()
+        if name.startswith("sweep") or name.startswith("concern_run") or name in (
+                "full", "synth"):
+            out[name] = _sharded_drive(mesh, **kw)
+        elif name == "batched":
+            out[name] = _sharded_batched(mesh)
+        elif name.startswith("concern_fields"):
+            out[name] = _concern_fields(mesh, **kw)
+        elif name.startswith("harness"):
+            out[name] = _harness(mesh, **kw)
+        else:
+            raise ValueError(name)
+        out[name]["part_s"] = time.perf_counter() - t0
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def _strip_rows(rows):
+    """Metrics rows without their host times."""
+    return [{k: v for k, v in r.items() if k != "superstep_s"} for r in rows]
+
+
+def _share_ok(per_rank: list, total: int, ranks: int) -> bool:
+    return max(per_rank) <= SHARE_SLACK * total / ranks + 4096
+
+
+def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
+    """(sharded line, what is wrong with it or None). By default the ranks
+    share this card over gloo and every part runs. With ``device="cuda"`` and
+    ``backend="nccl"`` (``--only nccl``: a card per rank, on a machine with
+    several cards) only the sweep and the batched path run, on 2 and on 4
+    ranks as far as there are cards, under the same checks; its times are the
+    port's only readings on several cards. ``sweep_rows`` and ``sweep_held``
+    are the sweep phase's metrics rows and held bytes, or None."""
+    from akmc_tpu_torch.lattice import ELEM, metal_mask
+    from akmc_tpu_torch.models.crossbar import build_grid_crossbar, grid_dia_k
+    from akmc_tpu_torch.parallel.launch import spawn
+    from akmc_tpu_torch.runtime import golden, synth_deck
+    from akmc_tpu_torch.solvers import cg_harness
+
+    nccl = backend == "nccl"
+    cards = torch.cuda.device_count()
+    if nccl and cards < 2:
+        fail("the nccl phase needs at least two cards")
+    problems, line = [], {"backend": backend, "cards": cards if nccl else 1}
+    os.makedirs(SHARDED_DIR, exist_ok=True)
+
+    dia24, meta24, _, _ = crossbar_dia(N_YZ)
+    if not nccl:
+        # 1. the row-window kernel against its twin
+        pb, latb = build_grid_crossbar(n_yz=SHARDED_BATCHED_N_YZ, contact_slices=10,
+                                       oxide_slices=22, ti_slices=8, defect_fraction=0.1,
+                                       vacancy_concentration=0.05, seed=0)
+        n_yz_g, nx_g, a_g = latb.grid
+        diab, metab = grid_dia_k(n_yz_g, nx_g, a_g, pb.nn_dist,
+                                 metal_mask(latb.element0, pb.metals),
+                                 pb.num_atoms_first_layer, pb.high_G, pb.low_G,
+                                 np.stack([latb.x, latb.y, latb.z], 1),
+                                 null_mask=latb.element0 == int(ELEM.NULL_ELEMENT))
+        del latb
+        line["row_window"] = check_row_window(dev, [
+            ("n_yz=24 crossbar", dia24.diags.to(dev), dia24.offsets.to(dev), meta24.val_low,
+             meta24.val_high, (2, 4)),
+            ("n_yz=64 crossbar", diab.diags.to(dev), diab.offsets.to(dev), metab.val_low,
+             metab.val_high, (4,)),
+        ])
+        del diab
+
+    # one-rank references
+    refs = {}
+    t0 = time.perf_counter()
+    if sweep_rows is None:
+        shutil.rmtree(WORKDIR, ignore_errors=True)
+        s_one, sweep_rows, _ = drive(DECK, os.path.join(SHARDED_DIR, "one_sweep"),
+                                     synthesize_crossbar=N_YZ)
+        sweep_held = s_one["held_bytes"]
+    refs["sweep"] = golden.summarize(
+        WORKDIR if os.path.isdir(WORKDIR) else os.path.join(SHARDED_DIR, "one_sweep"))
+    refs["sweep_rows"] = sweep_rows
+    refs["batched"] = _sharded_batched(None)
+    if not nccl:
+        synth = synth_deck.write_synth_deck(DECK, os.path.join(SHARDED_DIR, "synth"), N_YZ)
+        s_full, refs["full_rows"], _ = drive(DECK, os.path.join(SHARDED_DIR, "one_full"),
+                                             synthesize_crossbar=N_YZ, committed_parity=False,
+                                             max_supersteps=SHARDED_FULL_STEPS)
+        refs["full_held"] = s_full["held_bytes"]
+        _, refs["synth_rows"], _ = drive(synth, os.path.join(SHARDED_DIR, "one_synth"),
+                                         max_supersteps=SHARDED_SYNTH_STEPS)
+        refs["synth"] = golden.summarize(os.path.join(SHARDED_DIR, "one_synth"))
+        refs["full"] = golden.summarize(os.path.join(SHARDED_DIR, "one_full"))
+        refs["harness_K"] = cg_harness._solve(None, dev, HARNESS_K_N, 1e8, 1e-14)
+        refs["harness_T"] = cg_harness._solve(None, dev, HARNESS_T_N, 1e8, HARNESS_T_RTOL_COEFF,
+                                              n_sub=HARNESS_T_SUB, more_rtol=(1e-14,))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    line["references_s"] = time.perf_counter() - t0
+
+    def sweep_part(size):
+        return (f"sweep_{size}", {"workdir": os.path.join(SHARDED_DIR, f"sweep_{size}"),
+                                  "synthesize_crossbar": N_YZ})
+
+    def concern_part(ratio):
+        tag = f"{ratio[0]}to{ratio[1]}"
+        return [(f"concern_run_{tag}", {"workdir": os.path.join(SHARDED_DIR, f"concern_{tag}"),
+                                         "synthesize_crossbar": N_YZ,
+                                         "max_supersteps": SHARDED_CONCERN_STEPS,
+                                         "concern_split": ratio}),
+                (f"concern_fields_{tag}", {"ratio": ratio})]
+
+    if nccl:
+        plans = {size: [sweep_part(size), ("batched", {})] for size in (2, 4) if size <= cards}
+    else:
+        plans = {
+            2: [sweep_part(2), *concern_part((1, 1))],
+            4: [sweep_part(4),
+                ("batched", {}),
+                ("full", {"workdir": os.path.join(SHARDED_DIR, "full_4"),
+                          "synthesize_crossbar": N_YZ, "committed_parity": False,
+                          "max_supersteps": SHARDED_FULL_STEPS}),
+                ("synth", {"workdir": os.path.join(SHARDED_DIR, "synth_4"), "deck": synth,
+                           "max_supersteps": SHARDED_SYNTH_STEPS}),
+                *concern_part((1, 3)),
+                ("harness_K", {"klass": "K"}), ("harness_T", {"klass": "T"})],
+        }
+    results = {}
+    for size, parts in plans.items():
+        t0 = time.perf_counter()
+        results[size] = spawn(sharded_rank, size, device or str(dev), backend, parts,
+                              timeout=900)
+        line[f"spawn_{size}_s"] = time.perf_counter() - t0
+
+    strip = _strip_rows
+    with open(GOLDEN) as f:
+        gold = json.load(f)
+    for size, per_rank in results.items():
+        r0 = per_rank[0]
+        # 2. the sweep
+        sw = r0[f"sweep_{size}"]
+        if strip(sw["rows"]) != strip(refs["sweep_rows"]):
+            problems.append(f"the {size}-rank sweep's metrics differ from the one-rank sweep's")
+        bad = golden.compare(gold, sw["record"], GOLDEN_KMC_RTOL)
+        if bad:
+            problems.append(f"the {size}-rank sweep disagrees with the golden: {bad[:3]}")
+        if sw["record"]["final_elements"] != refs["sweep"]["final_elements"]:
+            problems.append(f"the {size}-rank sweep's final elements differ from one rank's")
+        for rk, got in enumerate(per_rank):
+            s = got[f"sweep_{size}"]
+            if s["row_window_launches"] != s["k_iterations"] + s["k_solves"]:
+                problems.append(f"rank {rk} of {size} launched the row window "
+                                f"{s['row_window_launches']} times for {s['k_solves']} K solves "
+                                f"of {s['k_iterations']} iterations")
+            if s["row_window_launches"] == 0 or s["dia_cg_launches"]:
+                problems.append(f"rank {rk} of {size}: row window {s['row_window_launches']}, "
+                                f"fused CG {s['dia_cg_launches']} launches")
+            if s["replica_checks"] != len(sw["rows"]):
+                problems.append(f"rank {rk} of {size} checked its state after "
+                                f"{s['replica_checks']} of {len(sw['rows'])} supersteps")
+        held = [got[f"sweep_{size}"]["held_bytes"] for got in per_rank]
+        for name, total in (("pair_table", sweep_held["pair_table"]),
+                            ("dia_codes", dia24.diags.numel())):
+            per = [h[name] for h in held]
+            if not _share_ok(per, total, size):
+                problems.append(f"{size} ranks hold {per} bytes of {name} of {total}")
+        steps_s = sum(r["superstep_s"] for r in sw["rows"])
+        cg_its = sum(r["cg_iterations"] for r in sw["rows"])
+        line[f"sweep_{size}"] = {
+            "supersteps": len(sw["rows"]), "wall_s": sw["wall_s"],
+            "superstep_s": [r["superstep_s"] for r in sw["rows"]],
+            "one_rank_superstep_s": [r["superstep_s"] for r in refs["sweep_rows"]],
+            "supersteps_s": steps_s,
+            "one_rank_supersteps_s": sum(r["superstep_s"] for r in refs["sweep_rows"]),
+            "cg_iterations": cg_its, "ms_per_cg_iteration": 1e3 * steps_s / max(1, cg_its),
+            "kmc_time_max_rel_vs_golden": golden.distance(gold, sw["record"])["kmc_time_max_rel"],
+            "row_window_launches": [g[f"sweep_{size}"]["row_window_launches"] for g in per_rank],
+            "k_solves": [g[f"sweep_{size}"]["k_solves"] for g in per_rank],
+            "k_iterations": [g[f"sweep_{size}"]["k_iterations"] for g in per_rank],
+            "replica_checks": [g[f"sweep_{size}"]["replica_checks"] for g in per_rank],
+            "held_bytes": held, "peak_mem_gb": [g[f"sweep_{size}"]["peak_mem_gb"]
+                                                for g in per_rank],
+            "mesh_lines": sw["mesh_lines"],
+        }
+        # 3. the production event path at 409,600 slots
+        if "batched" in r0:
+            bt, one = r0["batched"], refs["batched"]
+            if not (np.array_equal(bt["element"], one["element"])
+                    and np.array_equal(bt["charge"], one["charge"])
+                    and bt["stats"] == one["stats"]):
+                problems.append(f"the {size}-rank batched path differs from one rank's: "
+                                f"{bt['stats']} / {one['stats']}")
+            for rk, got in enumerate(per_rank):
+                b = got["batched"]
+                if b["row_window_launches"] != b["k_iterations"] + b["k_solves"]:
+                    problems.append(f"rank {rk} of {size}: batched row-window launches "
+                                    f"{b['row_window_launches']} != {b['k_iterations']} + "
+                                    f"{b['k_solves']}")
+            line[f"batched_{size}"] = {
+                "stats": bt["stats"], "wall_s": bt["wall_s"], "one_rank_wall_s": one["wall_s"],
+                "kmc_time": bt["kmc_time"], "describe": bt["describe"],
+                "peak_mem_gb": [g["batched"]["peak_mem_gb"] for g in per_rank],
+                "one_rank_peak_mem_gb": one["peak_mem_gb"],
+                "held_bytes": [g["batched"]["held_bytes"] for g in per_rank],
+                "one_rank_held_bytes": one["held_bytes"],
+            }
+        # 5. concern groups
+        for ratio in () if nccl else ((1, 1),) if size == 2 else ((1, 3),):
+            tag = f"{ratio[0]}to{ratio[1]}"
+            run_ = r0[f"concern_run_{tag}"]
+            want = strip(refs["sweep_rows"][:SHARDED_CONCERN_STEPS])
+            if strip(run_["rows"]) != want:
+                problems.append(f"concern groups {tag}: supersteps differ from the sequential")
+            fl = r0[f"concern_fields_{tag}"]
+            if not (fl["charge_equal"] and fl["pot_b_equal"] and fl["pot_sum_equal"]
+                    and fl["cg"][0] == fl["cg"][1]):
+                problems.append(f"concern groups {tag}: fields differ from _fields: {fl}")
+            line[f"concern_{tag}"] = {
+                "groups": fl["groups"], "supersteps": len(run_["rows"]),
+                "superstep_s": [r["superstep_s"] for r in run_["rows"]],
+                "fields_bit_equal": fl["charge_equal"] and fl["pot_b_equal"]
+                and fl["pot_sum_equal"], "mesh_lines": run_["mesh_lines"],
+                "k_solves_per_rank": [g[f"concern_run_{tag}"]["k_solves"] for g in per_rank],
+            }
+    if nccl:
+        return line, "; ".join(problems) or None
+
+    per_rank = results[4]
+    r0 = per_rank[0]
+    # 4. full physics: against one rank, events, elements and power-CG counts
+    # exact, KMC times, P_tot, I_macro and T_bg within the sharded bounds; and
+    # against the golden's first supersteps within the full phase's bounds
+    fu = r0["full"]
+    pairs = list(zip(refs["full_rows"], fu["rows"]))
+    bad = golden.compare(refs["full"], fu["record"], SHARDED_KMC_RTOL,
+                         power_rtol=SHARDED_P_TOT_RTOL)
+    bad += [f"superstep {i}: I_macro {b['I_macro']!r} against one rank's {a['I_macro']!r}"
+            for i, (a, b) in enumerate(pairs)
+            if not abs(a["I_macro"] - b["I_macro"]) <= SHARDED_I_MACRO_ATOL]
+    bad += [f"superstep {i}: T_bg {b['T_bg']!r} against one rank's {a['T_bg']!r}"
+            for i, (a, b) in enumerate(pairs)
+            if not _rel(b["T_bg"], a["T_bg"]) <= SHARDED_T_BG_RTOL]
+    bad += [f"superstep {i}: {b['power_cg_iterations']} power-CG iterations, one rank "
+            f"{a['power_cg_iterations']}" for i, (a, b) in enumerate(pairs)
+            if a["power_cg_iterations"] != b["power_cg_iterations"]]
+    with open(FULL_GOLDEN) as f:
+        fgold = json.load(f)
+    fgold = {"supersteps": fgold["supersteps"][:len(fu["rows"])],
+             "final_elements": refs["full"]["final_elements"]}
+    bad_g = golden.compare(fgold, fu["record"], GOLDEN_KMC_RTOL, power_rtol=FULL_POWER_RTOL)
+    I_gold = max_abs_current(fgold, fu["record"])
+    if I_gold > FULL_CURRENT_ATOL:
+        bad_g.append(f"I_macro {I_gold:.3e} A from the golden, beyond {FULL_CURRENT_ATOL:.1e} A")
+    if bad or bad_g:
+        problems.append(f"4-rank full physics: against one rank {bad[:3]}, against the golden "
+                        f"{bad_g[:3]}")
+    w_per = [sum(g["full"]["held_bytes"].get(k, 0) for k in ("W_tt", "W_ct", "W_cc"))
+             for g in per_rank]
+    line["full_4"] = {
+        "supersteps": len(fu["rows"]), "superstep_s": [r["superstep_s"] for r in fu["rows"]],
+        "one_rank_superstep_s": [r["superstep_s"] for r in refs["full_rows"]],
+        "I_macro": [r["I_macro"] for r in fu["rows"]],
+        "one_rank_I_macro": [r["I_macro"] for r in refs["full_rows"]],
+        "kmc_time_max_rel": max(_rel(b["kmc_time"], a["kmc_time"]) for a, b in pairs),
+        "W_bytes_per_rank": w_per,
+        "I_macro_max_abs_diff": max(abs(a["I_macro"] - b["I_macro"]) for a, b in pairs),
+        "I_macro_max_rel_diff": max(_rel(b["I_macro"], a["I_macro"]) for a, b in pairs),
+        "P_tot_max_rel_diff": max(_rel(b["P_tot"], a["P_tot"]) for a, b in pairs),
+        "I_macro_max_abs_vs_golden": I_gold,
+        "rows_bit_equal": _strip_rows(fu["rows"]) == _strip_rows(refs["full_rows"]),
+        "power_cg_iterations": [r["power_cg_iterations"] for r in fu["rows"]],
+        "one_rank_power_cg_iterations": [r["power_cg_iterations"] for r in refs["full_rows"]],
+        "bounds": {"I_macro_atol": SHARDED_I_MACRO_ATOL, "P_tot_rtol": SHARDED_P_TOT_RTOL,
+                   "kmc_rtol": SHARDED_KMC_RTOL, "T_bg_rtol": SHARDED_T_BG_RTOL},
+    }
+    # the disordered stand-in: against one rank, events, elements and CG counts
+    # exact and KMC times within SHARDED_SYNTH_KMC_RTOL; against its golden
+    # within the disordered phase's bounds
+    sy = r0["synth"]
+    bad = golden.compare(refs["synth"], sy["record"], SHARDED_SYNTH_KMC_RTOL)
+    bad += [f"superstep {i}: {b['cg_iterations']} CG iterations, one rank {a['cg_iterations']}"
+            for i, (a, b) in enumerate(zip(refs["synth_rows"], sy["rows"]))
+            if a["cg_iterations"] != b["cg_iterations"]]
+    with open(SYNTH_GOLDEN) as f:
+        sgold = json.load(f)["supersteps"][:len(sy["rows"])]
+    for i, (g, h) in enumerate(zip(sgold, sy["rows"])):
+        rtol = SYNTH_KMC_RTOL_SAME_STOP if g["cg_iterations"] == h["cg_iterations"] else (
+            SYNTH_KMC_RTOL)
+        if g["n_events"] != h["n_events"] or _rel(h["kmc_time"], g["kmc_time"]) > rtol:
+            bad.append(f"superstep {i}: (events, kmc_time) ({h['n_events']}, {h['kmc_time']}) "
+                       f"against the golden's ({g['n_events']}, {g['kmc_time']}), rtol {rtol}")
+    if bad:
+        problems.append(f"4-rank disordered stand-in: {bad[:3]}")
+    line["synth_4"] = {
+        "supersteps": len(sy["rows"]), "superstep_s": [r["superstep_s"] for r in sy["rows"]],
+        "cg_iterations": [r["cg_iterations"] for r in sy["rows"]],
+        "one_rank_cg_iterations": [r["cg_iterations"] for r in refs["synth_rows"]],
+        "golden_cg_iterations": [g["cg_iterations"] for g in sgold],
+        "rows_bit_equal": _strip_rows(sy["rows"]) == _strip_rows(refs["synth_rows"]),
+        "kmc_time_max_rel": golden.distance(refs["synth"], sy["record"])["kmc_time_max_rel"],
+        "kmc_rtol": SHARDED_SYNTH_KMC_RTOL,
+        "band_bytes_per_rank": [g["synth"]["held_bytes"].get("band_blocks") for g in per_rank],
+        "pair_table_bytes_per_rank": [g["synth"]["held_bytes"].get("pair_table")
+                                      for g in per_rank],
+    }
+    for name, per in (("W blocks", w_per),
+                      ("band blocks", line["synth_4"]["band_bytes_per_rank"])):
+        if None in per or not _share_ok(per, sum(per), 4):
+            problems.append(f"4 ranks hold {per} bytes of the {name}")
+    one_w = sum(refs["full_held"].get(k, 0) for k in ("W_tt", "W_ct", "W_cc"))
+    line["full_4"]["one_rank_W_bytes"] = one_w
+    if not max(w_per) <= SHARE_SLACK * one_w / 4 + 4096:
+        problems.append(f"a rank holds {max(w_per)} W bytes, one rank {one_w}")
+    # 6. the CG harness
+    for klass in ("K", "T"):
+        got, one = r0[f"harness_{klass}"], refs[f"harness_{klass}"]
+        if not (got["rel_l2_error"] < HARNESS_RTOL and one["rel_l2_error"] < HARNESS_RTOL
+                and abs(got["iterations"] - one["iterations"]) <= HARNESS_ITER_SLACK):
+            problems.append(f"cg_harness {klass}-class: 4 ranks {got}, one rank {one}")
+        line[f"harness_{klass}"] = {"one_rank": one, "ranks_4": got}
+    return line, "; ".join(problems) or None
+
+
+PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver", "sharded")
+OPT_IN = ("nccl",)          # run only when --only names them: they need several cards
 
 
 def main(argv=None) -> int:
@@ -2238,8 +2871,8 @@ def main(argv=None) -> int:
                          "and 1,081,600 slots), the first at full depth")
     args = ap.parse_args(argv)
     phases = args.only.split(",")
-    if set(phases) - set(PHASES):
-        fail(f"--only takes phases of {PHASES}")
+    if set(phases) - set(PHASES) - set(OPT_IN):
+        fail(f"--only takes phases of {PHASES + OPT_IN}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the card")
     import_port()
@@ -2259,11 +2892,12 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         dia, meta, p, lat = crossbar_dia(N_YZ)
         kernels = [check_dia_kernel(dev, dia, meta), check_dia_cg(dev, dia, meta, p, lat)]
-    sweep_rows = []
+    sweep_rows, sweep_held = [], {}
 
     def sweep():
         line, problem = run_sweep()
         sweep_rows.extend(line.pop("rows"))
+        sweep_held.update(line["held_bytes"])
         return line, problem
 
     for name, run in (("sweep", sweep), ("disordered", lambda: run_disordered(dev)),
@@ -2272,7 +2906,10 @@ def main(argv=None) -> int:
                           dev, [int(n) for n in args.crossbar_n_yz.split(",")],
                           sweep_rows or None)),
                       ("full", lambda: run_full(dev)),
-                      ("driver", lambda: run_driver(dev, sweep_rows or None))):
+                      ("driver", lambda: run_driver(dev, sweep_rows or None)),
+                      ("sharded", lambda: run_sharded(dev, sweep_rows or None, sweep_held)),
+                      ("nccl", lambda: run_sharded(dev, sweep_rows or None, sweep_held,
+                                                   device="cuda", backend="nccl"))):
         if name in phases:
             t0 = time.perf_counter()
             lines[name], problem = run()
@@ -2294,6 +2931,15 @@ def main(argv=None) -> int:
                 path: n[key] for path, n in lines["driver"]["launches"].items()}
         if "disordered" in lines:
             kern["launches_disordered_path"] = 0      # asserted: no DIA form there
+        if "sharded" in lines:
+            # the sharded K-CG runs the row window on every rank and the fused
+            # CG on none (asserted): launches per rank of each sharded sweep
+            sh = lines["sharded"]
+            kern["launches_sharded_path"] = {
+                f"sweep_{n}_ranks": (sh[f"sweep_{n}"]["row_window_launches"]
+                                     if key == "dia_launches" else [0] * n) for n in (2, 4)}
+            if key == "dia_launches":
+                kern["row_window"] = sh["row_window"]
         # the crossbar path: the same keys once more, read at its shapes (the
         # fused CG's general kernel there) and counted over its supersteps
         for name, line in lines.get("batched", {}).items():

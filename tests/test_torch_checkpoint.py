@@ -340,7 +340,7 @@ def test_command_line_flags(tmp_path, capsys):
     tdriver.main(common + ["--workdir", str(tmp_path / "w"), "--module-timing",
                            "--resume-from", str(tmp_path / "w" / "checkpoint.npz")])
     assert [r["step"] for r in _rows(tmp_path / "w")] == [1, 2, 3, 4]
-    # what is still to port keeps its refusal
-    for flags in (["--devices", "2"], ["--concern-split", "1:3"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdriver.main(common + ["--workdir", str(tmp_path / "x")] + flags)
+    # the scale-out options are ported; together they are refused, as in akmc_tpu
+    with pytest.raises(ValueError, match="exclusive"):
+        tdriver.main(common + ["--workdir", str(tmp_path / "x"), "--devices", "2",
+                               "--concern-split", "1:3"])

@@ -420,3 +420,79 @@ def test_wkb_blocks_card_match_cpu(card, f32):
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-6, atol=1e-7 * scale)
         else:
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-12, atol=1e-12 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 3, 4])
+def test_row_window_kernel_matches_twin(card, ranks):
+    """Each rank's row window of the matvec (its own slab of codes, x and xv
+    whole): bit-equal to the window twin and to the full twin's rows, at
+    chunk-aligned ranges with a ragged last one and at a window that starts
+    mid-chunk (byte loads of the codes)."""
+    from akmc_tpu_torch.parallel.mesh import Mesh
+    from akmc_tpu_torch.solvers.dia_cg import CHUNK
+
+    rng = np.random.default_rng(ranks)
+    for name, diags, offsets, lo, hi in _cases():
+        n = diags.shape[1]
+        x = torch.tensor(rng.standard_normal(n) * np.exp(rng.standard_normal(n)))
+        xv = torch.tensor(rng.standard_normal(n) * (rng.random(n) < 0.3))
+        yf, vf = mv.dia_combined_matvec_plain(diags, offsets.tolist(), lo, hi, x, xv)
+        ranges = Mesh(0, ranks, card, "gloo").split(n, CHUNK) + [(5, n - 3)]
+        for r0, r1 in ranges:
+            slab = diags[:, r0:r1].clone()
+            before = mv.dia_combined_matvec.launches
+            op = mv.DiaOperator(slab.to(card), offsets.to(card), lo, hi, row0=r0, n=n)
+            y1, v1 = op.matvec(x.to(card), xv.to(card))
+            torch.cuda.synchronize()
+            assert mv.dia_combined_matvec.launches == before + 1
+            y0, v0 = mv.dia_combined_matvec_plain(slab, offsets.tolist(), lo, hi, x, xv, row0=r0)
+            assert torch.equal(y1.cpu(), y0) and torch.equal(v1.cpu(), v0), (name, r0, r1)
+            assert torch.equal(y0, yf[r0:r1]) and torch.equal(v0, vf[r0:r1]), (name, r0, r1)
+
+
+def _sharded_superstep_rank(mesh):
+    """Three supersteps of the n_yz=6 crossbar on this rank (the card, ranks
+    sharing it over gloo); rank 0's state and every rank's launch counts."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.parallel.mesh import check_replicas, replicate_state, shard_model
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = build_grid_crossbar(n_yz=6, contact_slices=2, oxide_slices=6, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    model = VCMModel(p, lat, device=mesh.device)
+    state = make_device_state(lat, p.background_temp, mesh.device)
+    shard_model(model, mesh)
+    state = replicate_state(state, mesh)
+    stream = BufferedStream(ReferenceRNG(1))
+    mv.dia_combined_matvec.launches = 0
+    for _ in range(3):
+        state, _ = model.superstep(state, 2.0, stream)
+        check_replicas(state, mesh)
+    torch.cuda.synchronize()
+    return (state.potential_charge.cpu(), float(state.kmc_time), mv.dia_combined_matvec.launches,
+            model.k_solves + model.k_iterations)
+
+
+@pytest.mark.cuda
+def test_sharded_superstep_on_one_card_matches_one_rank(card):
+    """Four ranks sharing the card (gloo, collectives staged through the host)
+    give the one-rank supersteps bit for bit; each rank launched the row
+    window once per K-CG iteration and once per solve."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.parallel.launch import spawn
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = build_grid_crossbar(n_yz=6, contact_slices=2, oxide_slices=6, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    model = VCMModel(p, lat, device=card)
+    state = make_device_state(lat, p.background_temp, card)
+    stream = BufferedStream(ReferenceRNG(1))
+    for _ in range(3):
+        state, _ = model.superstep(state, 2.0, stream)
+    outs = spawn(_sharded_superstep_rank, 4, "cuda:0", "gloo", timeout=300)
+    assert torch.equal(outs[0][0], state.potential_charge.cpu())
+    assert outs[0][1] == float(state.kmc_time)
+    assert all(o[2] == o[3] for o in outs)

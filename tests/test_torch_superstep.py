@@ -128,12 +128,11 @@ def test_driver_sweep_matches(tmp_path):
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every option of akmc_tpu's driver is ported; what it refuses the port
+    # refuses too: --devices with --concern-split, and an unknown option
+    with pytest.raises(ValueError, match="exclusive"):
         tdriver.run(DECK, workdir=str(tmp_path), synthesize_crossbar=6, device="cpu",
-                    concern_split=(1, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.run(DECK, workdir=str(tmp_path), synthesize_crossbar=6, device="cpu",
-                    devices=2)
+                    concern_split=(1, 3), devices=2)
     with pytest.raises(TypeError):
         tdriver.run(DECK, workdir=str(tmp_path), device="cpu", no_such_option=1)
     assert torch.get_default_dtype() == torch.float32   # the port never changes it
