@@ -80,7 +80,7 @@ def state(s, device="cpu") -> DeviceState:
 
 
 def dia(d, meta, device="cpu"):
-    """(DiaK, DiaMeta) from akmc_tpu's DiaK NamedTuple and DiaMeta."""
+    """(DiaK, DiaMeta) out of akmc_tpu's DiaK NamedTuple and DiaMeta."""
     dk, dm = make_dia(
         np.asarray(d.diags), np.asarray(d.deg_static), np.asarray(d.lsum),
         np.asarray(d.rsum), np.asarray(d.pos), np.asarray(d.active_row),
@@ -90,13 +90,13 @@ def dia(d, meta, device="cpu"):
 
 
 def banded(bk, meta, device="cpu"):
-    """(BandedK, BandMeta) from akmc_tpu's BandedK NamedTuple and BandMeta."""
+    """(BandedK, BandMeta) out of akmc_tpu's BandedK NamedTuple and BandMeta."""
     out = BandedK(**{name: tensor(getattr(bk, name), device) for name in bk._fields})
     return out, BandMeta(*meta)
 
 
 def k_carry(c, device="cpu") -> KCarry:
-    """KCarry from akmc_tpu's (the residual of a previous banded solve)."""
+    """KCarry out of akmc_tpu's (the residual of a previous banded solve)."""
     return KCarry(*(tensor(a, device) for a in c))
 
 
@@ -105,7 +105,7 @@ def pair_tiling(t, device="cpu") -> PairTiling:
 
 
 def tables(t, device="cpu") -> StaticTables:
-    """StaticTables from akmc_tpu's (full-f64 pair table storage, or none)."""
+    """StaticTables out of akmc_tpu's (full-f64 pair table storage, or none)."""
     if t.pair_gT is not None and t.pair_gT.full is None:
         raise ValueError("only the full-f64 static pair table carries across")
     return StaticTables(
@@ -131,7 +131,7 @@ def tables(t, device="cpu") -> StaticTables:
 
 
 def current_tables(ct, device="cpu") -> CurrentTables:
-    """CurrentTables from akmc_tpu's (the atom tables of the current solver)."""
+    """CurrentTables out of akmc_tpu's (the atom tables of the current solver)."""
     return CurrentTables(**{
         name: tensor(getattr(ct, name), device) if name not in ("n_inj", "n_ext")
         else int(getattr(ct, name))
@@ -140,7 +140,7 @@ def current_tables(ct, device="cpu") -> CurrentTables:
 
 
 def power_system(ps, device="cpu") -> PowerSystem:
-    """PowerSystem from akmc_tpu's (one superstep's transmission-system pieces;
+    """PowerSystem out of akmc_tpu's (one superstep's transmission-system pieces;
     the W blocks keep their type, f32 under ``wkb_f32``)."""
     return PowerSystem(
         G_nbr=tensor(ps.G_nbr, device), vac_idx=tensor(ps.vac_idx, device),
@@ -151,7 +151,7 @@ def power_system(ps, device="cpu") -> PowerSystem:
 
 
 def local_heat(lh, device="cpu") -> LocalHeat:
-    """LocalHeat from akmc_tpu's (the local heat model's static tables)."""
+    """LocalHeat out of akmc_tpu's (the local heat model's static tables)."""
     return LocalHeat(if_mask=tensor(lh.if_mask, device), neigh_idx=tensor(lh.neigh_idx, device),
                      deg=tensor(lh.deg, device), n_if=int(lh.n_if))
 
@@ -159,7 +159,7 @@ def local_heat(lh, device="cpu") -> LocalHeat:
 def fields(fr, device="cpu") -> FieldsResult:
     """A frozen fields state (charges, potentials, the rate table, event types,
     the log rate scale and, after a carried-residual solve, the K solve's
-    carry) from akmc_tpu's FieldsResult."""
+    carry) out of akmc_tpu's FieldsResult."""
     def flag(a):
         return torch.as_tensor(False if a is None else bool(a), device=device)
 

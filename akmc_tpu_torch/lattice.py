@@ -2,6 +2,8 @@
 
 Host-side numpy, shared by every device: positions never change during a
 simulation, so the lists are built once (reference: kmc_main.cpp:197-207).
+``build_lattice`` builds them with the k-d tree here, or on a CUDA device with
+the blocked scan of ``lattice_device.py``.
 
 Reference behavior reproduced exactly (same rules as ``akmc_tpu.lattice``):
   * element coding (utils.cpp:7-53),
@@ -17,6 +19,7 @@ iterative_solvers_gpu.cu:96-124) while the event and pairwise tables never do
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 from dataclasses import dataclass
@@ -24,6 +27,7 @@ from enum import IntEnum
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from scipy.spatial import cKDTree
 
 
@@ -376,12 +380,23 @@ def build_lattice(
     z: np.ndarray,
     params,
     cache_dir: Optional[str] = None,
+    need_cutoff_table: bool = False,
     precomputed_lists: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     grid: Optional[Tuple[int, int, float]] = None,
+    device=None,
 ) -> Lattice:
     """Construct connectivity. ``precomputed_lists``: (neigh_idx,
     k_neigh_idx) from a structure-aware generator (the grid-native crossbar
     builds them analytically — models/crossbar.py::grid_neighbor_list).
+
+    The builder follows ``device``: on a CUDA device the blocked scan of
+    ``lattice_device.py`` builds the lists (akmc_tpu's ``lattice_jax``
+    builders), elsewhere (``None``: the host) the k-d tree builders here.
+    Both keep a pair by ``site_dist < cutoff``, so the lists, and the cache
+    file, are the same whichever built them. A failure on the card raises;
+    nothing falls back to the host. ``need_cutoff_table``: akmc_tpu's
+    argument, for parity tooling (no program path asks for it): build the
+    full ``cutoff_idx``, else an (N, 0) one.
 
     ``cache_dir``: keep the lists (``neigh_idx``, ``k_neigh_idx``,
     ``cutoff_idx``) in an npz file keyed by the structure, read it when it
@@ -401,18 +416,29 @@ def build_lattice(
             k_neigh_idx = data["k_neigh_idx"]
             cutoff_idx = data["cutoff_idx"]
     else:
+        on_card = device is not None and torch.device(device).type == "cuda"
+        if on_card:
+            from akmc_tpu_torch import lattice_device
+
+            build_nn = functools.partial(lattice_device.build_neighbor_list_device, device=device)
+            build_cut = functools.partial(lattice_device.build_cutoff_list_device, device=device)
+        else:
+            build_nn, build_cut = build_neighbor_list, build_cutoff_list
         if precomputed_lists is not None:
             neigh_idx, k_neigh_idx = precomputed_lists
         else:
-            neigh_idx = build_neighbor_list(pos, params.nn_dist, params.max_num_neighbors)
+            neigh_idx = build_nn(pos, params.nn_dist, params.max_num_neighbors)
             if params.pbc:
-                k_neigh_idx = build_k_adjacency(
+                k_neigh_idx = build_nn(
                     pos, params.nn_dist, params.max_num_neighbors,
                     np.asarray(params.lattice, dtype=np.float64), True,
                 )
             else:
                 k_neigh_idx = neigh_idx      # open boundaries: same table
-        cutoff_idx = np.zeros((len(x), 0), np.int32)
+        if need_cutoff_table:
+            cutoff_idx, _ = build_cut(pos, element, params.cutoff_radius)
+        else:
+            cutoff_idx = np.zeros((len(x), 0), np.int32)
         if cache_path:
             os.makedirs(cache_dir, exist_ok=True)
             tmp = f"{cache_path}.{os.getpid()}.tmp.npz"

@@ -157,6 +157,7 @@ class VCMModel:
         wkb_f32: bool = False,
         power_rtol_scale: float = 1.0,
         k_carry_residual: bool = False,
+        event_select_incremental: bool = False,
     ):
         """``qmax``/``vmax``: static caps on the charged and vacancy counts
         (sized from the initial population; doubled on overflow).
@@ -182,9 +183,15 @@ class VCMModel:
         steps 2..k of a batch start their K-CG from the previous step's final
         residual rebased by the exact change of the matrix
         (``solve_potential_boundary_banded_carry``) instead of a fresh matvec;
-        the first step of every batch runs the fresh one."""
+        the first step of every batch runs the fresh one.
+
+        ``event_select_incremental``: the serial loop of every mt19937-stream
+        superstep carries its selection's block sums and sums again only the
+        touched blocks per event (``ops/events.py::run_event_loop``): the
+        same trajectory to the bit."""
         self.params, self.lat = params, lat
         self.k_carry_residual = bool(k_carry_residual)
+        self.event_select_incremental = bool(event_select_incremental)
         self.ne_max = int(ne_max)
         self.wkb_f32 = bool(wkb_f32)
         self.power_rtol_scale = power_rtol_scale
@@ -576,6 +583,7 @@ class VCMModel:
             element, charge, P, etype, t.act_neigh, rand_buf, self.params.freq,
             t.act_idx, t.abs2act, t.act_zero_rows,
             event_time_in=event_time_in, ln_S=ln_S,
+            incremental_select=self.event_select_incremental,
         )
         stream.advance(res.draws_used)
         return res

@@ -152,13 +152,46 @@ def _row(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, i.reshape(1)).squeeze(0)
 
 
-def _select_site(R: torch.Tensor, r_sel: torch.Tensor):
+# PyTorch's CUDA reduction lays its threads out by the number of rows it
+# reduces, and from 16 rows up that layout, and so each row's summation order,
+# no longer changes
+_MIN_BLOCK_ROWS = 16
+
+
+def _block_sums(R: torch.Tensor, blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Partial sums of R over its 256-row blocks: all of them, or the
+    ``blocks`` listed (at least _MIN_BLOCK_ROWS of them, repeats allowed).
+    Either way one row reduction of a (k, 256) matrix with k >= 16 or k the
+    whole block count, so a block's sum has the same bits whichever way it
+    is taken, on the CPU and on the card."""
+    R2 = R.reshape(-1, _BLK)
+    if blocks is not None:
+        R2 = R2.index_select(0, blocks)
+    return torch.sum(R2, dim=1)
+
+
+def _refresh_block_sums(bs: torch.Tensor, R: torch.Tensor, rows: torch.Tensor) -> None:
+    """Bring the carried block sums ``bs`` up to date, in place, after the
+    ``rows`` of R changed: only the blocks of those rows are summed again.
+    Fewer blocks than _MIN_BLOCK_ROWS in all are summed whole, as the fresh
+    selection sums them."""
+    if bs.shape[0] < _MIN_BLOCK_ROWS:
+        bs.copy_(_block_sums(R))
+        return
+    blk = torch.div(rows, _BLK, rounding_mode="floor")
+    if blk.shape[0] < _MIN_BLOCK_ROWS:
+        blk = torch.cat([blk, blk[:1].expand(_MIN_BLOCK_ROWS - blk.shape[0])])
+    bs.index_copy_(0, blk, _block_sums(R, blk))
+
+
+def _select_site(R: torch.Tensor, r_sel: torch.Tensor, bs: Optional[torch.Tensor] = None):
     """Site selection over the row sums R. With len(R) a multiple of 256 it is
-    two-level: block partial sums, cumsum over the blocks, cumsum inside the
-    selected block — searchsorted(cumsum(R), r_sel*total, right) up to the
-    reassociated partial sums; any other length takes that full-length
-    cumsum itself. Returns (site, prev_cum_below_site, total, target), all
-    0-d device tensors."""
+    two-level: block partial sums (``bs`` where the caller carries them, else
+    summed here), cumsum over the blocks, cumsum inside the selected block —
+    searchsorted(cumsum(R), r_sel*total, right) up to the reassociated
+    partial sums; any other length takes that full-length cumsum itself.
+    Returns (site, prev_cum_below_site, total, target), all 0-d device
+    tensors."""
     n = R.shape[0]
     if n % _BLK:
         cum = torch.cumsum(R, dim=0)
@@ -167,8 +200,7 @@ def _select_site(R: torch.Tensor, r_sel: torch.Tensor):
         site = torch.searchsorted(cum, target, right=True).clamp(0, n - 1)
         prev = torch.where(site > 0, torch.take(cum, (site - 1).clamp(min=0)), 0.0)
         return site, prev, total, target
-    bs = torch.sum(R.reshape(n // _BLK, _BLK), dim=1)
-    return _select_site_bs(R, bs, r_sel)
+    return _select_site_bs(R, _block_sums(R) if bs is None else bs, r_sel)
 
 
 def _select_site_bs(R: torch.Tensor, bs: torch.Tensor, r_sel: torch.Tensor):
@@ -222,14 +254,15 @@ def _touched_rows(neigh_idx, abs2act, zero_rows, site, jrow):
     return torch.cat([both, nbr])
 
 
-def _fire_event(code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel):
+def _fire_event(code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel, bs=None):
     """One event of the serial loops from the selection draw ``r_sel``: select
     (site, slot) by rate, execute it on the packed ``code`` vector (a new
     tensor), and zero every pair involving the two changed sites in ``P`` and
-    ``R`` (in place). A table with no rate left (``ok`` false) changes
+    ``R`` (in place). ``bs``: R's carried block sums, selected on and then
+    refreshed in place. A table with no rate left (``ok`` false) changes
     nothing. Returns (code, total, ok), ``total`` and ``ok`` 0-d tensors."""
     nn = P.shape[1]
-    site, prev, total, target = _select_site(R, r_sel)
+    site, prev, total, target = _select_site(R, r_sel, bs)
     rowcum = torch.cumsum(_row(P, site), dim=0)
     slot = torch.searchsorted(rowcum, target - prev, right=True).clamp(0, nn - 1)
     isel = site if act_idx is None else torch.take(act_idx, site).clamp(min=0)
@@ -254,6 +287,8 @@ def _fire_event(code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel
     new_rows = torch.where(kill & ok, 0.0, rows_P)
     P[ar] = new_rows
     R[ar] = torch.sum(new_rows, dim=1)
+    if bs is not None:
+        _refresh_block_sums(bs, R, ar)
     return code, total, ok
 
 
@@ -306,15 +341,24 @@ def run_event_loop(
     zero_rows: torch.Tensor,   # (R, 1+NN) int64 static zero-out rows {r} ∪ abs2act[neigh[r]]
     event_time_in: Optional[torch.Tensor] = None,
     ln_S: Optional[torch.Tensor] = None,
+    incremental_select: bool = False,
 ) -> EventLoopResult:
     """Residence-time loop (execute_kmc_step_mpi, kmc_events.cu:430-528).
 
     Runs until the latest single-event waiting time reaches 1/freq, or the
     rand buffer is exhausted (the caller then refills and resumes with
-    ``event_time_in`` and the returned P)."""
+    ``event_time_in`` and the returned P).
+
+    ``incremental_select``: keep the selection's block sums from loop entry
+    and, after each event, sum again only the blocks of the rows it touched
+    (``akmc_tpu``'s ``incremental_select``). The same events, state and
+    times to the bit as the fresh selection (``_block_sums``). Off when the
+    table's row count is not a multiple of 256, as in ``akmc_tpu``; a resumed
+    loop sums its blocks anew from R."""
     buf_len = rand_buf.shape[0]
     inv_freq = 1.0 / freq
     R = torch.sum(P, dim=1)
+    bs = _block_sums(R) if incremental_select and R.shape[0] % _BLK == 0 else None
     code = _pack_code(element, charge)
     if event_time_in is None:
         ev_time = torch.zeros((), dtype=P.dtype, device=P.device)
@@ -325,7 +369,7 @@ def run_event_loop(
     n_ev = 0
     while ev_h < inv_freq and cnt + 2 <= buf_len:
         code, total, ok = _fire_event(
-            code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, rand_buf[cnt]
+            code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, rand_buf[cnt], bs
         )
 
         ev_time = _waiting_time(-torch.log(rand_buf[cnt + 1]), total, ok, ln_S)

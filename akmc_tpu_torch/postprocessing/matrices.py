@@ -1,5 +1,5 @@
 """Matrix inspection and validation tooling, the counterpart of
-``akmc_tpu/postprocessing/matrices.py`` without its spy plot.
+``akmc_tpu/postprocessing/matrices.py``.
 
 Reference equivalents: dump_csr_matrix_txt (iterative_solvers_gpu.cu:538),
 check_sparse_dense_match (509-537), and the offline Python checks
@@ -79,3 +79,20 @@ def dump_matrix_txt(A, path: str) -> None:
         f.write(" ".join(map(str, csr.indptr)) + "\n")
         f.write(" ".join(map(str, csr.indices)) + "\n")
         f.write(" ".join(f"{v:.17g}" for v in csr.data) + "\n")
+
+
+def spy_plot(A, out_png: str, markersize: float = 0.1) -> str:
+    """The sparsity pattern of the scipy matrix ``A`` as a PNG, titled with
+    its nnz. Needs matplotlib (Agg backend, imported here): a host-side tool."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 6))
+    ax.spy(A.tocsr(), markersize=markersize)
+    ax.set_title(f"nnz = {A.nnz}")
+    fig.tight_layout()
+    fig.savefig(out_png, dpi=150)
+    plt.close(fig)
+    return out_png

@@ -282,7 +282,7 @@ def _run(
         t_lat = time.perf_counter()
         if mesh is not None and cache_dir and not root:
             mesh.barrier()                  # rank 0 writes the list file, the others read it
-        lat = build_lattice(element, x, y, z, p, cache_dir=cache_dir)
+        lat = build_lattice(element, x, y, z, p, cache_dir=cache_dir, device=device)
         if mesh is not None and cache_dir and root:
             mesh.barrier()
         lattice_s = time.perf_counter() - t_lat

@@ -106,7 +106,7 @@ def potential_distance(golden: dict, got: dict) -> dict:
 
 
 def modes_record(fields_golden: str, fields_other: str, events: str) -> dict:
-    """The golden of the two deck modes from akmc_tpu's three workdirs (see
+    """The golden of the two deck modes out of akmc_tpu's three workdirs (see
     the module docstring), with the fields-only sweep's spread between its
     two matvecs: CG counts per pass and potentials."""
     fo, fo_other = summarize(fields_golden), summarize(fields_other)

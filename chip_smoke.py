@@ -52,6 +52,11 @@ line is printed):
            within BANDED_ELL_RTOL/ATOL of each other, iteration counts and
            times printed, with both dot products (``torch.dot`` and
            multiply + sum), and the whole sweep once more with the other dot.
+           The driver builds this structure file's lists on the card
+           (``lattice_device.py``); beside the sweep, that builder against
+           the k-d tree on ``synthetic_stack`` at n_yz = 24 (neighbor list,
+           periodic K adjacency, cutoff list) and at n_yz = 96 (497,648
+           sites: the first two), equal entry for entry, both timed.
 5. tiled   the pairwise paths at a size that needs them: three supersteps of
            the deck on a synthesized crossbar at n_yz=32 (104,448 slots, pair
            table past its 8e9-byte budget). The model must have taken the tiled
@@ -88,7 +93,11 @@ line is printed):
            counted and the iterations the fused kernel counted on the device
            equal theirs, and the batched loop reads the device at most once
            per batch (the fields' own reads are told apart by their source
-           file). Then the driver on the n_yz=24 sweep: a serial run
+           file). At n_yz=64, after those, one serial superstep from the
+           initial state with ``event_select_incremental`` on and one with it
+           off, from the same stream: bit-equal in events, waiting time, CG
+           iterations, draws used and every tensor of the new state.
+           Then the driver on the n_yz=24 sweep: a serial run
            stopped by ``max_supersteps`` and resumed from its checkpoint must
            give the uninterrupted sweep's metrics rows and final snapshot; the
            same with ``batched_events=64`` must complete and conserve species.
@@ -180,11 +189,37 @@ line is printed):
            reference's 102,722 / 14,854: rel L2 error below 1e-8, iterations
            within 2 of one rank's).
 
+10. flagship the 40 nm crossbar of ``tools/bench_crossbar.py 215``:
+           ``build_grid_crossbar(n_yz=215, 10/22/8 slices, defect 0.1,
+           vacancies 0.05, seed 0)``, 4,622,500 slots, at 15 V with
+           ``VCMModel(rate_normalize, pair_f32, event_select_incremental)``,
+           the configuration ``BENCH_crossbar_r05.json`` records; DIA
+           operator and tiled pairwise asserted. ``warmup`` (the kernels
+           are built and loaded when the script starts), both kernels against
+           their twins on its operator and first K system
+           (``crossbar_kernels``: bit-equal ``x``, ``r``, residual and
+           iteration count), then one cold serial superstep with the incremental
+           selection and three ``superstep_native_batched`` (B = 64,
+           ``mass_eps`` 0.1; f64 clocks, as FLAGSHIP_CLOCK_F32 says why)
+           under the crossbar checks (an event each, ended done, launches
+           equal to the K solves, at most one host read per batch), and one
+           batched loop on the last state's fields replayed on the CPU from
+           the same uniforms (integer state exact, ``event_time`` within
+           1e-12). On the fields the first batched superstep raced: the rate
+           scale (``rate_scale``: the largest rate's event, the pair
+           potentials at the sites of the 64 largest rates against a plain
+           f64 sum within 1e-3 V, ln_S with the f64 plane, and the cold
+           fields' ln_S), and the loop with f32 clocks cut at 1,500 batches.
+           Build times (structure with lists, model with its tables),
+           warmup, each superstep's seconds, events, batches, CG iterations
+           and host reads, and the peak memory go into its line.
+
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered``, ``tiled``, ``batched``, ``full``, ``driver`` and ``sharded``,
-the card's name and power limit from nvidia-smi, and last ``{"ok": true,
-"device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels, sweep, disordered,
-tiled, batched, full, driver, sharded) runs a part of it while developing;
+``disordered``, ``tiled``, ``batched``, ``full``, ``driver``, ``sharded`` and
+``flagship``, the card's name and power limit from nvidia-smi, and last
+``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels,
+sweep, disordered, tiled, batched, full, driver, sharded, flagship) runs a
+part of it while developing;
 ``--only nccl`` (never run by default) runs the sharded phase's sweep and
 batched path, under the same checks, on 2 and 4 ranks with a card each over
 NCCL, on a machine with four cards. Needs one card, no network, and no JAX.
@@ -194,6 +229,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -1008,6 +1044,63 @@ def cold_k_solves(deck, dev, pbc: bool) -> dict:
     return out
 
 
+LISTS_N_YZ = (24, 96)                # synthetic_stack: 31,088 and 497,648 sites
+
+
+def disordered_lists(dev) -> dict:
+    """The on-card list builder (``lattice_device.py``) against the k-d tree
+    on ``synthetic_stack`` at n_yz = 24 (the stand-in: the neighbor list, the
+    periodic K adjacency and the cutoff list) and at n_yz = 96 (about 0.5 M
+    sites: the neighbor list and the periodic K adjacency; its cutoff list
+    would hold some 1.7e9 entries), with the deck's cutoffs: equal entry for
+    entry, each builder timed (host clock; the card's ends with the table on
+    the host)."""
+    from akmc_tpu_torch import lattice, lattice_device
+    from akmc_tpu_torch.config import KMCParameters
+    from akmc_tpu_torch.models.crossbar import synthetic_stack
+
+    p = KMCParameters.from_file(DECK)
+    out = {}
+    for n_yz in LISTS_N_YZ:
+        e, x, y, z, dims, _ = synthetic_stack(n_yz=n_yz)
+        pos = np.stack([x, y, z], 1)
+        dims = np.asarray(dims, np.float64)
+        kinds = {
+            "neighbors": (lattice.build_neighbor_list, lattice_device.build_neighbor_list_device,
+                          (pos, p.nn_dist, p.max_num_neighbors)),
+            "k_adjacency_pbc": (lattice.build_neighbor_list,
+                                lattice_device.build_neighbor_list_device,
+                                (pos, p.nn_dist, p.max_num_neighbors, dims, True)),
+        }
+        if n_yz == LISTS_N_YZ[0]:
+            kinds["cutoff"] = (lattice.build_cutoff_list, lattice_device.build_cutoff_list_device,
+                               (pos, e, p.cutoff_radius))
+        case = {"sites": len(x)}
+        for kind, (host_fn, card_fn, args) in kinds.items():
+            t0 = time.perf_counter()
+            want = host_fn(*args)
+            host_s = time.perf_counter() - t0
+            block = lattice_device.row_block(len(x), dev)
+            t0 = time.perf_counter()
+            got = card_fn(*args, device=dev, block=block)
+            card_s = time.perf_counter() - t0
+            if kind == "cutoff":
+                (want, wmax), (got, gmax) = want, got
+                if wmax != gmax:
+                    fail(f"cutoff list widths {gmax} on the card, {wmax} by the k-d tree")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad = (np.nonzero((got != want).any(axis=1))[0][:5].tolist()
+                       if got.shape == want.shape else got.shape)
+                fail(f"the on-card {kind} list of synthetic_stack(n_yz={n_yz}) differs from the "
+                     f"k-d tree's (rows {bad})")
+            case[kind] = {"kdtree_host_s": host_s, "card_s": card_s, "width": got.shape[1],
+                          "entries": int((got >= 0).sum()), "row_block": block}
+        print(f"chip_smoke: on-card lists == k-d tree on synthetic_stack(n_yz={n_yz}), "
+              f"{len(x)} sites: " + json.dumps(case))
+        out[f"n_yz_{n_yz}"] = case
+    return out
+
+
 def run_disordered(dev):
     """(disordered line, what is wrong with it or None)."""
     from akmc_tpu_torch.runtime import golden, synth_deck
@@ -1077,6 +1170,7 @@ def run_disordered(dev):
             "driver_supersteps_s": sum(r["superstep_s"] for r in rows_sum),
         },
         "cold_k_solves": solves,
+        "lists": disordered_lists(dev),
     }
     problems = [s["problem"] for s in solves if s["problem"]]
     if bad:
@@ -1197,56 +1291,67 @@ def replay_uniforms(seed, n, B, clock_f32):
         yield rng.random(B)
 
 
+def replay_case(dev, state, fr, t, freq, seed, B, clock_f32, mass_eps, name) -> dict:
+    """``run_event_loop_batched`` on the card and on the CPU from one frozen
+    fields state ``fr`` and the same seeded numpy uniforms: elements, charges,
+    event, batch and cut counts and the rate table's zero pattern equal,
+    ``event_time`` within rtol 1e-12 (f32 clocks: 1e-6)."""
+    from akmc_tpu_torch.ops.events import ReplayDraws, run_event_loop_batched
+
+    n = fr.P.shape[0]
+    res, wall = {}, {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        res[where.type] = run_event_loop_batched(
+            state.element.to(where), fr.charge.to(where), fr.P.to(where, copy=True),
+            fr.etype.to(where), t.act_neigh.to(where),
+            ReplayDraws(replay_uniforms(seed, n, B, clock_f32)), freq,
+            batch=B, act_idx=t.act_idx.to(where), abs2act=t.abs2act.to(where),
+            ln_S=fr.ln_S.to(where), mass_eps=mass_eps, clock_f32=clock_f32)
+        wall[where.type] = time.perf_counter() - t0
+    g, c = res[dev.type], res["cpu"]
+    if g.element.device.type != dev.type or g.P.device.type != dev.type:
+        fail(f"the replay for {dev} came back on {g.element.device}")
+    counts = [(r.n_events, r.n_batches, r.n_cut_conflict, r.n_cut_mass, r.done)
+              for r in (g, c)]
+    if counts[0] != counts[1]:
+        fail(f"{name}: card (events, batches, conflict cuts, mass cuts, done) "
+             f"{counts[0]} != CPU {counts[1]}")
+    if not (torch.equal(g.element.cpu(), c.element) and torch.equal(g.charge.cpu(), c.charge)):
+        fail(f"{name}: elements or charges differ between the card and the CPU")
+    if not torch.equal(g.P.cpu() == 0.0, c.P == 0.0):
+        fail(f"{name}: the rate table's zero pattern differs")
+    rtol = 1e-6 if clock_f32 else 1e-12
+    rel = abs(g.event_time_h - c.event_time_h) / abs(c.event_time_h)
+    if not (g.done and g.n_events >= 1 and math.isfinite(g.event_time_h) and rel <= rtol):
+        fail(f"{name}: event_time {g.event_time_h!r} on the card, {c.event_time_h!r} on "
+             f"the CPU (rtol {rtol}), events {g.n_events}, done {g.done}")
+    if species_sums(g.element) != species_sums(state.element):
+        fail(f"{name}: species sums not conserved")
+    print(f"chip_smoke: batched loop, card == CPU on {name}: {g.n_events} events in "
+          f"{g.n_batches} batches")
+    return {"B": B, "clock_f32": clock_f32, "mass_eps": mass_eps, "rows": n,
+            "events": g.n_events, "batches": g.n_batches, "cut_conflict": g.n_cut_conflict,
+            "cut_mass": g.n_cut_mass, "event_time": g.event_time_h,
+            "event_time_rel_card_vs_cpu": rel, "wall_s": wall}
+
+
 def batched_replay(dev) -> dict:
     """The batched loop on the card against the same loop on the CPU, from
     one frozen fields state and the same uniforms."""
     from akmc_tpu_torch.models.vcm import VCMModel
-    from akmc_tpu_torch.ops.events import ReplayDraws, run_event_loop_batched
     from akmc_tpu_torch.state import make_device_state
 
     _, _, p, lat = crossbar_dia(N_YZ)
     model = VCMModel(p, lat, device=dev, rate_normalize=True)
-    t = model.tables
     state = make_device_state(lat, p.background_temp, dev)
     out = []
     for Vd in (8.0, CROSSBAR_VD):
         fr = model.fields(state, Vd)
-        n = fr.P.shape[0]
         for B, clock_f32 in ((64, False), (16, True)):
-            res = {}
-            for where in (dev, torch.device("cpu")):
-                res[where.type] = run_event_loop_batched(
-                    state.element.to(where), fr.charge.to(where), fr.P.to(where, copy=True),
-                    fr.etype.to(where), t.act_neigh.to(where),
-                    ReplayDraws(replay_uniforms(int(Vd) * 100 + B, n, B, clock_f32)), p.freq,
-                    batch=B, act_idx=t.act_idx.to(where), abs2act=t.abs2act.to(where),
-                    ln_S=fr.ln_S.to(where), mass_eps=1e-3, clock_f32=clock_f32)
-            g, c = res[dev.type], res["cpu"]
-            if g.element.device.type != dev.type or g.P.device.type != dev.type:
-                fail(f"the replay for {dev} came back on {g.element.device}")
-            name = f"replay at {Vd} V, B={B}, clock_f32={clock_f32}"
-            counts = [(r.n_events, r.n_batches, r.n_cut_conflict, r.n_cut_mass, r.done)
-                      for r in (g, c)]
-            if counts[0] != counts[1]:
-                fail(f"{name}: card (events, batches, conflict cuts, mass cuts, done) "
-                     f"{counts[0]} != CPU {counts[1]}")
-            if not (torch.equal(g.element.cpu(), c.element) and torch.equal(g.charge.cpu(), c.charge)):
-                fail(f"{name}: elements or charges differ between the card and the CPU")
-            if not torch.equal(g.P.cpu() == 0.0, c.P == 0.0):
-                fail(f"{name}: the rate table's zero pattern differs")
-            rtol = 1e-6 if clock_f32 else 1e-12
-            rel = abs(g.event_time_h - c.event_time_h) / abs(c.event_time_h)
-            if not (g.done and g.n_events >= 1 and math.isfinite(g.event_time_h) and rel <= rtol):
-                fail(f"{name}: event_time {g.event_time_h!r} on the card, {c.event_time_h!r} on "
-                     f"the CPU (rtol {rtol}), events {g.n_events}, done {g.done}")
-            if species_sums(g.element) != species_sums(state.element):
-                fail(f"{name}: species sums not conserved")
-            out.append({"Vd": Vd, "B": B, "clock_f32": clock_f32, "rows": n,
-                        "events": g.n_events, "batches": g.n_batches,
-                        "cut_conflict": g.n_cut_conflict, "cut_mass": g.n_cut_mass,
-                        "event_time": g.event_time_h, "event_time_rel_card_vs_cpu": rel})
-            print(f"chip_smoke: batched loop, card == CPU on {name}: {g.n_events} events in "
-                  f"{g.n_batches} batches")
+            case = replay_case(dev, state, fr, model.tables, p.freq, int(Vd) * 100 + B, B,
+                               clock_f32, 1e-3, f"replay at {Vd} V, B={B}, clock_f32={clock_f32}")
+            out.append({"Vd": Vd, **case})
     return {"cases": out}
 
 
@@ -1400,26 +1505,27 @@ def crossbar_kernels(dev, model, state, n_yz: int, library: bool) -> dict:
     }
 
 
-def batched_crossbar(dev, n_yz: int, depth: int, library: bool) -> dict:
-    """Supersteps of the production path on the full-width crossbar:
-    one serial, ``depth`` of each batched kind, one module-timed."""
-    from akmc_tpu_torch.models.crossbar import build_grid_crossbar
-    from akmc_tpu_torch.models.vcm import VCMModel
-    from akmc_tpu_torch.ops import dia_matvec as mv
-    from akmc_tpu_torch.ops.events import GeneratorDraws
-    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
-    from akmc_tpu_torch.solvers import dia_cg
-    from akmc_tpu_torch.state import make_device_state
+def crossbar_model(dev, n_yz: int, **model_kw):
+    """``build_grid_crossbar(n_yz, 10/22/8 slices, defect 0.1, vacancies
+    0.05, seed 0)`` and its model on ``dev`` with shifted-exponent rates
+    (and ``model_kw``): (p, lat, model, describe(), build), ``build`` the
+    host seconds of the structure with its lists (``build_s``) and of the
+    model with its tables, DIA operator and pair tiling on the card
+    (``model_s``). The card's peak memory is reset just before the model."""
+    from akmc_tpu_torch.models import crossbar, vcm
 
     t0 = time.perf_counter()
-    p, lat = build_grid_crossbar(n_yz=n_yz, contact_slices=10, oxide_slices=22, ti_slices=8,
-                                 defect_fraction=0.1, vacancy_concentration=0.05, seed=0)
+    p, lat = crossbar.build_grid_crossbar(
+        n_yz=n_yz, contact_slices=10, oxide_slices=22, ti_slices=8,
+        defect_fraction=0.1, vacancy_concentration=0.05, seed=0)
     build_s = time.perf_counter() - t0
     print(f"chip_smoke: crossbar n_yz={n_yz}: {lat.N} slots built in {build_s:.1f} s")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = VCMModel(p, lat, device=dev, rate_normalize=True)
+    model = vcm.VCMModel(p, lat, device=dev, rate_normalize=True, **model_kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     model_s = time.perf_counter() - t0
     desc = model.describe()
     print(f"chip_smoke: crossbar model in {model_s:.1f} s: {desc}")
@@ -1427,43 +1533,48 @@ def batched_crossbar(dev, n_yz: int, depth: int, library: bool) -> dict:
         fail(f"the n_yz={n_yz} crossbar has {lat.N} slots, expected {n_yz * n_yz * 100}")
     if n_yz >= CROSSBAR_N_YZ[0] and (desc["k_operator"], desc["pairwise"]) != ("dia", "tiled"):
         fail(f"the crossbar model is {desc}, expected the DIA operator and tiled pairwise")
+    build = {"build_s": build_s, "model_s": model_s}
+    return p, lat, model, desc, build
 
-    state = make_device_state(lat, p.background_temp, dev)
-    stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
-    draws = GeneratorDraws.seeded(7, dev)
-    sums0 = species_sums(state.element)
-    # the kernels against their twins at this path's shapes, before the counts
-    # are set to 0: these launches are not the path's
-    at_shape = (crossbar_kernels(dev, model, state, n_yz, library=library)
-                if dev.type == "cuda" else None)
-    mv.dia_combined_matvec.launches = 0
-    dia_cg.dia_cg_solve.launches = 0
-    dia_cg.reset_iterations_total(dev.type)
-    k_solves0, k_iterations0 = model.k_solves, model.k_iterations
-    steps, kmc_times = [], []
-    pb_prev2 = None
 
-    def step(kind, **kw):
-        nonlocal state, pb_prev2
-        pb_before = state.potential_boundary
+class CrossbarSteps:
+    """Supersteps of one crossbar model at CROSSBAR_VD, from ``state`` on,
+    each checked as it ends: an event fired, the species sums kept,
+    ``kmc_time`` finite and not falling; a batched one ends done and (on the
+    card) reads the device at most once per batch from its loop. ``steps``
+    holds a row per superstep. Serial supersteps draw from ``stream``,
+    batched ones from ``draws``."""
+
+    def __init__(self, dev, model, state, stream, draws, where="crossbar"):
+        self.dev, self.model, self.state = dev, model, state
+        self.stream, self.draws, self.where = stream, draws, where
+        self.sums0 = species_sums(state.element)
+        self.steps, self.kmc_times = [], []
+        self.pb_prev2 = None
+
+    def step(self, kind, **kw):
+        dev, model, i = self.dev, self.model, len(self.steps)
+        name = f"{self.where} superstep {i} ({kind})"
+        pb_before = self.state.potential_boundary
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         with count_syncs(dev) as caught:
             if kind == "serial":
-                state, stats = model.superstep(state, CROSSBAR_VD, stream)
+                self.state, stats = model.superstep(self.state, CROSSBAR_VD, self.stream)
             elif kind == "timed":
-                state, stats = model.superstep_timed(state, CROSSBAR_VD, stream)
+                self.state, stats = model.superstep_timed(self.state, CROSSBAR_VD, self.stream)
             else:
-                state, stats = model.superstep_native_batched(
-                    state, CROSSBAR_VD, draws, batch=64, pb_prev2=pb_prev2, **kw)
+                self.state, stats = model.superstep_native_batched(
+                    self.state, CROSSBAR_VD, self.draws, batch=64, pb_prev2=self.pb_prev2, **kw)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        pb_prev2 = pb_before
+        self.pb_prev2 = pb_before
         syncs = n_syncs(caught)
         row = {"kind": kind, "wall_s": wall, "events": stats["n_events"],
-               "event_time": stats["event_time"], "cg_iterations": stats["cg_iterations"], "host_syncs": syncs}
+               "event_time": stats["event_time"], "cg_iterations": stats["cg_iterations"],
+               "host_syncs": syncs}
         if kind not in ("serial", "timed"):
             # the loop's host reads are those made from ops/events.py; the
             # rest are the fields' own (cap flags, compactions, the K solve's
@@ -1473,89 +1584,165 @@ def batched_crossbar(dev, n_yz: int, depth: int, library: bool) -> dict:
             row.update(batches=nb, events_per_batch=stats["n_events"] / nb,
                        cut_conflict=stats["n_cut_conflict"], cut_mass=stats["n_cut_mass"],
                        host_syncs_in_loop=in_loop, host_syncs_in_fields=syncs - in_loop,
-                       fields_s=model.fields_s,
+                       host_syncs_in_loop_per_batch=in_loop / nb, fields_s=model.fields_s,
                        loop_ms_per_batch=1e3 * (wall - model.fields_s) / nb,
                        done=stats["done"], **kw)
             if not stats["done"]:
-                fail(f"crossbar superstep {len(steps)} ({kind}) did not end done")
+                fail(f"{name} did not end done: {stats['n_events']} events in {nb} batches")
             # no card, no count: the check is the card's
             if dev.type == "cuda" and in_loop > nb:
-                fail(f"crossbar superstep {len(steps)}: the batched loop read the device "
-                     f"{in_loop} times in {nb} batches, at {sync_sites(caught)}")
+                fail(f"{name}: the batched loop read the device {in_loop} times in {nb} "
+                     f"batches, at {sync_sites(caught)}")
         else:
-            row["host_syncs_per_event"] = syncs / stats["n_events"]
-            if len(steps) == 0:
+            row["host_syncs_per_event"] = syncs / max(1, stats["n_events"])
+            if i == 0:
                 row["host_sync_sites"] = sync_sites(caught)
         if kind == "timed":
             row.update({k: stats[k] for k in
                         ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")})
         if stats["n_events"] < 1:
-            fail(f"crossbar superstep {len(steps)} ({kind}) fired no event")
-        kmc_times.append(float(state.kmc_time))
+            fail(f"{name} fired no event")
+        self.kmc_times.append(float(self.state.kmc_time))
         # every superstep adds a positive waiting time; in f64 a gap of 1e-13 s
         # on a clock at 1e2 s may leave the sum where it was
-        if not (math.isfinite(kmc_times[-1]) and stats["event_time"] > 0.0
-                and (len(kmc_times) < 2 or kmc_times[-1] >= kmc_times[-2])):
-            fail(f"crossbar kmc_time not finite and increasing: {kmc_times}, "
+        kt = self.kmc_times
+        if not (math.isfinite(kt[-1]) and stats["event_time"] > 0.0
+                and (len(kt) < 2 or kt[-1] >= kt[-2])):
+            fail(f"{self.where} kmc_time not finite and increasing: {kt}, "
                  f"last waiting time {stats['event_time']}")
-        if species_sums(state.element) != sums0:
-            fail(f"crossbar superstep {len(steps)} ({kind}): species sums not conserved")
-        steps.append(row)
-        print(f"chip_smoke: crossbar superstep {len(steps) - 1} " + json.dumps(row))
+        if species_sums(self.state.element) != self.sums0:
+            fail(f"{name}: species sums not conserved")
+        self.steps.append(row)
+        print(f"chip_smoke: {self.where} superstep {i} " + json.dumps(row))
 
-    step("serial")
-    for _ in range(depth):
-        step("batched", mass_eps=1e-3)
-    model.pair_f32 = True
-    for _ in range(depth):
-        step("batched production", mass_eps=0.1, clock_f32=True, k_extrap=1.0)
-    model.pair_f32 = False
-    step("timed")
+
+def reset_launches(dev, model):
+    """Every launch counter to 0 and the model's solve counts as they stand:
+    (k_solves, k_iterations) to count a path's own from."""
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.solvers import dia_cg
+
+    mv.dia_combined_matvec.launches = 0
+    dia_cg.dia_cg_solve.launches = 0
+    dia_cg.reset_iterations_total(dev.type)
+    return model.k_solves, model.k_iterations
+
+
+def crossbar_launches(dev, model, steps, since, where="crossbar") -> dict:
+    """The kernels' launches since ``reset_launches`` (which returned
+    ``since``) against the model's count of K solves: one fused CG and one
+    matvec (the conductive-vacancy degrees) per solve, those repeated for a
+    grown cap too, and the iterations the fused kernel counted on the device
+    equal to the model's."""
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.solvers import dia_cg
 
     launches = (mv.dia_combined_matvec.launches, dia_cg.dia_cg_solve.launches)
-    # one fused CG and one matvec (the conductive-vacancy degrees) per K
-    # solve; the model counts its solves, those repeated for a grown cap too
-    k_solves = model.k_solves - k_solves0
+    k_solves = model.k_solves - since[0]
     if k_solves < len(steps):
-        fail(f"{k_solves} K solves in {len(steps)} supersteps")
+        fail(f"{k_solves} K solves in {len(steps)} supersteps on the {where}")
     if dev.type == "cuda" and launches != (k_solves, k_solves):
-        fail(f"the crossbar path launched the DIA kernels {launches} times for {k_solves} K solves")
-    cg = model.k_iterations - k_iterations0
+        fail(f"the {where} path launched the DIA kernels {launches} times for {k_solves} K solves")
+    cg = model.k_iterations - since[1]
     if dev.type == "cuda" and dia_cg.iterations_total(dev.type) != cg:
         fail(f"the fused solves counted {dia_cg.iterations_total(dev.type)} iterations on the "
              f"device, the model's K solves {cg}")
     if k_solves == len(steps) and cg != sum(r["cg_iterations"] for r in steps):
         fail(f"the K solves ran {cg} iterations, the supersteps report "
              f"{sum(r['cg_iterations'] for r in steps)}")
-    tight = [r for r in steps if r["kind"] == "batched"]
-    loose = [r for r in steps if r["kind"] == "batched production"]
-
-    def summary(rows):
-        ev, nb = sum(r["events"] for r in rows), sum(r["batches"] for r in rows)
-        wall = sum(r["wall_s"] for r in rows)
-        loop = wall - sum(r["fields_s"] for r in rows)
-        return {"supersteps": len(rows), "events": ev, "batches": nb, "events_per_batch": ev / nb,
-                "wall_s_mean": wall / len(rows), "fields_s_mean": (wall - loop) / len(rows),
-                "loop_ms_per_batch": 1e3 * loop / nb, "loop_ms_per_event": 1e3 * loop / ev,
-                "superstep_ms_per_event": 1e3 * wall / ev,
-                "cg_iterations": [r["cg_iterations"] for r in rows]}
-
     grid = dia_cg.dia_cg_solve.last_grid
-    return {
-        "n_yz": n_yz, "slots": lat.N, "Vd": CROSSBAR_VD, "model": desc,
-        "build_s": build_s, "model_s": model_s,
+    return {"dia_launches": launches[0], "dia_cg_launches": launches[1], "k_solves": k_solves,
+            "cg_iterations_counted_on_device": dia_cg.iterations_total(dev.type),
+            "dia_cg_grid": {"blocks": grid[0], "rows_in_registers": grid[1]} if grid else None}
+
+
+def batched_summary(rows) -> dict:
+    ev, nb = sum(r["events"] for r in rows), sum(r["batches"] for r in rows)
+    wall = sum(r["wall_s"] for r in rows)
+    loop = wall - sum(r["fields_s"] for r in rows)
+    return {"supersteps": len(rows), "events": ev, "batches": nb, "events_per_batch": ev / nb,
+            "wall_s_mean": wall / len(rows), "fields_s_mean": (wall - loop) / len(rows),
+            "loop_ms_per_batch": 1e3 * loop / nb, "loop_ms_per_event": 1e3 * loop / ev,
+            "superstep_ms_per_event": 1e3 * wall / ev,
+            "cg_iterations": [r["cg_iterations"] for r in rows]}
+
+
+def incremental_against_fresh(dev, model, state) -> dict:
+    """One serial superstep from ``state`` with the incremental event
+    selection and one with the fresh one, each on its own stream from the
+    deck's seed: events, the waiting time, CG iterations, the draws used and
+    the new state must be equal to the bit."""
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+
+    runs = {}
+    for inc in (False, True):
+        model.event_select_incremental = inc
+        stream = BufferedStream(ReferenceRNG(model.params.rnd_seed_kmc))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, stats = model.superstep(state, CROSSBAR_VD, stream)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs[inc] = (new, stats, time.perf_counter() - t0, stream.peek(4))
+    model.event_select_incremental = False
+    (a, sa, wa, da), (b, sb, wb, db) = runs[False], runs[True]
+    differ = [f.name for f in dataclasses.fields(a)
+              if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+    if sa != sb or differ or not np.array_equal(da, db):
+        fail(f"incremental selection differs from the fresh one: stats {sb} against {sa}, "
+             f"state fields {differ}, next draws equal {np.array_equal(da, db)}")
+    print(f"chip_smoke: incremental == fresh selection, one serial superstep: "
+          f"{sa['n_events']} events, {wb:.2f} s against {wa:.2f} s")
+    return {"bitwise_equal": True, "events": sa["n_events"], "event_time": sa["event_time"],
+            "kmc_time": float(b.kmc_time), "fresh_s": wa, "incremental_s": wb,
+            "ms_per_event_fresh": 1e3 * wa / sa["n_events"],
+            "ms_per_event_incremental": 1e3 * wb / sb["n_events"]}
+
+
+def batched_crossbar(dev, n_yz: int, depth: int, library: bool, incremental: bool = False) -> dict:
+    """Supersteps of the production path on the full-width crossbar:
+    one serial, ``depth`` of each batched kind, one module-timed; with
+    ``incremental``, then one serial superstep from the initial state with
+    the incremental selection and one without (``incremental_against_fresh``)."""
+    from akmc_tpu_torch.ops.events import GeneratorDraws
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat, model, desc, build = crossbar_model(dev, n_yz)
+    state = make_device_state(lat, p.background_temp, dev)
+    # the kernels against their twins at this path's shapes, before the counts
+    # are set to 0: these launches are not the path's
+    at_shape = (crossbar_kernels(dev, model, state, n_yz, library=library)
+                if dev.type == "cuda" else None)
+    since = reset_launches(dev, model)
+    run = CrossbarSteps(dev, model, state, BufferedStream(ReferenceRNG(p.rnd_seed_kmc)),
+                        GeneratorDraws.seeded(7, dev))
+    run.step("serial")
+    for _ in range(depth):
+        run.step("batched", mass_eps=1e-3)
+    model.pair_f32 = True
+    for _ in range(depth):
+        run.step("batched production", mass_eps=0.1, clock_f32=True, k_extrap=1.0)
+    model.pair_f32 = False
+    run.step("timed")
+    launches = crossbar_launches(dev, model, run.steps, since)
+    steps = run.steps
+    out = {
+        "n_yz": n_yz, "slots": lat.N, "Vd": CROSSBAR_VD, "model": desc, **build,
         "serial": {k: steps[0][k] for k in ("wall_s", "events", "cg_iterations", "host_syncs")}
         | {"ms_per_event": 1e3 * steps[0]["wall_s"] / steps[0]["events"]},
-        "batched_mass_eps_1e-3": summary(tight),
-        "batched_f32_plane_f32_clocks_mass_eps_0.1_k_extrap_1": summary(loose),
+        "batched_mass_eps_1e-3": batched_summary([r for r in steps if r["kind"] == "batched"]),
+        "batched_f32_plane_f32_clocks_mass_eps_0.1_k_extrap_1": batched_summary(
+            [r for r in steps if r["kind"] == "batched production"]),
         "module_timed": steps[-1],
-        "steps": steps, "kmc_time": kmc_times,
-        "dia_launches": launches[0], "dia_cg_launches": launches[1], "k_solves": k_solves,
-        "cg_iterations_counted_on_device": dia_cg.iterations_total(dev.type),
+        "steps": steps, "kmc_time": run.kmc_times, **launches,
         "kernels_at_this_shape": at_shape,
-        "dia_cg_grid": {"blocks": grid[0], "rows_in_registers": grid[1]} if grid else None,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None,
     }
+    if incremental:
+        out["incremental_selection"] = incremental_against_fresh(dev, model, state)
+    return out
 
 
 def batched_driver(dev, serial_rows) -> dict:
@@ -1632,7 +1819,8 @@ def batched_driver(dev, serial_rows) -> dict:
 def run_batched(dev, widths, serial_rows):
     """(batched line, None): each part fails the run on its own."""
     line = {"replay": batched_replay(dev), "law": batched_law(dev),
-            "crossbar": batched_crossbar(dev, widths[0], depth=6, library=True)}
+            "crossbar": batched_crossbar(dev, widths[0], depth=6, library=True,
+                                         incremental=True)}
     # the sparse-product yardstick is assembled on the host, which at the
     # larger widths would take longer than every check of the phase
     for n_yz in widths[1:]:
@@ -1775,7 +1963,7 @@ def tolerance_solves(model, state, ref: dict, where: str, current_rtol=None,
         for key in ("I_macro", "P_tot"):
             if not (math.isfinite(row[key]) and row[f"{key}_rel"] <= row[f"{key}_bound"]):
                 bad.append(f"{where}, rtol_scale {scale}: {key} {row[key]!r} is "
-                           f"{row[key + '_rel']:.3e} from akmc_tpu's {g[key]!r}, beyond "
+                           f"{row[key + '_rel']:.3e} relative to akmc_tpu's {g[key]!r}, beyond "
                            f"{row[key + '_bound']:.3e}")
     cb_finite = bool(torch.isfinite(state.cb_edge).all())
     return {"solves": out, "cb_edge_finite": cb_finite, "cb_iterations": model.cb_iterations,
@@ -1841,7 +2029,7 @@ def heating_part(dev, kind: str, ref: dict) -> dict:
         want[i] = v
     far = [i for i in range(len(temp)) if not heat_close(float(temp[i]), float(want[i]), T0)]
     if far:
-        bad.append(f"heating {kind}: {len(far)} site temperatures differ from akmc_tpu's, "
+        bad.append(f"heating {kind}: {len(far)} site temperatures differ from those of akmc_tpu, "
                    f"first {far[0]}: {temp[far[0]]!r} != {want[far[0]]!r}")
     return {"supersteps": len(rows), "T_bg": [r["T_bg"] for r in rows],
             "T_bg_akmc_tpu": [g["T_bg"] for g in ref["supersteps"]],
@@ -1922,7 +2110,7 @@ def run_full(dev):
                            power_rtol=f32_spread["P_tot_max_rel"])
     I_abs32 = max_abs_current(f32_ref, got32)
     if I_abs32 > FULL_CURRENT_ATOL:
-        bad32.append(f"I_macro {I_abs32:.3e} A from akmc_tpu's, beyond {FULL_CURRENT_ATOL:.1e} A")
+        bad32.append(f"I_macro {I_abs32:.3e} A off akmc_tpu's, beyond {FULL_CURRENT_ATOL:.1e} A")
     if [(r["bias"], r["n_events"]) for r in rows32] != [
             (r["bias"], r["n_events"]) for r in rows[: len(rows32)]]:
         bad32.append("the f32 run's events differ from the f64 run's")
@@ -2858,7 +3046,174 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
     return line, "; ".join(problems) or None
 
 
-PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver", "sharded")
+# ---------------------------------------------------------------------------
+# phase 10: the flagship crossbar
+# ---------------------------------------------------------------------------
+FLAGSHIP_N_YZ = 215                  # 215^2 x 50 slices x 2 sublattices = 4,622,500 slots
+FLAGSHIP_STEPS = 3
+FLAGSHIP_MASS_EPS = 0.1
+# The batched supersteps race f64 clocks, not the recorded run's f32 ones. The
+# loop ends a superstep on a gap of exp(ln_S) / freq in the clocks' scaled
+# units, and on the fields that the serial superstep leaves here ln_S puts
+# that gap beyond f32's largest value: no f32 clock can end the superstep.
+# akmc_tpu's loop does the same arithmetic (tests/test_torch_rate_scale.py
+# holds the two step for step there); whether akmc_tpu reaches such fields at
+# this size is not known, since it has not run here. The phase reads the f32
+# loop on those fields, cut at FLAGSHIP_F32_PROBE_BATCHES batches
+# (``clock_f32_probe``), and checks the rate scale (``rate_scale``).
+FLAGSHIP_CLOCK_F32 = False
+FLAGSHIP_F32_PROBE_BATCHES = 1500
+# the rate scale check: the pair potentials of both sites of the largest
+# FLAGSHIP_TOP_RATES rates, the tiled f32 plane's against a plain f64 sum over
+# every charged site, within FLAGSHIP_PAIR_ATOL volts (2e-3 eV, 0.08 kT on an
+# event's barrier)
+FLAGSHIP_TOP_RATES = 64
+FLAGSHIP_PAIR_ATOL = 1e-3
+
+
+def plain_pair_potential(pos, charge, sites, cutoff, sigma, k):
+    """The pair potential at ``sites`` summed in f64 over every charged site
+    within ``cutoff``, one site at a time: the formula of
+    ``ops/pairwise.py`` with no tiling, candidate list or f32 plane."""
+    from akmc_tpu_torch.ops.pairwise import Q_E
+
+    q_idx = torch.nonzero(charge != 0).squeeze(1)
+    q_pos, q_val = pos[q_idx], charge[q_idx].to(torch.float64)
+    inv_sig = 1.0 / (sigma * math.sqrt(2.0))
+    out = []
+    for i in sites.tolist():
+        d2 = torch.sum((pos[i] - q_pos) ** 2, dim=1)
+        ok = (d2 < cutoff * cutoff) & (q_idx != i)
+        d = 1e-10 * torch.sqrt(d2[ok])
+        out.append(torch.sum(q_val[ok] * torch.special.erfc(d * inv_sig) * (k * Q_E) / d))
+    return torch.stack(out)
+
+
+def rate_scale(dev, model, state, fr, cold_ln_S) -> dict:
+    """What sets the fields' ln_S: the largest rate's event (its sites,
+    elements, charges, potentials and barrier), the pair potentials at the
+    sites of the FLAGSHIP_TOP_RATES largest rates against
+    ``plain_pair_potential``, and ln_S of the same state with the f64 pair
+    plane. Fails when the plain sums part from the plane's by more than
+    FLAGSHIP_PAIR_ATOL."""
+    from akmc_tpu_torch.config import KB_EV
+
+    p, t = model.params, model.tables
+    nn = fr.P.shape[1]
+    _, flat = torch.topk(fr.P.reshape(-1), FLAGSHIP_TOP_RATES)
+    rows, slots = flat // nn, flat % nn
+    si, sj = t.act_idx[rows], t.act_neigh[rows, slots]
+    sites = torch.unique(torch.cat([si, sj]))
+    pair = fr.potential_sum - fr.potential_boundary
+    plain = plain_pair_potential(t.pos, fr.charge, sites, p.cutoff_radius, p.sigma, p.k)
+    diff = float((plain - pair[sites]).abs().max())
+    model.pair_f32 = False
+    ln_S_f64 = float(model.fields(state, CROSSBAR_VD).ln_S)
+    model.pair_f32 = True
+    i, j = int(si[0]), int(sj[0])
+    ln_S = float(fr.ln_S)
+    kT = KB_EV * float(state.T_bg)
+    top = {"site_i": i, "site_j": j, "etype": int(fr.etype[rows[0], slots[0]]),
+           "element": [int(state.element[i]), int(state.element[j])],
+           "charge": [int(fr.charge[i]), int(fr.charge[j])],
+           "x": [float(t.pos[i, 0]), float(t.pos[j, 0])],
+           "potential_sum": [float(fr.potential_sum[i]), float(fr.potential_sum[j])],
+           "barrier_eV": (math.log(p.freq) - ln_S) * kT}
+    out = {"cold_ln_S": cold_ln_S, "ln_S": ln_S, "ln_S_f64_plane": ln_S_f64,
+           "ln_S_f32_limit": math.log(p.freq) + math.log(torch.finfo(torch.float32).max),
+           "largest_rate": top, "sites_checked": int(sites.numel()),
+           "pair_potential_max_abs_diff_V": diff, "pair_atol_V": FLAGSHIP_PAIR_ATOL}
+    print("chip_smoke: flagship rate scale " + json.dumps(out))
+    if not diff <= FLAGSHIP_PAIR_ATOL:
+        fail(f"flagship: the pair potentials at the largest rates' sites part from a plain f64 "
+             f"sum by {diff} V")
+    return out
+
+
+def run_flagship(dev):
+    """(flagship line, None): the 40 nm crossbar of ``tools/bench_crossbar.py
+    215`` in the configuration of its recorded run (shifted-exponent rates,
+    f32 pair plane, incremental selection; batched B = 64, ``mass_eps`` 0.1)
+    at 15 V, with f64 clocks (FLAGSHIP_CLOCK_F32). Each part fails the run on
+    its own."""
+    from akmc_tpu_torch.lattice import ELEM
+    from akmc_tpu_torch.ops.events import GeneratorDraws, run_event_loop_batched
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat, model, desc, build = crossbar_model(
+        dev, FLAGSHIP_N_YZ, pair_f32=True, event_select_incremental=True)
+    if lat.N != FLAGSHIP_N_YZ ** 2 * 100 or (desc["k_operator"], desc["pairwise"]) != (
+            "dia", "tiled"):
+        fail(f"the flagship crossbar is {lat.N} slots, {desc}")
+    state = make_device_state(lat, p.background_temp, dev)
+    # the kernels were built and loaded when the script started: the warmup
+    # finds both built and loads nothing
+    t0 = time.perf_counter()
+    warm = model.warmup(state, CROSSBAR_VD, batched=64)
+    warmup_s = time.perf_counter() - t0
+    at_shape = crossbar_kernels(dev, model, state, FLAGSHIP_N_YZ, library=False)
+
+    since = reset_launches(dev, model)
+    run = CrossbarSteps(dev, model, state, BufferedStream(ReferenceRNG(p.rnd_seed_kmc)),
+                        GeneratorDraws.seeded(7, dev), where="flagship")
+    run.step("serial")
+    after_serial = run.state
+    for _ in range(FLAGSHIP_STEPS):
+        run.step("batched", mass_eps=FLAGSHIP_MASS_EPS, clock_f32=FLAGSHIP_CLOCK_F32)
+    launches = crossbar_launches(dev, model, run.steps, since, where="flagship")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # one batched loop replayed on the CPU, from the fields of the last state
+    # and the same uniforms
+    fr = model.fields(run.state, CROSSBAR_VD)
+    replay = replay_case(dev, run.state, fr, model.tables, p.freq, 215, 64, FLAGSHIP_CLOCK_F32,
+                         FLAGSHIP_MASS_EPS, "the flagship's fields, B=64")
+    t = model.tables
+    cold_ln_S = float(model.fields(state, CROSSBAR_VD).ln_S)
+    fr = model.fields(after_serial, CROSSBAR_VD)
+    scale = rate_scale(dev, model, after_serial, fr, cold_ln_S)
+    t0 = time.perf_counter()
+    f32 = run_event_loop_batched(
+        after_serial.element, fr.charge, fr.P, fr.etype, t.act_neigh,
+        GeneratorDraws.seeded(8, dev), p.freq, batch=64, max_batches=FLAGSHIP_F32_PROBE_BATCHES,
+        act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S, mass_eps=FLAGSHIP_MASS_EPS,
+        clock_f32=True)
+    probe = {"ln_S": float(fr.ln_S), "terminating_gap_scaled": math.exp(float(fr.ln_S)) / p.freq,
+             "f32_max": torch.finfo(torch.float32).max, "max_batches": FLAGSHIP_F32_PROBE_BATCHES,
+             "events": f32.n_events, "batches": f32.n_batches, "done": f32.done,
+             "wall_s": time.perf_counter() - t0}
+    print("chip_smoke: flagship, f32 clocks on the first batched superstep's fields: "
+          + json.dumps(probe))
+    steps = run.steps
+    batched = [r for r in steps if r["kind"] == "batched"]
+    line = {
+        "command": "tools/bench_crossbar.py 215 (BENCH_crossbar_r05.json's options)",
+        "slots": lat.N, "sites": int((lat.element0 != int(ELEM.NULL_ELEMENT)).sum()),
+        "Vd": CROSSBAR_VD,
+        "model": desc, **build, "warmup_s": warmup_s, "warmup": warm,
+        "serial_incremental": {k: steps[0][k] for k in (
+            "wall_s", "events", "cg_iterations", "host_syncs", "host_syncs_per_event")}
+        | {"ms_per_event": 1e3 * steps[0]["wall_s"] / steps[0]["events"]},
+        "batched": batched_summary(batched), "steps": steps, "kmc_time": run.kmc_times,
+        **launches, "peak_mem_gb": peak, "replay": replay, "clock_f32_probe": probe,
+        "rate_scale": scale, "kernels_at_this_shape": at_shape,
+    }
+    print("chip_smoke: flagship " + json.dumps({k: line[k] for k in (
+        "slots", "build_s", "model_s", "warmup_s", "peak_mem_gb")}))
+    return line, None
+
+
+def crossbar_lines(lines):
+    """(name, line) of each run that held the kernels at its own shapes:
+    the batched phase's crossbars and the flagship."""
+    out = [(name, line) for name, line in lines.get("batched", {}).items()
+           if name.startswith("crossbar")]
+    return out + ([("flagship", lines["flagship"])] if "flagship" in lines else [])
+
+
+PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver", "sharded",
+          "flagship")
 OPT_IN = ("nccl",)          # run only when --only names them: they need several cards
 
 
@@ -2909,7 +3264,8 @@ def main(argv=None) -> int:
                       ("driver", lambda: run_driver(dev, sweep_rows or None)),
                       ("sharded", lambda: run_sharded(dev, sweep_rows or None, sweep_held)),
                       ("nccl", lambda: run_sharded(dev, sweep_rows or None, sweep_held,
-                                                   device="cuda", backend="nccl"))):
+                                                   device="cuda", backend="nccl")),
+                      ("flagship", lambda: run_flagship(dev))):
         if name in phases:
             t0 = time.perf_counter()
             lines[name], problem = run()
@@ -2940,16 +3296,15 @@ def main(argv=None) -> int:
                                      if key == "dia_launches" else [0] * n) for n in (2, 4)}
             if key == "dia_launches":
                 kern["row_window"] = sh["row_window"]
-        # the crossbar path: the same keys once more, read at its shapes (the
-        # fused CG's general kernel there) and counted over its supersteps
-        for name, line in lines.get("batched", {}).items():
-            if name.startswith("crossbar"):
-                kern[name + "_path"] = {"launches": line[key],
-                                        **line["kernels_at_this_shape"][kern["name"]]}
+        # the crossbar paths and the flagship: the same keys once more, read
+        # at their shapes (the fused CG's general kernel there) and counted
+        # over their supersteps
+        for name, line in crossbar_lines(lines):
+            kern[name + "_path"] = {"launches": line[key],
+                                    **line["kernels_at_this_shape"][kern["name"]]}
     if kernels:                      # now in the kernels line
-        for name, line in lines.get("batched", {}).items():
-            if name.startswith("crossbar"):
-                del line["kernels_at_this_shape"]
+        for _, line in crossbar_lines(lines):
+            del line["kernels_at_this_shape"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

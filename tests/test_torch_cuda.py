@@ -496,3 +496,100 @@ def test_sharded_superstep_on_one_card_matches_one_rank(card):
     assert torch.equal(outs[0][0], state.potential_charge.cpu())
     assert outs[0][1] == float(state.kmc_time)
     assert all(o[2] == o[3] for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["neighbors", "k_adjacency_pbc", "cutoff"])
+def test_lattice_device_builder_card_matches_kdtree(card, kind):
+    """The on-card list builder equals the k-d tree entry for entry on the
+    disordered stand-in's generator at n_yz = 12 (7,772 sites), in blocks of
+    500 rows and in the block the card's free memory gives."""
+    from akmc_tpu_torch import lattice, lattice_device
+    from akmc_tpu_torch.models.crossbar import synthetic_stack
+
+    e, x, y, z, dims, _ = synthetic_stack(n_yz=12)
+    pos = np.stack([x, y, z], 1)
+    dims = np.asarray(dims, np.float64)
+    for block in (500, None):
+        if kind == "cutoff":
+            got, gmax = lattice_device.build_cutoff_list_device(pos, e, 20.0, device=card,
+                                                                block=block)
+            want, wmax = lattice.build_cutoff_list(pos, e, 20.0)
+            assert gmax == wmax
+        else:
+            args = (pos, 3.5, 52) + ((dims, True) if kind == "k_adjacency_pbc" else ())
+            got = lattice_device.build_neighbor_list_device(*args, device=card, block=block)
+            want = lattice.build_neighbor_list(*args)
+        np.testing.assert_array_equal(got, want)
+
+
+def pair_at_a_rounding_of_the_cutoff():
+    """Sites 0 and 1 and a cutoff c with sqrt(d2) == c but d2 < c * c once
+    rounded (d2 as ``lattice._dist2`` forms it): the k-d tree's rule
+    (``site_dist < c``) leaves the pair out, the squared rule keeps it. Site
+    2 lies 1.0 from site 0 and beyond c from site 1."""
+    rng = np.random.default_rng(2)
+    while True:
+        v = rng.uniform(1.0, 2.0, 3)
+        d2 = v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
+        c = float(np.sqrt(d2))
+        if d2 < c * c:
+            return np.array([[0.0, 0.0, 0.0], v, [-1.0, 0.0, 0.0]]), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["neighbors", "cutoff"])
+def test_lattice_device_builder_card_rule_at_the_cutoff(card, kind):
+    """On a pair at a rounding of the cutoff (sqrt(d2) equal to it, d2 below
+    its square once rounded) the card keeps the k-d tree's rule: the pair is
+    left out, as ``site_dist < cutoff`` leaves it
+    (``tests/test_torch_lattice_device.py`` holds the same on the CPU)."""
+    from akmc_tpu_torch import lattice, lattice_device
+
+    pos, c = pair_at_a_rounding_of_the_cutoff()
+    if kind == "neighbors":
+        got = lattice_device.build_neighbor_list_device(pos, c, 3, device=card)
+        want = lattice.build_neighbor_list(pos, c, 3)
+    else:
+        e = np.array([int(lattice.ELEM.O)] * 3, np.int32)
+        got, _ = lattice_device.build_cutoff_list_device(pos, e, c, device=card)
+        want, _ = lattice.build_cutoff_list(pos, e, c)
+    np.testing.assert_array_equal(got, want)
+    assert 1 not in got[0] and got[0, 0] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_yz, oxide", [(6, 6), (16, 22)], ids=["one-block", "18-blocks"])
+def test_incremental_selection_card_matches_fresh(card, n_yz, oxide):
+    """The serial loop with carried block sums equals the fresh selection to
+    the bit on the card (rate table of one and of 18 blocks of 256 rows),
+    and fires the events the CPU fires."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.rng import ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = build_grid_crossbar(n_yz=n_yz, contact_slices=2, oxide_slices=oxide, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    rand = torch.from_numpy(ReferenceRNG(7).uniform(8192))
+    model = VCMModel(p, lat, device="cpu", rate_normalize=True)
+    t = model.tables
+    fr = model.fields(make_device_state(lat, p.background_temp, torch.device("cpu")), 8.0)
+    element = torch.as_tensor(lat.element0)
+    res = {}
+    for dev in (card, torch.device("cpu")):
+        for inc in (False, True):
+            res[dev.type, inc] = ev.run_event_loop(
+                element.to(dev), fr.charge.to(dev), fr.P.to(dev, copy=True), fr.etype.to(dev),
+                t.act_neigh.to(dev), rand.to(dev), p.freq, t.act_idx.to(dev),
+                t.abs2act.to(dev), t.act_zero_rows.to(dev), ln_S=fr.ln_S.to(dev),
+                incremental_select=inc)
+    f, i = res["cuda", False], res["cuda", True]
+    assert (i.n_events, i.draws_used, i.done) == (f.n_events, f.draws_used, f.done)
+    assert i.n_events >= 3
+    for a, b in ((i.element, f.element), (i.charge, f.charge), (i.P, f.P),
+                 (i.event_time, f.event_time)):
+        assert torch.equal(a, b)
+    c = res["cpu", True]
+    assert (c.n_events, c.draws_used) == (i.n_events, i.draws_used)
+    assert torch.equal(c.element, i.element.cpu())

@@ -407,6 +407,34 @@ def test_batched_superstep_raises_when_f32_clocks_cannot_fire(monkeypatch):
     assert stats["done"] and stats["n_events"] >= 1 and stats["event_time"] > 0.0
 
 
+def test_batched_superstep_returns_undone_when_its_batches_run_out_after_events(monkeypatch):
+    """A loop that fires events and then uses up its batches without a
+    terminating gap returns, as akmc_tpu's does, ``done`` False and a waiting
+    time of 0: the superstep keeps the events and leaves the clock where it
+    was (only a loop with no event raises)."""
+    from akmc_tpu_torch.models import vcm
+
+    p, lat = build_grid_crossbar(n_yz=8, contact_slices=3, oxide_slices=8, ti_slices=3,
+                                 defect_fraction=0.2, vacancy_concentration=0.1, seed=11)
+    model = TModel(convert.params(p), convert.lattice(lat), device="cpu", rate_normalize=True)
+    state = convert.state(j_state(lat, p.background_temp))
+    seen = []
+
+    def few_batches(*args, **kw):
+        seen.append(tev.run_event_loop_batched(*args, **{**kw, "max_batches": 3}))
+        return seen[-1]
+
+    monkeypatch.setattr(vcm, "run_event_loop_batched", few_batches)
+    draws = tev.GeneratorDraws.seeded(5, "cpu")
+    new, stats = model.superstep_native_batched(state, 8.0, draws, batch=1)
+    res = seen[0]
+    assert (res.done, res.n_events, res.n_batches, res.event_time_h) == (False, 3, 3, 0.0)
+    assert (stats["done"], stats["n_events"], stats["n_batches"], stats["event_time"]) == (
+        False, 3, 3, 0.0)
+    assert float(new.kmc_time) == float(state.kmc_time)
+    assert torch.equal(new.element, res.element) and not torch.equal(new.element, state.element)
+
+
 @pytest.fixture(scope="module")
 def grid8():
     return build_grid_crossbar(n_yz=8, contact_slices=3, oxide_slices=8, ti_slices=3,
