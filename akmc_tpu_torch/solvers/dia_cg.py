@@ -39,6 +39,7 @@ from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg
 
 _KERNEL = "dia_cg"
 CHUNK = 256      # rows per first-level reduction: kChunk of csrc/dia_cg.cu
+MASK_DIAGS = 32  # diagonals per group of packed mask words: kMaskDiags of csrc/dia_cg.cu
 _WARP = 32
 _ERRORS = {
     -1: "more offset diagonals than the kernel stages",
@@ -92,6 +93,44 @@ def blocked_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a . b in the fixed order of the fused kernel, which depends on the
     length alone: ``chunk_sums``, then ``finish_chunks``."""
     return finish_chunks(chunk_sums(a, b))
+
+
+def pack_row_masks_plain(op: DiaOperator, cvac: torch.Tensor) -> torch.Tensor:
+    """The per-row words the fused kernel packs from the codes and ``cvac``
+    once per solve and reads in every iteration after: a (3, groups, N)
+    int64 tensor of 32-bit words, groups = ceil(D / 32). Bit b of group g
+    stands for diagonal d = 32 g + b of row i, and j = i + o_d:
+    ``[0]`` edge: code != 0 and 0 <= j < N; ``[1]`` high: an edge of code 2;
+    ``[2]`` cvn: an edge into a conductive vacancy (``cvac[j]``)."""
+    n = op.n
+    words = torch.zeros((3, -(-op.D // MASK_DIAGS), n), dtype=torch.int64, device=op.device)
+    idx = torch.arange(n, device=op.device)
+    for d, o in enumerate(op.offsets_list):
+        g, b = divmod(d, MASK_DIAGS)
+        j = idx + o
+        edge = (op.diags[d] != 0) & (j >= 0) & (j < n)
+        for plane, bits in enumerate((edge, edge & (op.diags[d] == 2),
+                                      edge & cvac[j.clamp(0, n - 1)])):
+            words[plane, g] |= bits.to(torch.int64) << b
+    return words
+
+
+def masks_matvec_plain(words: torch.Tensor, offsets, val_low: float, val_high: float,
+                       v: torch.Tensor):
+    """(W v, adjacency (cvac ? v : 0)) decoded from ``pack_row_masks_plain``'s
+    words as the kernel decodes them: per row, the set edge bits in ascending
+    d, each term added only where its bit is set."""
+    n = v.shape[0]
+    idx = torch.arange(n, device=v.device)
+    lo, hi = (torch.tensor(w, dtype=v.dtype, device=v.device) for w in (val_low, val_high))
+    mv, corr = torch.zeros_like(v), torch.zeros_like(v)
+    for d, o in enumerate(offsets):
+        g, b = divmod(d, MASK_DIAGS)
+        edge, high, cvn = (((words[plane, g] >> b) & 1).bool() for plane in range(3))
+        vj = v[(idx + o).clamp(0, n - 1)]
+        mv = torch.where(edge, mv + torch.where(high, hi, lo) * vj, mv)
+        corr = torch.where(cvn, corr + vj, corr)
+    return mv, corr
 
 
 def dia_cg_solve_plain(
@@ -191,18 +230,24 @@ def dia_cg_solve_sharded(
                     r=r)
 
 
-def _launcher():
-    """The library's C entry point, built and typed on first use."""
+def _library():
+    """The kernel's library, built and its entry points typed on first use."""
     lib = cuda_build.load(_KERNEL)
     fn = lib.dia_cg_solve_launch
     if fn.argtypes is None:
         if lib.dia_cg_chunk() != CHUNK:
             raise RuntimeError("csrc/dia_cg.cu and solvers/dia_cg.py disagree on the chunk size")
         v, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
+        lib.dia_cg_workspace_doubles.argtypes = [i, ctypes.c_longlong]
+        lib.dia_cg_workspace_doubles.restype = ctypes.c_longlong
         fn.argtypes = [v, v, i, ctypes.c_longlong, d, d, v, v, v, v, v, v, v, d, i,
                        v, v, v, v, v, v, v, ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
-    return fn
+    return lib
+
+
+def _raise_launch_error(err: int) -> None:
+    raise RuntimeError(f"dia_cg_solve kernel launch failed: {_ERRORS.get(err, f'CUDA error {err}')}")
 
 
 _iteration_totals: Dict[int, torch.Tensor] = {}
@@ -244,15 +289,18 @@ def dia_cg_solve(
     for name, t in (("diag_i", diag_i), ("dgc", dgc), ("inv_diag", inv_diag),
                     ("rhs", rhs), ("x0", x0)):
         require_tensor(name, t, torch.float64, (n,), dev)
-    launch = _launcher()
-    chunks = -(-n // CHUNK)
+    lib = _library()
     out = torch.empty((2, n), dtype=torch.float64, device=dev)        # x, r
-    work = torch.empty(2 * n + 3 * chunks, dtype=torch.float64, device=dev)
     iterations = torch.empty((), dtype=torch.int32, device=dev)
     residual_sq = torch.empty((), dtype=torch.float64, device=dev)
     info = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
-        err = launch(
+        # z, two p buffers, the chunk sums; the streaming case's Ap and masks
+        size = lib.dia_cg_workspace_doubles(op.D, n)
+        if size < 0:      # an error code; a CUDA error e comes as -1000 - e
+            _raise_launch_error(size if size > -1000 else -1000 - size)
+        work = torch.empty(size, dtype=torch.float64, device=dev)
+        err = lib.dia_cg_solve_launch(
             op.diags.data_ptr(), op.offsets.data_ptr(), op.D, n, op.val_low, op.val_high,
             cvac.data_ptr(), is_int.data_ptr(), diag_i.data_ptr(), dgc.data_ptr(),
             inv_diag.data_ptr(), rhs.data_ptr(), x0.data_ptr(),
@@ -262,9 +310,7 @@ def dia_cg_solve(
             current_raw_stream(dev.index), info,
         )
     if err != 0:
-        raise RuntimeError(
-            f"dia_cg_solve kernel launch failed: {_ERRORS.get(err, f'CUDA error {err}')}"
-        )
+        _raise_launch_error(err)
     dia_cg_solve.launches += 1
     dia_cg_solve.last_grid = (info[0], bool(info[1]))
     return CGResult(x=out[0], iterations=iterations, residual_sq=residual_sq, r=out[1])

@@ -20,12 +20,15 @@ line is printed):
            the crossbar's K system from a cold start at two of the deck's
            biases, a warm start, a solve cut off by ``max_iterations``, and
            two random symmetric systems (a small one with far offsets; one
-           with D = 36 > 32 and N = 300,000, which takes the kernel's general
-           case with several chunks per block): iteration count equal and
+           with D = 36 > 32 and N = 300,000, which takes the kernel's
+           streaming case with several chunks per block): iteration count equal and
            ``x``, ``r``, ``residual_sq`` bit-equal to ``dia_cg_solve_plain``;
-           then timed per solve and per iteration beside the host-loop CG
-           (``jacobi_cg`` over the kernel matvec, one host read per iteration)
-           and beside the same number of grid syncs with no work between them;
+           then timed per solve and per iteration (CUDA events; one solve on
+           the host clock beside it) beside the host-loop CG (``jacobi_cg``
+           over the kernel matvec, one host read per iteration), beside the
+           same number of grid syncs with no work between them (the sync
+           floor) and beside the streaming bound of an iteration
+           (``cg_bound``), with the share of it reached;
 3. sweep   the port's main path through its driver: the whole 15-point I-V
            sweep of ``decks/iv_sweep_5nm.txt`` on a synthesized grid-native
            crossbar at n_yz=24 (58,752 slots), with every launch counter set
@@ -81,9 +84,11 @@ line is printed):
            slots, at 15 V with shifted-exponent rates; DIA operator and tiled
            pairwise asserted. First both kernels once more against their
            twins, on this crossbar's own operator and first K system (cold
-           start, the fused CG's general kernel: rows not in registers):
-           bit-equal, equal iteration count, timed, with the bound from this
-           shape; the ``kernels`` line carries these readings per kernel
+           start, the fused CG's streaming kernel: rows not in registers):
+           bit-equal, equal iteration count, timed, with the bounds from this
+           shape (the matvec beside the sparse product assembled on the card,
+           the fused CG per iteration beside its sync floor and streaming
+           bound); the ``kernels`` line carries these readings per kernel
            under ``crossbar_path``. One serial superstep (cold CG), six
            ``superstep_native_batched`` (B = 64, ``mass_eps`` 1e-3), six more
            with the f32 plane, f32 clocks, ``mass_eps`` 0.1 and ``k_extrap`` 1,
@@ -222,7 +227,11 @@ sweep, disordered, tiled, batched, full, driver, sharded, flagship) runs a
 part of it while developing;
 ``--only nccl`` (never run by default) runs the sharded phase's sweep and
 batched path, under the same checks, on 2 and 4 ranks with a card each over
-NCCL, on a machine with four cards. Needs one card, no network, and no JAX.
+NCCL, on a machine with four cards. ``--only schedules`` (never run by
+default) compiles copies of csrc/dia_cg.cu with the streaming case's other
+schedules (CG_SCHEDULES), holds each bit-equal to the twin and times each on
+the crossbars' cold K systems at n_yz = 64, 104 and 215. Needs one card, no
+network, and no JAX.
 """
 
 from __future__ import annotations
@@ -414,28 +423,27 @@ def crossbar_dia(n_yz: int):
 
 
 def library_product(diags, offsets, val_low, val_high, dev):
-    """One block-diagonal CSR matrix [[W, 0], [0, adjacency]] on the card:
-    ``M @ [x; xv]`` is the DIA function in one PyTorch sparse product."""
+    """One block-diagonal CSR matrix [[W, 0], [0, adjacency]] assembled on the
+    card from the codes: ``M @ [x; xv]`` is the DIA function in one PyTorch
+    sparse product. ``nonzero`` over the transposed codes lists the edges by
+    row, then by ascending offset, which is CSR's column order."""
     D, n = diags.shape
-    c = diags.cpu().numpy()
-    d_idx, rows = np.nonzero(c)
-    cols = rows + offsets.cpu().numpy()[d_idx]
+    codes = diags.to(dev)
+    rows, d_idx = torch.nonzero(codes.t() != 0, as_tuple=True)
+    cols = rows + offsets.to(dev)[d_idx]
     keep = (cols >= 0) & (cols < n)
-    d_idx, rows, cols = d_idx[keep], rows[keep], cols[keep]
-    w = np.where(c[d_idx, rows] == 2, val_high, val_low)
-    all_rows = np.concatenate([rows, rows + n])
-    all_cols = np.concatenate([cols, cols + n])
-    vals = np.concatenate([w, np.ones_like(w)])
-    order = np.lexsort((all_cols, all_rows))
-    crow = np.zeros(2 * n + 1, np.int64)
-    np.cumsum(np.bincount(all_rows, minlength=2 * n), out=crow[1:])
+    rows, d_idx, cols = rows[keep], d_idx[keep], cols[keep]
+    hi, lo = (torch.tensor(v, dtype=torch.float64, device=dev) for v in (val_high, val_low))
+    w = torch.where(codes[d_idx, rows] == 2, hi, lo)
+    ends = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    zero = torch.zeros(1, dtype=ends.dtype, device=dev)
+    crow = torch.cat([zero, ends, ends[-1] + ends])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # "sparse CSR support is in beta"
         return torch.sparse_csr_tensor(
-            torch.from_numpy(crow), torch.from_numpy(all_cols[order]),
-            torch.from_numpy(vals[order]), size=(2 * n, 2 * n), dtype=torch.float64,
-            check_invariants=True,
-        ).to(dev)
+            crow, torch.cat([cols, cols + n]), torch.cat([w, torch.ones_like(w)]),
+            size=(2 * n, 2 * n), dtype=torch.float64, check_invariants=True,
+        )
 
 
 def host_us(fn, reps: int = 2000) -> float:
@@ -601,9 +609,10 @@ def cg_bound(D: int, n: int, nnz: int, nnz_cv: int, k: int) -> dict:
     n_ops = k * (2 * nnz + nnz_cv + 4 * n) + (k - 1) * 11 * n
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F64_FLOP_PER_S * 1e3
-    # what an iteration streams if nothing stays on the chip: the codes, two
-    # masks, and eleven passes over f64 vectors
-    iter_bytes = D * n + 2 * n + 11 * n * 8
+    # what an iteration streams if nothing stays on the chip: the operator as
+    # the kernel packs it once per solve (three 32-bit words per row and group
+    # of 32 diagonals, and is_int) and eleven passes over f64 vectors
+    iter_bytes = (4 * 3 * -(-D // 32) + 1) * n + 11 * n * 8
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "iteration_bytes_bound_ms": iter_bytes / HBM_BYTES_PER_S * 1e3,
@@ -685,9 +694,6 @@ def compare_cg(name, op_c, ks, tol, max_it, want_regs):
 
 
 def check_dia_cg(dev, dia, meta, p, lat) -> dict:
-    import ctypes
-
-    from akmc_tpu_torch.ops import cuda_build
     from akmc_tpu_torch.ops.dia_matvec import dia_combined_matvec
     from akmc_tpu_torch.solvers import dia_cg
     from akmc_tpu_torch.solvers.cg import f64_vdot, jacobi_cg
@@ -743,32 +749,13 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3, res
 
-    call_ms = cuda_time_ms(fused, reps=20, warmup=2)
-    dev_ms = device_ms(fused, reps=20)
+    # one solve is one kernel of milliseconds: back-to-back solves by CUDA
+    # events time it, at every shape (cg_readings checks it on the host clock)
+    ms = cuda_time_ms(fused, reps=20, warmup=2)
     host_ms, host_res = wall_ms(host_loop, 2)
     plain_ms, _ = wall_ms(lambda: dia_cg.dia_cg_solve_plain(op, *ks, rtol, 10000), 1)
-    ms = dev_ms if dev_ms is not None else call_ms
     one_it_ms = cuda_time_ms(lambda: dia_cg.dia_cg_solve(op, *ks, rtol, 0), reps=200)
-
-    # the floor under an iteration: grid syncs alone on the solve's grid, the
-    # difference of a long and an empty run of them
-    sync_floor = cuda_build.load("dia_cg").dia_cg_sync_floor_launch
-    sync_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    sync_floor.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def syncs_only(count):
-        if sync_floor(blocks, count, stream) != 0:
-            fail("the grid-sync kernel did not launch")
-
-    n_syncs = 3 * k
-    sync_ms = (cuda_time_ms(lambda: syncs_only(n_syncs), reps=20, warmup=2)
-               - cuda_time_ms(lambda: syncs_only(0), reps=20, warmup=2)) / n_syncs
-
-    nnz = int((op.diags != 0).sum())
-    cv_f = ks.cvac.to(torch.float64)
-    nnz_cv = int(op.matvec(cv_f, cv_f)[1].sum())      # edges into a conductive vacancy
-    bound = cg_bound(D, n, nnz, nnz_cv, k)
+    bound, readings = cg_readings(dev, op, ks, rtol, k, blocks, True, ms)
     return {
         "name": "dia_cg_solve",
         "route": "cuda",
@@ -785,18 +772,59 @@ def check_dia_cg(dev, dia, meta, p, lat) -> dict:
         "library": None,                       # no single PyTorch call computes a CG
         "host_loop_ms": host_ms,               # jacobi_cg over the kernel matvec, same inputs
         "host_loop_iterations": host_res.iterations,
-        "iterations": k,
-        "ms_per_iteration": ms / k,
         "host_loop_ms_per_iteration": host_ms / host_res.iterations,
-        "iteration_bytes_bound_ms": bound["iteration_bytes_bound_ms"],
-        "call_ms": call_ms,                    # back-to-back solves, wrapper included
+        **readings,
         "launch_only_call_ms": one_it_ms,      # max_iterations=0: start, two dots, no iteration
-        "grid_blocks": blocks,
-        "grid_syncs_per_iteration": 3,
-        "grid_sync_ms": sync_ms,               # one sync of this grid with no work around it
-        "time_source": "profiler device time" if dev_ms is not None else "CUDA events",
         "timed_case": f"n_yz={N_YZ} crossbar, cold start, Vd={Vd}",
         "shape": bound["shape"],
+    }
+
+
+def cg_readings(dev, op, ks, rtol, k, blocks, regs, solve_ms):
+    """(cg_bound, readings) of one fused solve of ``k`` iterations that took
+    ``solve_ms`` by CUDA events: per iteration its time, its grid syncs, the
+    floor those syncs set on this grid (the same syncs with no work between
+    them: a long run less an empty one), the streaming bound (``cg_bound``'s
+    bytes of an iteration that keeps nothing on the chip) and the share of
+    it reached; beside them one solve on the host clock, synchronised, which
+    checks the CUDA-event time (PERF.md §7)."""
+    import ctypes
+
+    from akmc_tpu_torch.ops import cuda_build
+    from akmc_tpu_torch.solvers import dia_cg
+
+    lib = cuda_build.load("dia_cg")
+    floor = lib.dia_cg_sync_floor_launch
+    floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    floor.restype = ctypes.c_int
+    syncs = lib.dia_cg_syncs_per_iteration()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def syncs_only(iterations):
+        if floor(blocks, iterations, stream) != 0:
+            fail("the grid-sync kernel did not launch")
+
+    sync_ms = (cuda_time_ms(lambda: syncs_only(k), reps=20, warmup=2)
+               - cuda_time_ms(lambda: syncs_only(0), reps=20, warmup=2)) / (syncs * k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    nnz = int((op.diags != 0).sum())
+    cv = ks.cvac.to(torch.float64)
+    nnz_cv = int(op.matvec(cv, cv)[1].sum())      # edges into a conductive vacancy
+    bound = cg_bound(op.D, op.n, nnz, nnz_cv, k)
+    per_iteration = solve_ms / k
+    return bound, {
+        "iterations": k, "ms_per_iteration": per_iteration, "time_source": "CUDA events",
+        "wall_ms_one_solve": wall_ms,
+        "grid_blocks": blocks, "rows_in_registers": regs,
+        "grid_syncs_per_iteration": syncs, "grid_sync_ms": sync_ms,
+        "sync_floor_ms_per_iteration": syncs * sync_ms,
+        "iteration_bytes_bound_ms": bound["iteration_bytes_bound_ms"],
+        "streaming_bound_ms": k * bound["iteration_bytes_bound_ms"],
+        "share_of_streaming_bound": bound["iteration_bytes_bound_ms"] / per_iteration,
     }
 
 
@@ -1416,13 +1444,13 @@ def batched_law(dev) -> dict:
     return line
 
 
-def crossbar_kernels(dev, model, state, n_yz: int, library: bool) -> dict:
+def crossbar_kernels(dev, model, state, n_yz: int) -> dict:
     """Both CUDA kernels on the crossbar's own operator and K system, as its
     first superstep meets them (cold start at CROSSBAR_VD, the charges of
     that superstep's charge update), each held bit-equal to its plain twin
-    and timed beside it: name -> the readings of the ``kernels`` line at this
-    shape. The fused CG must have taken its general kernel (rows not in
-    registers). ``library`` also times the one-call sparse product."""
+    and timed beside it, the matvec also beside the one-call sparse product:
+    name -> the readings of the ``kernels`` line at this shape. The fused CG
+    must have taken its streaming kernel (rows not in registers)."""
     from akmc_tpu_torch.ops import dia_matvec as mv
     from akmc_tpu_torch.ops.charge import update_charge_compact
     from akmc_tpu_torch.solvers import dia_cg
@@ -1459,16 +1487,15 @@ def crossbar_kernels(dev, model, state, n_yz: int, library: bool) -> dict:
     calls = {"kernel": lambda: op.matvec(got.x, xv),
              "plain": lambda: mv.dia_combined_matvec_plain(op.diags, offs, op.val_low,
                                                            op.val_high, got.x, xv)}
-    if library:
-        lib = library_product(op.diags, op.offsets, op.val_low, op.val_high, dev)
-        xcat = torch.cat([got.x, xv])
-        y, v = op.matvec(got.x, xv)
-        ref = torch.cat([y, v])
-        lib_err = float(((lib @ xcat) - ref).abs().max() / ref.abs().max())
-        if lib_err > MATVEC_RTOL:
-            fail(f"the library yardstick computes another function on {where} "
-                 f"(rel err {lib_err:.3e})")
-        calls["library"] = lambda: lib @ xcat
+    lib = library_product(op.diags, op.offsets, op.val_low, op.val_high, dev)
+    xcat = torch.cat([got.x, xv])
+    y, v = op.matvec(got.x, xv)
+    ref = torch.cat([y, v])
+    lib_err = float(((lib @ xcat) - ref).abs().max() / ref.abs().max())
+    if lib_err > MATVEC_RTOL:
+        fail(f"the library yardstick computes another function on {where} "
+             f"(rel err {lib_err:.3e})")
+    calls["library"] = lambda: lib @ xcat
     mv_ms, mv_call_ms = {}, {}
     for name, fn in calls.items():
         reps = 20 if name == "plain" else 200
@@ -1479,30 +1506,137 @@ def crossbar_kernels(dev, model, state, n_yz: int, library: bool) -> dict:
     def fused():
         return dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
 
-    # a solve is one kernel of several milliseconds, so back-to-back solves by
-    # CUDA events time the kernel; the profiler's sum is printed beside it
     cg_ms = cuda_time_ms(fused, reps=10, warmup=2)
-    cg_profiler_ms = device_ms(fused, reps=10)
+    cb, readings = cg_readings(dev, op, ks, rtol, k, blocks, False, cg_ms)
     nnz = int((op.diags != 0).sum())
-    nnz_cv = int(op.matvec(cv, cv)[1].sum())
-    mb, cb = matvec_bound(D, n, nnz), cg_bound(D, n, nnz, nnz_cv, k)
+    mb = matvec_bound(D, n, nnz)
     return {
         "dia_combined_matvec": {
             "n_yz": n_yz, "bitwise_equal_to_twin": True, "max_abs_err": max_abs,
             "ms": mv_ms["kernel"], "plain_ms": mv_ms["plain"], "bound_ms": mb["bound_ms"],
-            "bound_by": mb["bound_by"], "library_ms": mv_ms.get("library"),
+            "bound_by": mb["bound_by"], "library_ms": mv_ms["library"],
             "call_ms": mv_call_ms, "shape": mb["shape"],
         },
         "dia_cg_solve": {
             "n_yz": n_yz, "bitwise_equal_to_twin": True, "max_abs_err": 0.0,
             "ms": cg_ms, "plain_ms": cg_plain_ms, "bound_ms": cb["bound_ms"],
-            "bound_by": cb["bound_by"], "library_ms": None, "iterations": k,
-            "ms_per_iteration": cg_ms / k, "time_source": "CUDA events",
-            "profiler_device_ms": cg_profiler_ms, "grid_blocks": blocks,
-            "rows_in_registers": False,
-            "iteration_bytes_bound_ms": cb["iteration_bytes_bound_ms"], "shape": cb["shape"],
+            "bound_by": cb["bound_by"], "library_ms": None, **readings, "shape": cb["shape"],
         },
     }
+
+
+# Streaming-case schedules of csrc/dia_cg.cu that ``--only schedules`` times
+# against each other on the crossbars' cold K systems: name -> the values of
+# the file's constexpr switches in that build, over CG_SCHEDULE_BASE (the
+# values the file ships with).
+CG_SCHEDULE_BASE = {"kRows": "1", "kContiguousRuns": "false", "kPrefetch": "false",
+                    "kGatherStream": "4", "kStreamBlocksPerSM": "4", "kLoadBatch": "8"}
+CG_SCHEDULES = {
+    "one row (as built)": {},
+    "one row, contiguous runs": {"kContiguousRuns": "true"},
+    "one row, cp.async masks": {"kPrefetch": "true"},
+    "one row, eight gathers": {"kGatherStream": "8"},
+    "one row, three blocks per SM": {"kStreamBlocksPerSM": "3"},
+    "one row, five blocks per SM": {"kStreamBlocksPerSM": "5"},
+    "one row, six blocks per SM": {"kStreamBlocksPerSM": "6"},
+    "one row, 16 chunk sums in flight": {"kLoadBatch": "16"},
+    "one row, 32 chunk sums in flight": {"kLoadBatch": "32"},
+    "two rows": {"kRows": "2"},
+    "two rows, contiguous runs": {"kRows": "2", "kContiguousRuns": "true"},
+    "two rows, cp.async masks": {"kRows": "2", "kPrefetch": "true"},
+}
+SCHEDULE_N_YZ = (64, 104, 215)
+
+
+def schedule_build(name: str, values: dict):
+    """Start ``nvcc`` on a copy of csrc/dia_cg.cu with ``values`` in place of
+    its constexpr ones: (library path, process)."""
+    import re
+
+    from akmc_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "dia_cg.cu").read_text()
+    for key, value in values.items():
+        src, found = re.subn(rf"(constexpr \w+ {key} = )[^;]+;", rf"\g<1>{value};", src)
+        if found != 1:
+            fail(f"csrc/dia_cg.cu has no constexpr {key}")
+    out = cuda_build.BUILD_DIR / "schedules"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / (re.sub(r"\W+", "-", name) + ".cu")
+    cu.write_text(src)
+    so = cu.with_suffix(".so")
+    cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so), str(cu)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def run_schedules(dev):
+    """(schedules line, None): each build of CG_SCHEDULES held bit-equal to the
+    twin and timed by CUDA events on the cold K system (15 V) of each crossbar
+    of SCHEDULE_N_YZ, in the order of the table and then backwards; per
+    shape its ms per iteration and share of the streaming bound."""
+    import ctypes
+    import gc
+
+    from akmc_tpu_torch.ops import cuda_build
+    from akmc_tpu_torch.ops.charge import update_charge_compact
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers.dia import k_system
+    from akmc_tpu_torch.state import make_device_state
+
+    started = {name: schedule_build(name, {**CG_SCHEDULE_BASE, **values})
+               for name, values in CG_SCHEDULES.items()}
+    libs, ptxas = {}, {}
+    for name, (so, proc) in started.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed for the schedule {name!r}:\n{text}")
+        ptxas[name] = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+        libs[name] = ctypes.CDLL(str(so))
+        print(f"chip_smoke: schedule {name!r}: {' | '.join(ptxas[name])}")
+    own = cuda_build.load("dia_cg")
+    shapes = {}
+    try:
+        for n_yz in SCHEDULE_N_YZ:
+            p, lat, model, _, _ = crossbar_model(dev, n_yz)
+            state = make_device_state(lat, p.background_temp, dev)
+            t = model.tables
+            op = model.dia.operator(model.dia_meta)
+            charge = update_charge_compact(state.element, state.charge, t.neigh_idx,
+                                           t.any_metal_nbr, model.vmax)
+            ks = k_system(model.dia, model.dia_meta, state.element, charge,
+                          state.potential_boundary, CROSSBAR_VD, p.high_G, p.low_G,
+                          p.num_atoms_first_layer)
+            del model, state, lat, charge
+            rtol = 1e-14 * (op.n - 2 * p.num_atoms_first_layer)
+            ref = dia_cg.dia_cg_solve_plain(op, *ks, rtol, 10000)
+            bound = cg_bound(op.D, op.n, 0, 0, ref.iterations)["iteration_bytes_bound_ms"]
+            ms = {name: [] for name in libs}
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    cuda_build._loaded["dia_cg"] = libs[name]
+                    got = dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
+                    if not (int(got.iterations) == ref.iterations and torch.equal(got.x, ref.x)
+                            and torch.equal(got.r, ref.r)
+                            and torch.equal(got.residual_sq, ref.residual_sq)):
+                        fail(f"the schedule {name!r} is not bit-equal to the twin at n_yz={n_yz}")
+                    ms[name].append(cuda_time_ms(
+                        lambda: dia_cg.dia_cg_solve(op, *ks, rtol, 10000), reps=10, warmup=2))
+            k = ref.iterations
+            shapes[f"n_yz={n_yz}"] = {
+                "N": op.n, "D": op.D, "iterations": k, "blocks": dia_cg.dia_cg_solve.last_grid[0],
+                "iteration_bytes_bound_ms": bound,
+                "ms_per_iteration": {name: [v / k for v in ms[name]] for name in libs},
+                "share_of_streaming_bound": {name: bound * k * len(v) / sum(v)
+                                             for name, v in ms.items()},
+            }
+            print(f"chip_smoke: schedules at n_yz={n_yz}: " + json.dumps(shapes[f"n_yz={n_yz}"]))
+            del op, ks, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        cuda_build._loaded["dia_cg"] = own
+    return {"base": CG_SCHEDULE_BASE, "schedules": CG_SCHEDULES, "ptxas": ptxas,
+            "shapes": shapes}, None
 
 
 def crossbar_model(dev, n_yz: int, **model_kw):
@@ -1700,7 +1834,7 @@ def incremental_against_fresh(dev, model, state) -> dict:
             "ms_per_event_incremental": 1e3 * wb / sb["n_events"]}
 
 
-def batched_crossbar(dev, n_yz: int, depth: int, library: bool, incremental: bool = False) -> dict:
+def batched_crossbar(dev, n_yz: int, depth: int, incremental: bool = False) -> dict:
     """Supersteps of the production path on the full-width crossbar:
     one serial, ``depth`` of each batched kind, one module-timed; with
     ``incremental``, then one serial superstep from the initial state with
@@ -1713,8 +1847,7 @@ def batched_crossbar(dev, n_yz: int, depth: int, library: bool, incremental: boo
     state = make_device_state(lat, p.background_temp, dev)
     # the kernels against their twins at this path's shapes, before the counts
     # are set to 0: these launches are not the path's
-    at_shape = (crossbar_kernels(dev, model, state, n_yz, library=library)
-                if dev.type == "cuda" else None)
+    at_shape = crossbar_kernels(dev, model, state, n_yz) if dev.type == "cuda" else None
     since = reset_launches(dev, model)
     run = CrossbarSteps(dev, model, state, BufferedStream(ReferenceRNG(p.rnd_seed_kmc)),
                         GeneratorDraws.seeded(7, dev))
@@ -1819,12 +1952,9 @@ def batched_driver(dev, serial_rows) -> dict:
 def run_batched(dev, widths, serial_rows):
     """(batched line, None): each part fails the run on its own."""
     line = {"replay": batched_replay(dev), "law": batched_law(dev),
-            "crossbar": batched_crossbar(dev, widths[0], depth=6, library=True,
-                                         incremental=True)}
-    # the sparse-product yardstick is assembled on the host, which at the
-    # larger widths would take longer than every check of the phase
+            "crossbar": batched_crossbar(dev, widths[0], depth=6, incremental=True)}
     for n_yz in widths[1:]:
-        line[f"crossbar_n_yz_{n_yz}"] = batched_crossbar(dev, n_yz, depth=3, library=False)
+        line[f"crossbar_n_yz_{n_yz}"] = batched_crossbar(dev, n_yz, depth=3)
     line["driver"] = batched_driver(dev, serial_rows)
     return line, None
 
@@ -3152,7 +3282,7 @@ def run_flagship(dev):
     t0 = time.perf_counter()
     warm = model.warmup(state, CROSSBAR_VD, batched=64)
     warmup_s = time.perf_counter() - t0
-    at_shape = crossbar_kernels(dev, model, state, FLAGSHIP_N_YZ, library=False)
+    at_shape = crossbar_kernels(dev, model, state, FLAGSHIP_N_YZ)
 
     since = reset_launches(dev, model)
     run = CrossbarSteps(dev, model, state, BufferedStream(ReferenceRNG(p.rnd_seed_kmc)),
@@ -3214,7 +3344,7 @@ def crossbar_lines(lines):
 
 PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver", "sharded",
           "flagship")
-OPT_IN = ("nccl",)          # run only when --only names them: they need several cards
+OPT_IN = ("nccl", "schedules")   # run only when --only names them
 
 
 def main(argv=None) -> int:
@@ -3265,7 +3395,8 @@ def main(argv=None) -> int:
                       ("sharded", lambda: run_sharded(dev, sweep_rows or None, sweep_held)),
                       ("nccl", lambda: run_sharded(dev, sweep_rows or None, sweep_held,
                                                    device="cuda", backend="nccl")),
-                      ("flagship", lambda: run_flagship(dev))):
+                      ("flagship", lambda: run_flagship(dev)),
+                      ("schedules", lambda: run_schedules(dev))):
         if name in phases:
             t0 = time.perf_counter()
             lines[name], problem = run()
@@ -3297,7 +3428,7 @@ def main(argv=None) -> int:
             if key == "dia_launches":
                 kern["row_window"] = sh["row_window"]
         # the crossbar paths and the flagship: the same keys once more, read
-        # at their shapes (the fused CG's general kernel there) and counted
+        # at their shapes (the fused CG's streaming kernel there) and counted
         # over their supersteps
         for name, line in crossbar_lines(lines):
             kern[name + "_path"] = {"launches": line[key],

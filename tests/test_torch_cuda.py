@@ -107,19 +107,57 @@ def _k_solve_inputs(dev):
     return dia.operator(meta), ks, 1e-14 * (lat.N - 2 * p.num_atoms_first_layer)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("max_iterations", [10000, 5, 0])
-def test_fused_cg_matches_twin(card, max_iterations):
-    from akmc_tpu_torch.solvers import dia_cg
+# The fused CG's cases. The toy crossbar (rows None) takes the register-
+# resident kernel; the random K systems (``chip_smoke.py::random_k_system``)
+# take the streaming kernel: more chunks than the resident grid holds (about
+# 67,000 rows on an H100) or D > 32; N is not a multiple of 256, and each
+# block walks several chunks (16 at 1,000,003 rows).
+STREAM_D32 = [1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610, 987, 150000]
+STREAM_D36 = STREAM_D32[:-1] + [1597, 2584, 150000]
+FUSED_CASES = {
+    # name: (rows, positive offsets or None for the toy crossbar, warm, max_iterations)
+    "resident": (None, None, False, 10000),
+    "resident-warm": (None, None, True, 10000),
+    "resident-max10": (None, None, False, 10),
+    "resident-max0": (None, None, False, 0),
+    "stream-D32": (300_001, STREAM_D32, False, 500),
+    "stream-D32-sixteen-chunks-per-block": (1_000_003, STREAM_D32, False, 500),
+    "stream-D36": (300_001, STREAM_D36, False, 500),
+    "stream-D36-warm": (300_001, STREAM_D36, True, 500),
+    "stream-max0": (300_001, STREAM_D32, False, 0),
+    "stream-max10": (300_001, STREAM_D32, False, 10),
+}
 
-    op, ks, rtol = _k_solve_inputs(card)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_cg_matches_twin(card, case):
+    """Each of the kernel's two cases against the twin, bit for bit with
+    equal iteration counts: cold, warm and cut solves, one launch each."""
+    from akmc_tpu_torch.solvers import dia_cg
+    from chip_smoke import random_k_system
+
+    n, offsets, warm, max_it = FUSED_CASES[case]
+    if offsets is None:
+        op, ks, rtol = _k_solve_inputs(card)
+    else:
+        op, ks = random_k_system(np.random.default_rng(n), n, offsets, card)
+        rtol = 1e-10
+    if warm:      # start from the solution of a neighbouring right-hand side
+        first = dia_cg.dia_cg_solve(op, *ks, rtol, 10000)
+        ks = ks._replace(x0=torch.where(ks.is_int, first.x, 0.0), rhs=ks.rhs * 1.01)
     before = dia_cg.dia_cg_solve.launches
-    got = dia_cg.dia_cg_solve(op, *ks, rtol, max_iterations)
+    got = dia_cg.dia_cg_solve(op, *ks, rtol, max_it)
     torch.cuda.synchronize()
     assert dia_cg.dia_cg_solve.launches == before + 1
-    ref = dia_cg.dia_cg_solve_plain(op, *ks, rtol, max_iterations)
+    assert dia_cg.dia_cg_solve.last_grid[1] == case.startswith("resident")
+    ref = dia_cg.dia_cg_solve_plain(op, *ks, rtol, max_it)
     # same products, sums and reduction trees in the same order: equal bit for bit
     assert int(got.iterations) == ref.iterations
+    if max_it in (0, 10):
+        assert ref.iterations == max_it + 1
+    else:
+        assert 1 < ref.iterations < max_it
     assert torch.equal(got.x, ref.x) and torch.equal(got.r, ref.r)
     assert torch.equal(got.residual_sq, ref.residual_sq)
 
