@@ -26,6 +26,7 @@ the conduction-band edge once per bias point.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple, Union
@@ -38,6 +39,7 @@ from akmc_tpu_torch.config import KMCParameters
 from akmc_tpu_torch.device import resolve_device
 from akmc_tpu_torch.lattice import ELEM, Lattice, metal_mask
 from akmc_tpu_torch.ops.charge import update_charge_compact
+from akmc_tpu_torch.ops.device_loop import LoopGraphs
 from akmc_tpu_torch.ops.events import (
     GeneratorDraws,
     build_event_table,
@@ -85,6 +87,7 @@ from akmc_tpu_torch.solvers.poisson import solve_cb_edge, solve_potential_bounda
 from akmc_tpu_torch.state import DeviceState
 
 _ACTIVE = (ELEM.DEFECT, ELEM.O, ELEM.VACANCY, ELEM.OXYGEN_DEFECT)
+RAND_CHUNK = 8192    # mt19937 draws per serial loop call of a superstep
 
 
 @dataclass
@@ -209,6 +212,9 @@ class VCMModel:
         self.k_solves = 0           # K-system solves made so far (``_solve_boundary``)
         self.k_iterations = 0       # and the CG iterations of all of them
         self.fields_s = 0.0         # host seconds of the last ``_fields_grown``
+        # the event loops' programs (ops/device_loop.py): their state tensors
+        # and, on a card, their CUDA graphs, captured once per shape
+        self.loop_graphs = LoopGraphs()
         # sharded runs (parallel/mesh.py::shard_model): the rank's Mesh, every
         # rank's row ranges per sharded table, and the rank's rows of the
         # event table's row sites and neighbors
@@ -583,7 +589,7 @@ class VCMModel:
             element, charge, P, etype, t.act_neigh, rand_buf, self.params.freq,
             t.act_idx, t.abs2act, t.act_zero_rows,
             event_time_in=event_time_in, ln_S=ln_S,
-            incremental_select=self.event_select_incremental,
+            incremental_select=self.event_select_incremental, graphs=self.loop_graphs,
         )
         stream.advance(res.draws_used)
         return res
@@ -602,7 +608,7 @@ class VCMModel:
         return res._replace(n_events=n_events)
 
     def superstep(
-        self, state: DeviceState, Vd: float, stream, rand_chunk: int = 8192
+        self, state: DeviceState, Vd: float, stream, rand_chunk: int = RAND_CHUNK
     ) -> Tuple[DeviceState, dict]:
         """One full KMC superstep. ``stream`` is a ``rng.BufferedStream``
         over the KMC mt19937 stream; it advances by exactly the draws the
@@ -637,7 +643,8 @@ class VCMModel:
         replay gives (on a grown cap the carry is kept, where akmc_tpu's
         replay solves fresh). The event counts and waiting times come from
         the serial loop's own reads and the CG counts from the solves'; k
-        supersteps in one CUDA graph wait for loops that stay on the card."""
+        supersteps in one CUDA graph wait for the fields' host reads (cap
+        flags, compactions, the K solve's count) to go."""
         use_kc = self.k_carry_residual and isinstance(self.kop, BandedK)
         kc = "init" if use_kc else None
         stats_list = []
@@ -659,7 +666,7 @@ class VCMModel:
         return new_state, {"cg_iterations": fr.cg_iterations}
 
     def superstep_events_only(
-        self, state: DeviceState, stream, rand_chunk: int = 8192
+        self, state: DeviceState, stream, rand_chunk: int = RAND_CHUNK
     ) -> Tuple[DeviceState, dict]:
         """The event step on the state's current (stale) charge and summed
         potential (``solve_potential = 0``: the reference's event step reads
@@ -700,7 +707,7 @@ class VCMModel:
     # synchronisation, so it is slower than ``superstep``.
     # ------------------------------------------------------------------
     def superstep_timed(
-        self, state: DeviceState, Vd: float, stream, rand_chunk: int = 8192
+        self, state: DeviceState, Vd: float, stream, rand_chunk: int = RAND_CHUNK
     ) -> Tuple[DeviceState, dict]:
         t = self.tables
 
@@ -758,6 +765,7 @@ class VCMModel:
         res = run_event_loop_native(
             state.element, fr.charge, fr.P, fr.etype, t.act_neigh, draws, self.params.freq,
             act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S, zero_rows=t.act_zero_rows,
+            graphs=self.loop_graphs,
         )
         return self._finish(state, fr, res)
 
@@ -791,7 +799,7 @@ class VCMModel:
         res = run_event_loop_batched(
             state.element, fr.charge, fr.P, fr.etype, t.act_neigh, draws, self.params.freq,
             batch=batch, act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S,
-            mass_eps=mass_eps, clock_f32=clock_f32,
+            mass_eps=mass_eps, clock_f32=clock_f32, graphs=self.loop_graphs,
         )
         if not res.done and res.n_events == 0:
             raise RuntimeError(
@@ -806,18 +814,21 @@ class VCMModel:
 
 
     def warmup(self, state: DeviceState, Vd: float, full_physics: bool = False,
-               batched: int = 0) -> dict:
+               batched: int = 0, clock_f32: bool = False) -> dict:
         """What superstep 0 would otherwise pay for, done before it. On a
         CUDA device: both kernel sources built (``ops/cuda_build.py``) and,
         on the DIA operator, each kernel loaded by one K solve from ``state``
         at ``Vd`` cut off after its entry matvec (``max_iterations = 0``;
-        counted in ``k_solves`` and ``k_iterations`` as any solve). Under
+        counted in ``k_solves`` and ``k_iterations`` as any solve). On every
+        device the event loop the run takes is built, and on a card captured
+        into its CUDA graph (``_capture_loops``): the serial loop, or with
+        ``batched`` B the batched loop with B candidates and ``clock_f32``'s
+        clocks, drawing from a throwaway generator. Under
         ``full_physics`` the lazy tables the run uses: ``current_tables``,
-        ``power_band`` and, with the local heat model, ``local_heat``. With
-        ``batched`` B, a throwaway generator on the device draws once. No
+        ``power_band`` and, with the local heat model, ``local_heat``. No
         tensor of ``state`` changes and no stream is drawn from (akmc_tpu's
-        ``warmup`` compiles its executables instead). Returns the host
-        seconds of each item."""
+        ``warmup`` compiles its executables, while loops included, instead).
+        Returns the host seconds of each item."""
         out = {}
 
         def timed(name, fn):
@@ -835,15 +846,39 @@ class VCMModel:
             timed("cuda_build", lambda: cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL]))
             if isinstance(self.kop, DiaK):
                 timed("dia_kernels", lambda: self._empty_dia_solve(state, Vd))
+        timed(f"batched_B{batched}" if batched else "serial_loop",
+              lambda: self._capture_loops(state, batched, clock_f32))
         if full_physics:
             timed("current_tables", lambda: self.current_tables)
             timed("power_band", lambda: self.power_band)
             if self.params.solve_heating_local:
                 timed("local_heat", lambda: self.local_heat)
-        if batched:
-            timed(f"batched_B{batched}", lambda: GeneratorDraws.seeded(0, self.device).uniform(
-                (batched,), torch.float64, self.device))
         return out
+
+    def _capture_loops(self, state: DeviceState, batched: int, clock_f32: bool) -> None:
+        """The event loop a run takes, called once on a dead input (an
+        all-zero rate table, no batch allowed or a waiting time of inf) so
+        that its program is built, and on a card captured, into
+        ``loop_graphs`` at the shapes of this model's supersteps: nothing
+        fires, and the throwaway generator's draws are given back."""
+        t, dev = self.tables, self.device
+        P = torch.zeros(t.act_neigh.shape, dtype=torch.float64, device=dev)
+        etype = torch.zeros(t.act_neigh.shape, dtype=torch.int32, device=dev)
+        ln_S = torch.zeros((), dtype=torch.float64, device=dev) if self.rate_normalize else None
+        if batched:
+            run_event_loop_batched(
+                state.element, state.charge, P, etype, t.act_neigh,
+                GeneratorDraws.seeded(0, dev), self.params.freq, batch=batched, max_batches=0,
+                act_idx=t.act_idx, abs2act=t.abs2act, ln_S=ln_S, clock_f32=clock_f32,
+                graphs=self.loop_graphs)
+        else:
+            run_event_loop(
+                state.element, state.charge, P, etype, t.act_neigh,
+                torch.zeros(RAND_CHUNK, dtype=torch.float64, device=dev), self.params.freq,
+                t.act_idx, t.abs2act, t.act_zero_rows,
+                event_time_in=torch.full((), math.inf, dtype=torch.float64, device=dev),
+                ln_S=ln_S, incremental_select=self.event_select_incremental,
+                graphs=self.loop_graphs)
 
     def _empty_dia_solve(self, state: DeviceState, Vd: float) -> None:
         """One DIA K solve of ``state`` cut off after its entry matvec: one
@@ -1035,7 +1070,7 @@ class VCMModel:
 
     def superstep_full(
         self, state: DeviceState, Vd: float, stream, m_prev=None,
-        rand_chunk: int = 8192, rtol_scale=None,
+        rand_chunk: int = RAND_CHUNK, rtol_scale=None,
     ) -> Tuple[DeviceState, dict, torch.Tensor]:
         """The full-physics superstep, in the reference's module order
         (kmc_main.cpp:334-508): the fields (caps grown first), the current

@@ -19,6 +19,19 @@ from akmc_tpu_torch.lattice import ELEM
 from akmc_tpu_torch.ops.compact import compact_mask
 
 
+def update_charge(
+    element: torch.Tensor,        # (N,) int32
+    charge: torch.Tensor,         # (N,) int32 current charges
+    neigh_idx: torch.Tensor,      # (N, NN) int64, -1 padded
+    any_metal_nbr: torch.Tensor,  # (N,) bool, static
+) -> torch.Tensor:
+    """The charge rules over the dense (N, NN) neighbor gather: the oracle
+    that ``update_charge_compact`` equals."""
+    nbr_elem = element[neigh_idx.clamp(min=0)]
+    vac_nbrs = torch.sum((neigh_idx >= 0) & (nbr_elem == int(ELEM.VACANCY)), dim=1)
+    return _apply_rules(element, charge, any_metal_nbr, vac_nbrs)
+
+
 def update_charge_compact(
     element: torch.Tensor,        # (N,) int32
     charge: torch.Tensor,         # (N,) int32 current charges

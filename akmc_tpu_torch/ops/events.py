@@ -20,9 +20,14 @@ is the same serial law on a draws source (a device generator in production).
 ``run_event_loop_batched`` fires many events per iteration through the
 exponential-race formulation, the loop the crossbar-scale runs use.
 
-All are host loops over device tensors: the serial loops end every event with
-one read of (ok, waiting time) back to the host, the batched loop ends every
-batch with one read of its packed flags and counters.
+Each loop keeps its state on the device and runs k guarded steps between two
+host reads of one packed vector of flags and counters
+(``ops/device_loop.py``): on a card the k steps are one CUDA graph, replayed;
+on the CPU they run eagerly. ``akmc_tpu`` runs the same loops as one
+``lax.while_loop`` each. The host loops they replace stay as the plain
+versions (``run_event_loop_plain``, ``run_event_loop_native_plain``,
+``run_event_loop_batched_plain``: one read per event or per batch); the tests
+and ``chip_smoke.py`` hold each device loop bit-equal to its plain loop.
 """
 
 from __future__ import annotations
@@ -33,11 +38,20 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from akmc_tpu_torch.config import KB_EV
+from akmc_tpu_torch.config import KB_EV, Q_C
 from akmc_tpu_torch.lattice import ELEM, EVENT
+from akmc_tpu_torch.ops.device_loop import GraphLoop, Prefill, program
 
 _EPS_OVERFLOW = 1e-200   # exponential overflow guard (kmc_events.cu:150)
 _BLK = 256
+
+
+def v_solve(d: torch.Tensor, charge, sigma, k) -> torch.Tensor:
+    """Screened point-charge potential [V], d in meters (v_solve_gpu,
+    gpu_solvers.h:321-327). The rate table and the pair potentials inline
+    it: ``VCMModel``'s ``act_self2`` is v_solve(d, 2)."""
+    root2 = torch.sqrt(torch.tensor(2.0, dtype=d.dtype, device=d.device))
+    return charge * torch.special.erfc(d / (sigma * root2)) * k * Q_C / d
 
 
 def build_event_table(
@@ -144,6 +158,25 @@ def build_event_table(
     return P, etype, ln_S
 
 
+def _cumsum(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a vector in one association on every device
+    and in every run: rows of 256 each scanned along the row, then the row
+    totals (recursively), each row's exclusive offset added once. A 1-D
+    ``torch.cumsum`` of more than one tile runs CUB's decoupled look-back on
+    a card, whose association of floats depends on timing (a graph's replay
+    and an eager run differ in the last bits); a scan along the rows of a
+    matrix does not. On the CPU, up to 256 entries, it is ``torch.cumsum``
+    bit for bit."""
+    n = v.shape[0]
+    if n <= _BLK:
+        return torch.cumsum(v.reshape(1, n), dim=1).reshape(n)
+    m = -(-n // _BLK)
+    rows = torch.cat([v, v.new_zeros(m * _BLK - n)]).reshape(m, _BLK)
+    inner = torch.cumsum(rows, dim=1)
+    offsets = torch.cat([v.new_zeros(1), _cumsum(inner[:, -1])[:-1]])
+    return (offsets[:, None] + inner).reshape(-1)[:n]
+
+
 def _row(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``table[i]`` for a 0-d index tensor ``i`` on the tensors' device.
     Plain indexing with a 0-d tensor reads it back to the host first (one
@@ -170,18 +203,24 @@ def _block_sums(R: torch.Tensor, blocks: Optional[torch.Tensor] = None) -> torch
     return torch.sum(R2, dim=1)
 
 
-def _refresh_block_sums(bs: torch.Tensor, R: torch.Tensor, rows: torch.Tensor) -> None:
+def _refresh_block_sums(bs: torch.Tensor, R: torch.Tensor, rows: torch.Tensor,
+                        live: Optional[torch.Tensor] = None) -> None:
     """Bring the carried block sums ``bs`` up to date, in place, after the
     ``rows`` of R changed: only the blocks of those rows are summed again.
     Fewer blocks than _MIN_BLOCK_ROWS in all are summed whole, as the fresh
-    selection sums them."""
+    selection sums them. ``live`` (0-d bool on the device): a false one
+    keeps ``bs`` as it is."""
     if bs.shape[0] < _MIN_BLOCK_ROWS:
-        bs.copy_(_block_sums(R))
+        new = _block_sums(R)
+        bs.copy_(new if live is None else torch.where(live, new, bs))
         return
     blk = torch.div(rows, _BLK, rounding_mode="floor")
     if blk.shape[0] < _MIN_BLOCK_ROWS:
         blk = torch.cat([blk, blk[:1].expand(_MIN_BLOCK_ROWS - blk.shape[0])])
-    bs.index_copy_(0, blk, _block_sums(R, blk))
+    new = _block_sums(R, blk)
+    if live is not None:
+        new = torch.where(live, new, bs.index_select(0, blk))
+    bs.index_copy_(0, blk, new)
 
 
 def _select_site(R: torch.Tensor, r_sel: torch.Tensor, bs: Optional[torch.Tensor] = None):
@@ -194,7 +233,7 @@ def _select_site(R: torch.Tensor, r_sel: torch.Tensor, bs: Optional[torch.Tensor
     tensors."""
     n = R.shape[0]
     if n % _BLK:
-        cum = torch.cumsum(R, dim=0)
+        cum = _cumsum(R)
         total = cum[-1]
         target = r_sel * total
         site = torch.searchsorted(cum, target, right=True).clamp(0, n - 1)
@@ -206,12 +245,12 @@ def _select_site(R: torch.Tensor, r_sel: torch.Tensor, bs: Optional[torch.Tensor
 def _select_site_bs(R: torch.Tensor, bs: torch.Tensor, r_sel: torch.Tensor):
     """Second level of the selection given the block partial sums."""
     nb = bs.shape[0]
-    cumb = torch.cumsum(bs, dim=0)
+    cumb = _cumsum(bs)
     total = cumb[-1]
     target = r_sel * total
     blk = torch.searchsorted(cumb, target, right=True).clamp(0, nb - 1)
     prev_b = torch.where(blk > 0, torch.take(cumb, (blk - 1).clamp(min=0)), 0.0)
-    cumr = torch.cumsum(_row(R.reshape(nb, _BLK), blk), dim=0)
+    cumr = _cumsum(_row(R.reshape(nb, _BLK), blk))
     off = torch.searchsorted(cumr, target - prev_b, right=True).clamp(0, _BLK - 1)
     site = blk * _BLK + off
     prev = prev_b + torch.where(off > 0, torch.take(cumr, (off - 1).clamp(min=0)), 0.0)
@@ -254,23 +293,28 @@ def _touched_rows(neigh_idx, abs2act, zero_rows, site, jrow):
     return torch.cat([both, nbr])
 
 
-def _fire_event(code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel, bs=None):
+def _fire_event(code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel, bs=None,
+                live=None):
     """One event of the serial loops from the selection draw ``r_sel``: select
     (site, slot) by rate, execute it on the packed ``code`` vector (a new
     tensor), and zero every pair involving the two changed sites in ``P`` and
     ``R`` (in place). ``bs``: R's carried block sums, selected on and then
     refreshed in place. A table with no rate left (``ok`` false) changes
-    nothing. Returns (code, total, ok), ``total`` and ``ok`` 0-d tensors."""
+    nothing, and neither does a step of a device loop whose ``live`` (0-d
+    bool) is false. Returns (code, total, ok), ``total`` and ``ok`` 0-d
+    tensors."""
     nn = P.shape[1]
     site, prev, total, target = _select_site(R, r_sel, bs)
-    rowcum = torch.cumsum(_row(P, site), dim=0)
+    rowcum = _cumsum(_row(P, site))
     slot = torch.searchsorted(rowcum, target - prev, right=True).clamp(0, nn - 1)
     isel = site if act_idx is None else torch.take(act_idx, site).clamp(min=0)
     pair = site * nn + slot
     jsel = torch.take(neigh_idx, pair).clamp(min=0)
     ok = total > 0.0
+    write = ok if live is None else ok & live
 
-    code = torch.where(ok, _execute_event_code(code, isel, jsel, torch.take(etype, pair)), code)
+    code = torch.where(write, _execute_event_code(code, isel, jsel, torch.take(etype, pair)),
+                       code)
 
     # zero out every pair involving isel or jsel: the two sites' rows
     # and their neighbors' rows (duplicates write identical values)
@@ -284,11 +328,12 @@ def _fire_event(code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel
         | (rows_nbr == isel)
         | (rows_nbr == jsel)
     )
-    new_rows = torch.where(kill & ok, 0.0, rows_P)
+    new_rows = torch.where(kill & write, 0.0, rows_P)
     P[ar] = new_rows
-    R[ar] = torch.sum(new_rows, dim=1)
+    row_sums = torch.sum(new_rows, dim=1)
+    R[ar] = row_sums if live is None else torch.where(live, row_sums, R[ar])
     if bs is not None:
-        _refresh_block_sums(bs, R, ar)
+        _refresh_block_sums(bs, R, ar, live)
     return code, total, ok
 
 
@@ -328,7 +373,7 @@ class EventLoopResult(NamedTuple):
     event_time_h: float       # event_time as the loop last read it on the host
 
 
-def run_event_loop(
+def run_event_loop_plain(
     element: torch.Tensor,     # (N,) int32
     charge: torch.Tensor,      # (N,) int32
     P: torch.Tensor,           # (R, NN) rate table — updated IN PLACE
@@ -343,7 +388,9 @@ def run_event_loop(
     ln_S: Optional[torch.Tensor] = None,
     incremental_select: bool = False,
 ) -> EventLoopResult:
-    """Residence-time loop (execute_kmc_step_mpi, kmc_events.cu:430-528).
+    """Residence-time loop (execute_kmc_step_mpi, kmc_events.cu:430-528) as
+    a host loop with one read per event: the plain version of
+    ``run_event_loop``, which the main path runs.
 
     Runs until the latest single-event waiting time reaches 1/freq, or the
     rand buffer is exhausted (the caller then refills and resumes with
@@ -386,6 +433,197 @@ def run_event_loop(
     )
 
 
+# events (serial) or batches (batched) per replay of a device loop on a card:
+# see PERF.md §6 for the readings behind them. On the CPU a read of
+# the flags costs nothing and a dead step costs a whole step, so k is 1 there
+SERIAL_K = 64
+BATCHED_K = 32
+
+
+def _steps(k: Optional[int], card_k: int, device: torch.device) -> int:
+    if k is not None:
+        return k
+    return card_k if device.type == "cuda" else 1
+
+
+# replays, steps and live steps of each device loop since the last reset
+LOOP_COUNTS = {name: {"replays": 0, "steps": 0, "live_steps": 0}
+               for name in ("serial", "native", "batched")}
+
+
+def reset_loop_counts() -> None:
+    for c in LOOP_COUNTS.values():
+        c.update(replays=0, steps=0, live_steps=0)
+
+
+def _count(name: str, replays: int, steps: int, live: int) -> None:
+    c = LOOP_COUNTS[name]
+    c["replays"] += replays
+    c["steps"] += steps
+    c["live_steps"] += live
+
+
+def _addresses(*tables) -> tuple:
+    return tuple(None if t is None else (t.data_ptr(), tuple(t.shape)) for t in tables)
+
+
+class _SerialProgram:
+    """State and k-step body of the serial device loops. mt19937 form
+    (``run_event_loop``): two draws per event from the static copy of the
+    caller's buffer at a device cursor; ``native`` form
+    (``run_event_loop_native``): one (2,) vector per event from static
+    buffers that ``Prefill`` fills before each replay. The tables are the
+    caller's tensors, read in place; everything the loop writes is owned
+    here and starts dead (``ev_time`` inf)."""
+
+    def __init__(self, P, etype, code, tables, freq, buf_len, native, has_ln_S,
+                 incremental, k):
+        dev = P.device
+        f64 = dict(dtype=torch.float64, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.neigh_idx, self.act_idx, self.abs2act, self.zero_rows = tables
+        self.inv_freq, self.native, self.k, self.buf_len = 1.0 / freq, native, k, buf_len
+        self.code = torch.zeros_like(code)
+        self.P = torch.zeros_like(P)
+        self.R = torch.zeros(P.shape[0], dtype=P.dtype, device=dev)
+        self.bs = (torch.zeros(P.shape[0] // _BLK, dtype=P.dtype, device=dev)
+                   if incremental else None)
+        self.etype = torch.zeros_like(etype)
+        self.ln_S = torch.zeros((), **f64) if has_ln_S else None
+        self.ev_time = torch.full((), math.inf, dtype=P.dtype, device=dev)
+        self.cnt = torch.zeros((), **i64)        # draws used (mt19937 form)
+        self.limit = torch.zeros((), **i64)      # max_events (native form)
+        self.n_ev = torch.zeros((), **i64)
+        self.n_it = torch.zeros((), **i64)       # live iterations (events and an empty table)
+        self.flags = torch.zeros(5, **f64)
+        prefill = None
+        if native:
+            self.rand = None
+            self.u = [torch.zeros(2, dtype=P.dtype, device=dev) for _ in range(k)]
+            prefill = Prefill([(u,) for u in self.u])
+        else:
+            self.rand = torch.zeros(max(buf_len, 2), dtype=P.dtype, device=dev)
+        self.loop = GraphLoop(self._body, k, dev, self.flags, 3, prefill)
+
+    def _live(self):
+        if self.native:
+            return (self.ev_time < self.inv_freq) & (self.n_ev < self.limit)
+        return (self.ev_time < self.inv_freq) & (self.cnt + 2 <= self.buf_len)
+
+    def _step(self, i):
+        live = self._live()
+        if self.native:
+            r_sel, r_time = self.u[i]
+            e_of = lambda r: -torch.log1p(-r)  # noqa: E731
+        else:
+            c = self.cnt.clamp(max=self.rand.shape[0] - 2)
+            r_sel, r_time = self.rand.index_select(0, torch.stack([c, c + 1]))
+            e_of = lambda r: -torch.log(r)  # noqa: E731
+        code, total, ok = _fire_event(
+            self.code, self.P, self.R, self.etype, self.neigh_idx, self.act_idx, self.abs2act,
+            self.zero_rows, r_sel, self.bs, live=live)
+        ev = _waiting_time(e_of(r_time), total, ok, self.ln_S)
+        self.code.copy_(code)
+        self.ev_time.copy_(torch.where(live, ev, self.ev_time))
+        fired = (live & ok).to(torch.int64)
+        self.n_ev.add_(fired)
+        if not self.native:
+            self.cnt.add_(2 * fired)
+        self.n_it.add_(live.to(torch.int64))
+
+    def _body(self, n):
+        for i in range(n):
+            self._step(i)
+        f64 = self.flags.dtype
+        self.flags.copy_(torch.stack([self._live().to(f64), self.n_ev.to(f64),
+                                      self.cnt.to(f64), self.n_it.to(f64),
+                                      self.ev_time.to(f64)]))
+
+    def load(self, element, charge, P, etype, ln_S, event_time_in, rand_buf=None,
+             max_events=0):
+        self.code.copy_(_pack_code(element, charge))
+        self.P.copy_(P)
+        self.etype.copy_(etype)
+        self.R.copy_(torch.sum(self.P, dim=1))
+        if self.bs is not None:
+            self.bs.copy_(_block_sums(self.R))
+        if self.ln_S is not None:
+            self.ln_S.copy_(torch.as_tensor(ln_S, dtype=torch.float64))
+        if event_time_in is None:
+            self.ev_time.zero_()
+        else:
+            self.ev_time.copy_(event_time_in)
+        if rand_buf is not None:
+            self.rand[: rand_buf.shape[0]].copy_(rand_buf)
+        for c in (self.cnt, self.n_ev, self.n_it):
+            c.zero_()
+        self.limit.fill_(max_events)
+
+    def run(self, name, draws=None):
+        """Replays until the loop is dead: (n_events, draws used, live
+        iterations, event_time as read)."""
+        (_, n_ev, cnt, n_it, ev_h), replays, steps = self.loop.run(draws)
+        _count(name, replays, steps, int(n_it))
+        return int(n_ev), int(cnt), int(n_it), ev_h
+
+    def results(self, element, charge, P):
+        P.copy_(self.P)
+        el, ch = _unpack_code(self.code, element.dtype, charge.dtype)
+        return el, ch, self.ev_time.clone()
+
+
+def _serial_program(graphs, P, etype, element, charge, tables, freq, buf_len, native,
+                    ln_S, incremental, k):
+    code = _pack_code(element, charge)
+    key = ("native" if native else "serial", tuple(P.shape), P.dtype, etype.dtype,
+           tuple(code.shape), code.dtype, P.device, freq, buf_len, ln_S is not None,
+           incremental, k, _addresses(*tables))
+    return program(graphs, key, lambda: _SerialProgram(
+        P, etype, code, tables, freq, buf_len, native, ln_S is not None, incremental, k))
+
+
+def run_event_loop(
+    element: torch.Tensor,     # (N,) int32
+    charge: torch.Tensor,      # (N,) int32
+    P: torch.Tensor,           # (R, NN) rate table — updated IN PLACE
+    etype: torch.Tensor,       # (R, NN) int32 event types
+    neigh_idx: torch.Tensor,   # (R, NN) int64 absolute neighbor ids
+    rand_buf: torch.Tensor,    # (L,) f64 uniform draws on P's device
+    freq: float,
+    act_idx: torch.Tensor,     # (R,) int64 absolute site per row, -1 padded
+    abs2act: torch.Tensor,     # (N,) int64 site -> row (all-zero pad row if none)
+    zero_rows: torch.Tensor,   # (R, 1+NN) int64 static zero-out rows {r} ∪ abs2act[neigh[r]]
+    event_time_in: Optional[torch.Tensor] = None,
+    ln_S: Optional[torch.Tensor] = None,
+    incremental_select: bool = False,
+    k: Optional[int] = None,
+    graphs=None,
+) -> EventLoopResult:
+    """``run_event_loop_plain`` kept on the device: k events (default
+    SERIAL_K on a card, 1 on the CPU; the first replay at most
+    ``device_loop.FIRST_K``) per replay and one host read of the loop's flags
+    and counters per replay. Each step draws at a device
+    cursor into the buffer and runs only while ``ev_time < 1/freq`` and two
+    draws are left; a dead step writes nothing, so k changes no result.
+    The result equals the plain
+    loop's to the bit (``draws_used``, ``n_events``, ``done``,
+    ``event_time_h`` included). ``graphs``: the caller's ``LoopGraphs``, so
+    that a graph is captured once per shape (without one, each call builds
+    and captures its own)."""
+    k = _steps(k, SERIAL_K, P.device)
+    incremental = incremental_select and P.shape[0] % _BLK == 0
+    tables = (neigh_idx, act_idx, abs2act, zero_rows)
+    prog = _serial_program(graphs, P, etype, element, charge, tables, freq,
+                           rand_buf.shape[0], False, ln_S, incremental, k)
+    prog.load(element, charge, P, etype, ln_S, event_time_in, rand_buf=rand_buf)
+    n_ev, cnt, _, ev_h = prog.run("serial")
+    element, charge, ev_time = prog.results(element, charge, P)
+    return EventLoopResult(
+        element=element, charge=charge, P=P, event_time=ev_time,
+        n_events=n_ev, draws_used=cnt, done=ev_h >= 1.0 / freq, event_time_h=ev_h,
+    )
+
+
 # ----------------------------------------------------------------------
 # draws: where the production loops get their uniforms
 # ----------------------------------------------------------------------
@@ -406,6 +644,19 @@ class GeneratorDraws:
     def uniform(self, shape, dtype, device) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, dtype=dtype, device=device)
 
+    # the device loops draw a replay's uniforms ahead into their own buffers
+    # and give back those of dead steps (ops/device_loop.py::Prefill)
+    def fill(self, out: torch.Tensor) -> None:
+        """``out`` filled with what ``uniform(out.shape, out.dtype,
+        out.device)`` would return."""
+        torch.rand(out.shape, generator=self.generator, out=out)
+
+    def mark(self):
+        return self.generator.get_state()
+
+    def rewind(self, mark) -> None:
+        self.generator.set_state(mark)
+
 
 class ReplayDraws:
     """Hands out, in order, the vectors it was given (arrays or tensors, or an
@@ -413,18 +664,26 @@ class ReplayDraws:
     (n,) and then ``u_slot`` (B,) once per batch, the native loop for one
     (2,) vector (selection draw, waiting-time draw) per event. Shape and
     dtype must be what the loop asks for, so a replay that falls out of step
-    fails instead of reinterpreting a vector."""
+    fails instead of reinterpreting a vector. ``mark``/``rewind`` put back
+    every vector taken since the mark, those that failed included."""
 
     def __init__(self, vectors):
         self._it = iter(vectors)
+        self._back = []          # vectors put back by ``rewind``, next first
+        self._taken = None       # vectors taken since the last ``mark``, if marked
         self.handed_out = 0
 
     def uniform(self, shape, dtype, device) -> torch.Tensor:
-        try:
-            u = next(self._it)
-        except StopIteration:
-            raise RuntimeError(
-                f"replay exhausted after {self.handed_out} vectors") from None
+        if self._back:
+            u = self._back.pop()
+        else:
+            try:
+                u = next(self._it)
+            except StopIteration:
+                raise RuntimeError(
+                    f"replay exhausted after {self.handed_out} vectors") from None
+        if self._taken is not None:
+            self._taken.append(u)
         if not isinstance(u, torch.Tensor):
             u = torch.from_numpy(np.array(u))     # a copy: arrays may be read-only
         if tuple(u.shape) != tuple(shape) or u.dtype != dtype:
@@ -433,6 +692,18 @@ class ReplayDraws:
                 f"the loop asked for {tuple(shape)} {dtype}")
         self.handed_out += 1
         return u.to(device)
+
+    def fill(self, out: torch.Tensor) -> None:
+        out.copy_(self.uniform(out.shape, out.dtype, out.device))
+
+    def mark(self) -> int:
+        self._taken = []
+        return self.handed_out
+
+    def rewind(self, mark: int) -> None:
+        self._back.extend(reversed(self._taken))
+        self._taken = None
+        self.handed_out = mark
 
 
 def _smallest_stable(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -475,7 +746,7 @@ class BatchedLoopResult(NamedTuple):
     event_time_h: float = 0.0  # event_time as read on the host with the last batch
 
 
-def run_event_loop_batched(
+def run_event_loop_batched_plain(
     element: torch.Tensor,     # (N,) int32
     charge: torch.Tensor,      # (N,) int32
     P: torch.Tensor,           # (R, NN) rate table — updated IN PLACE
@@ -519,8 +790,9 @@ def run_event_loop_batched(
     table gives event_time = inf, done, no event.
 
     ``clock_f32`` draws and transforms the clocks in f32 (gaps then carry f32
-    rounding); the termination test stays in f64 log space. The loop is a
-    host loop with one device-to-host read per batch."""
+    rounding); the termination test stays in f64 log space. This is the host
+    loop, with one device-to-host read per batch: the plain version of
+    ``run_event_loop_batched``, which the main path runs."""
     n, nn = P.shape
     n_sites = element.shape[0]
     dev = P.device
@@ -592,7 +864,7 @@ def run_event_loop_batched(
         # only mass whose clock keeps racing stale distorts later gaps: the
         # executed row's own clock is consumed by firing
         racing_killed = (killed_mass - rowtot).clamp(min=0.0)
-        mass_ok = (torch.cumsum(racing_killed, dim=0) - racing_killed) <= mass_eps * total
+        mass_ok = (_cumsum(racing_killed) - racing_killed) <= mass_eps * total
 
         valid = torch.isfinite(tau_b) & (rowtot > 0.0) & ok
         acceptable = valid & ~conflicted & mass_ok
@@ -686,7 +958,7 @@ def run_event_loop_batched(
     )
 
 
-def run_event_loop_native(
+def run_event_loop_native_plain(
     element: torch.Tensor,
     charge: torch.Tensor,
     P: torch.Tensor,           # (R, NN) rate table — updated IN PLACE
@@ -704,7 +976,8 @@ def run_event_loop_native(
     uniforms per event from ``draws`` instead of the replicated mt19937
     buffer, and the waiting time as -log1p(-r) / total. The exact
     residence-time law that the batched loop is held against. Never runs out
-    of draws; ``draws_used`` reports 2 per event."""
+    of draws; ``draws_used`` reports 2 per event. A host loop with one read
+    per event: the plain version of ``run_event_loop_native``."""
     inv_freq = 1.0 / freq
     R = torch.sum(P, dim=1)
     code = _pack_code(element, charge)
@@ -724,4 +997,276 @@ def run_event_loop_native(
     return EventLoopResult(
         element=element, charge=charge, P=P, event_time=ev_time,
         n_events=n_ev, draws_used=2 * n_ev, done=ev_h >= inv_freq, event_time_h=ev_h,
+    )
+
+
+def run_event_loop_native(
+    element: torch.Tensor,
+    charge: torch.Tensor,
+    P: torch.Tensor,           # (R, NN) rate table — updated IN PLACE
+    etype: torch.Tensor,
+    neigh_idx: torch.Tensor,
+    draws,                     # GeneratorDraws or ReplayDraws
+    freq: float,
+    max_events: int = 1 << 20,
+    act_idx: Optional[torch.Tensor] = None,
+    abs2act: Optional[torch.Tensor] = None,
+    ln_S=None,
+    zero_rows: Optional[torch.Tensor] = None,
+    k: Optional[int] = None,
+    graphs=None,
+) -> EventLoopResult:
+    """``run_event_loop_native_plain`` kept on the device: k events (default
+    SERIAL_K on a card, 1 on the CPU; the first replay at most
+    ``device_loop.FIRST_K``) per replay, one host read per replay.
+    Before each replay the k events' (2,) uniforms are drawn from ``draws`` in the plain loop's
+    order; those of dead steps are given back (``Prefill``), so ``draws``
+    ends where the plain loop leaves it and the result is the plain loop's
+    to the bit. A ``ReplayDraws`` that holds just the vectors the loop needs
+    is enough; one that runs out or falls out of step on a live event
+    raises as in the plain loop."""
+    k = _steps(k, SERIAL_K, P.device)
+    tables = (neigh_idx, act_idx, abs2act, zero_rows)
+    prog = _serial_program(graphs, P, etype, element, charge, tables, freq, 0, True,
+                           ln_S, False, k)
+    prog.load(element, charge, P, etype, ln_S, None, max_events=max_events)
+    n_ev, _, _, ev_h = prog.run("native", draws)
+    element, charge, ev_time = prog.results(element, charge, P)
+    return EventLoopResult(
+        element=element, charge=charge, P=P, event_time=ev_time,
+        n_events=n_ev, draws_used=2 * n_ev, done=ev_h >= 1.0 / freq, event_time_h=ev_h,
+    )
+
+
+class _BatchedProgram:
+    """State and k-batch body of ``run_event_loop_batched``: every tensor
+    the loop writes, the static buffers of each batch's uniforms, and the
+    constants of the body, all built before the capture. Starts dead
+    (``max_b`` 0)."""
+
+    def __init__(self, element, charge, P, etype, tables, freq, B, clock_dtype, has_ln_S, k):
+        dev = P.device
+        f64 = dict(dtype=torch.float64, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        n = P.shape[0]
+        self.neigh_idx, self.act_idx, self.abs2act = tables
+        self.freq, self.B, self.k, self.n_sites = freq, B, k, element.shape[0]
+        self.clock_dtype = clock_dtype
+        self.element_x = torch.zeros(self.n_sites + 1, dtype=element.dtype, device=dev)
+        self.charge_x = torch.zeros(self.n_sites + 1, dtype=charge.dtype, device=dev)
+        self.P = torch.zeros_like(P)
+        self.R = torch.zeros(n, dtype=P.dtype, device=dev)
+        self.etype = torch.zeros_like(etype)
+        self.ln_S = torch.zeros((), **f64) if has_ln_S else None
+        self.mass_eps = torch.zeros((), **f64)
+        self.max_b = torch.zeros((), **i64)
+        self.ev_time = torch.zeros((), **f64)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.n_ev, self.n_b, self.n_cc, self.n_cm = (torch.zeros((), **i64) for _ in range(4))
+        self.flags = torch.zeros(7, **f64)
+        self.u = [torch.zeros(n, dtype=clock_dtype, device=dev) for _ in range(k)]
+        self.v = [torch.zeros(B, dtype=P.dtype, device=dev) for _ in range(k)]
+        self.lower = torch.tril(torch.ones((B, B), dtype=torch.bool, device=dev), diagonal=-1)
+        self.arange_b = torch.arange(B, device=dev)
+        self.zero_gap = torch.zeros(1, dtype=clock_dtype, device=dev)
+        self.loop = GraphLoop(self._body, k, dev, self.flags, 2,
+                              Prefill(list(zip(self.u, self.v))))
+
+    def _live(self):
+        return ~self.done & (self.n_b < self.max_b)
+
+    def _step(self, i):
+        """One batch of ``run_event_loop_batched_plain``, operation for
+        operation, with its writes guarded by ``live``."""
+        P, R, element_x, charge_x = self.P, self.R, self.element_x, self.charge_x
+        neigh_idx, act_idx, abs2act = self.neigh_idx, self.act_idx, self.abs2act
+        n, nn = P.shape
+        B, n_sites, ln_S, dev = self.B, self.n_sites, self.ln_S, P.device
+        inv_freq = 1.0 / self.freq
+        live = self._live()
+
+        u = self.u[i]
+        tau = -torch.log(u) / R.to(self.clock_dtype)
+        total = torch.sum(R)
+        ok = total > 0.0
+        tau_b, rows_b = _topk_smallest(tau, B)
+
+        rows_P = P[rows_b]
+        cumr = torch.cumsum(rows_P, dim=1)
+        rowtot = cumr[:, -1]
+        t_slot = self.v[i] * rowtot
+        slot_b = torch.sum(cumr < t_slot[:, None], dim=1).clamp(0, nn - 1)
+
+        isel_b = rows_b if act_idx is None else act_idx[rows_b].clamp(min=0)
+        jsel_b = neigh_idx[rows_b, slot_b].clamp(min=0)
+        ety_b = self.etype[rows_b, slot_b]
+
+        jrow_b = jsel_b if abs2act is None else abs2act[jsel_b]
+        nbr_rows = torch.cat([neigh_idx[rows_b], neigh_idx[jrow_b]], dim=1).clamp(min=0)
+        if abs2act is not None:
+            nbr_rows = abs2act[nbr_rows]
+        ar_b = torch.cat([torch.stack([rows_b, jrow_b], dim=1), nbr_rows], dim=1)
+
+        touch = (rows_b[None, :, None] == ar_b[:, None, :]).any(dim=2)
+        conflicted = (touch.T & self.lower).any(dim=1)
+
+        ar_P = P[ar_b]
+        ar_nbr = neigh_idx[ar_b]
+        kill_b = (
+            (ar_b == rows_b[:, None])[:, :, None]
+            | (ar_b == jrow_b[:, None])[:, :, None]
+            | (ar_nbr == isel_b[:, None, None])
+            | (ar_nbr == jsel_b[:, None, None])
+        )
+        killed_mass = torch.where(kill_b, ar_P, 0.0).sum(dim=(1, 2))
+        racing_killed = (killed_mass - rowtot).clamp(min=0.0)
+        mass_ok = (_cumsum(racing_killed) - racing_killed) <= self.mass_eps * total
+
+        valid = torch.isfinite(tau_b) & (rowtot > 0.0) & ok
+        acceptable = valid & ~conflicted & mass_ok
+        acc_prefix = torch.cumprod(acceptable.to(torch.int32), dim=0) == 1
+
+        n_prefix = acc_prefix.sum()
+        cut_here = n_prefix < B
+        cut_i = n_prefix.clamp(0, B - 1)
+        cut_conflict = cut_here & torch.take(conflicted, cut_i)
+        cut_mass = cut_here & ~torch.take(conflicted, cut_i) & ~torch.take(mass_ok, cut_i)
+
+        gaps = torch.diff(tau_b, prepend=self.zero_gap)
+        if ln_S is None:
+            big = gaps >= inv_freq
+        else:
+            big = (torch.log(gaps.to(torch.float64).clamp(min=1e-300)) - ln_S
+                   >= math.log(inv_freq))
+        big_acc = big & acc_prefix
+        first_big = torch.argmax(big_acc.to(torch.int8))
+        has_big = big_acc.any()
+        last = torch.where(has_big, first_big, B - 1)
+        accept = acc_prefix & (self.arange_b <= last)
+        n_acc = accept.sum()
+        write = accept & live
+
+        ei, ej = element_x[isel_b], element_x[jsel_b]
+        qi, qj = charge_x[isel_b], charge_x[jsel_b]
+        gen = ety_b == int(EVENT.VACANCY_GENERATION)
+        rec = ety_b == int(EVENT.VACANCY_RECOMBINATION)
+        swap = (ety_b == int(EVENT.VACANCY_DIFFUSION)) | (ety_b == int(EVENT.ION_DIFFUSION))
+        new_ei = torch.where(gen, int(ELEM.OXYGEN_DEFECT),
+                             torch.where(rec, int(ELEM.DEFECT), torch.where(swap, ej, ei)))
+        new_ej = torch.where(gen, int(ELEM.VACANCY),
+                             torch.where(rec, int(ELEM.O), torch.where(swap, ei, ej)))
+        new_qi = torch.where(gen, -2, torch.where(rec, 0, torch.where(swap, qj, qi)))
+        new_qj = torch.where(gen, 2, torch.where(rec, 0, torch.where(swap, qi, qj)))
+        wi = torch.where(write, isel_b, n_sites)
+        wj = torch.where(write, jsel_b, n_sites)
+        element_x[wi] = new_ei.to(element_x.dtype)
+        element_x[wj] = new_ej.to(element_x.dtype)
+        charge_x[wi] = new_qi.to(charge_x.dtype)
+        charge_x[wj] = new_qj.to(charge_x.dtype)
+
+        row_hit = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        row_hit.index_fill_(0, torch.where(write, torch.cat([rows_b, jrow_b]).view(2, B), n)
+                            .reshape(-1), True)
+        site_hit = torch.zeros(n_sites + 1, dtype=torch.bool, device=dev)
+        site_hit.index_fill_(0, torch.cat([wi, wj]), True)
+        kill_all = row_hit[ar_b][:, :, None] | (site_hit[ar_nbr.clamp(min=0)] & (ar_nbr >= 0))
+        new_rows = torch.where(kill_all, 0.0, ar_P)
+        ar_flat = ar_b.reshape(-1)
+        P[ar_flat] = new_rows.reshape(-1, nn)
+        R[ar_flat] = torch.where(live, new_rows.sum(dim=2).reshape(-1), R[ar_flat])
+
+        last_gap = torch.take(gaps, last).to(torch.float64)
+        if ln_S is None:
+            t_out = last_gap
+        else:
+            t_out = torch.exp(torch.log(last_gap.clamp(min=1e-300)) - ln_S)
+        ends = live & (has_big | ~ok)
+        self.ev_time.copy_(torch.where(ends, torch.where(ok, t_out, math.inf), self.ev_time))
+        self.done.copy_(self.done | ends)
+        counted = live & ok
+        self.n_b.add_(live.to(torch.int64))
+        self.n_ev.add_(torch.where(counted, n_acc, 0))
+        self.n_cc.add_((counted & cut_conflict).to(torch.int64))
+        self.n_cm.add_((counted & cut_mass).to(torch.int64))
+
+    def _body(self, n):
+        for i in range(n):
+            self._step(i)
+        f64 = self.flags.dtype
+        self.flags.copy_(torch.stack([
+            self._live().to(f64), self.done.to(f64), self.n_b.to(f64), self.n_ev.to(f64),
+            self.n_cc.to(f64), self.n_cm.to(f64), self.ev_time]))
+
+    def load(self, element, charge, P, etype, ln_S, mass_eps, max_batches):
+        self.element_x[: self.n_sites].copy_(element)
+        self.charge_x[: self.n_sites].copy_(charge)
+        self.element_x[self.n_sites:] = 0
+        self.charge_x[self.n_sites:] = 0
+        self.P.copy_(P)
+        self.etype.copy_(etype)
+        self.R.copy_(torch.sum(self.P, dim=1))
+        if self.ln_S is not None:
+            self.ln_S.copy_(torch.as_tensor(ln_S, dtype=torch.float64))
+        self.mass_eps.fill_(mass_eps)
+        self.max_b.fill_(max_batches)
+        self.ev_time.zero_()
+        self.done.zero_()
+        for c in (self.n_ev, self.n_b, self.n_cc, self.n_cm):
+            c.zero_()
+
+    def run(self, draws):
+        """Replays until the loop is dead: (done, batches, events, conflict
+        cuts, mass cuts, event_time as read)."""
+        (_, done, n_b, n_ev, n_cc, n_cm, ev_h), replays, steps = self.loop.run(draws)
+        _count("batched", replays, steps, int(n_b))
+        return bool(done), int(n_b), int(n_ev), int(n_cc), int(n_cm), ev_h
+
+
+def run_event_loop_batched(
+    element: torch.Tensor,     # (N,) int32
+    charge: torch.Tensor,      # (N,) int32
+    P: torch.Tensor,           # (R, NN) rate table — updated IN PLACE
+    etype: torch.Tensor,       # (R, NN) int32 event types
+    neigh_idx: torch.Tensor,   # (R, NN) int64 absolute neighbor ids, -1 padded
+    draws,                     # GeneratorDraws or ReplayDraws
+    freq: float,
+    batch: int = 64,
+    max_batches: int = 1 << 14,
+    act_idx: Optional[torch.Tensor] = None,
+    abs2act: Optional[torch.Tensor] = None,
+    ln_S=None,
+    mass_eps: float = 1e-3,
+    clock_f32: bool = False,
+    k: Optional[int] = None,
+    graphs=None,
+) -> BatchedLoopResult:
+    """``run_event_loop_batched_plain`` kept on the device: k batches
+    (default BATCHED_K on a card, 1 on the CPU; the first replay at most
+    ``device_loop.FIRST_K``) per replay and one host read of the loop's
+    packed flags and counters per replay. A batch runs only while the loop
+    is not done and fewer than ``max_batches`` batches ran; a dead batch writes
+    nothing and counts nothing, so k changes no result. Before each replay
+    the k batches' uniforms, ``u_clk`` (n,) then ``u_slot`` (B,) per batch,
+    are drawn from ``draws`` in the plain loop's order, and those of dead
+    batches are given back (``Prefill``): ``draws`` ends where the plain loop
+    leaves it, and the result equals the plain loop's to the bit. A
+    ``ReplayDraws`` that holds just the vectors the loop needs is enough; one
+    that runs out or falls out of step on a live batch raises as in the
+    plain loop. ``graphs``: the caller's ``LoopGraphs``."""
+    k = _steps(k, BATCHED_K, P.device)
+    clock_dtype = torch.float32 if clock_f32 else P.dtype
+    tables = (neigh_idx, act_idx, abs2act)
+    key = ("batched", tuple(P.shape), P.dtype, etype.dtype, element.shape[0], element.dtype,
+           charge.dtype, P.device, freq, batch, clock_dtype, ln_S is not None, k,
+           _addresses(*tables))
+    prog = program(graphs, key, lambda: _BatchedProgram(
+        element, charge, P, etype, tables, freq, batch, clock_dtype, ln_S is not None, k))
+    prog.load(element, charge, P, etype, ln_S, mass_eps, max_batches)
+    done, n_b, n_ev, n_cc, n_cm, ev_h = prog.run(draws)
+    P.copy_(prog.P)
+    n_sites = element.shape[0]
+    return BatchedLoopResult(
+        element=prog.element_x[:n_sites].clone(), charge=prog.charge_x[:n_sites].clone(),
+        P=P, event_time=prog.ev_time.clone(), n_events=n_ev, n_batches=n_b, done=done,
+        n_cut_conflict=n_cc, n_cut_mass=n_cm, event_time_h=ev_h,
     )

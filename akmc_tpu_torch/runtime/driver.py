@@ -337,7 +337,7 @@ def _run(
         if warmup and p.V_switch and p.perturb_structure and p.solve_potential:
             t_warm = time.perf_counter()
             warm_s = model.warmup(state, float(p.V_switch[0]), full_physics=full_physics,
-                                  batched=batched_events)
+                                  batched=batched_events, clock_f32=batched_clock_f32)
             out.write(
                 f"AOT warmup: {time.perf_counter() - t_warm:.1f} s ("
                 + ", ".join(f"{k} {v:.0f}s" for k, v in warm_s.items())

@@ -65,6 +65,45 @@ class DiaMeta(NamedTuple):
     val_high: float = 0.0
 
 
+def _windows(v: torch.Tensor, offsets) -> list:
+    """v[i + o] for every offset o, zero outside [0, n): the shifted views
+    of one zero-padded copy."""
+    n = v.shape[0]
+    maxo = max(abs(int(o)) for o in offsets)
+    vp = torch.zeros(n + 2 * maxo, dtype=v.dtype, device=v.device)
+    vp[maxo: maxo + n] = v
+    return [vp[maxo + int(o): maxo + int(o) + n] for o in offsets]
+
+
+def dia_matvec(dia: DiaK, meta: DiaMeta, x: torch.Tensor) -> torch.Tensor:
+    """y = W @ x: one shifted multiply-add per diagonal in ascending d, the
+    edge values decoded from the int8 codes ({0, low_G, high_G})."""
+    hi, lo = (torch.tensor(float(v), dtype=x.dtype, device=x.device)
+              for v in (meta.val_high, meta.val_low))
+    y = torch.zeros_like(x)
+    for c, w in zip(dia.diags, _windows(x, meta.offsets)):
+        y = y + torch.where(c == 2, hi, torch.where(c == 1, lo, 0.0)) * w
+    return y
+
+
+def fold_cvac_codes(dia: DiaK, meta: DiaMeta, cvac: torch.Tensor) -> torch.Tensor:
+    """(D, N) int8: 1 where row i has an edge at offset o_d and its source
+    column i + o_d is a conductive vacancy, else 0. The kernel packs the
+    same bits into its row words (``solvers/dia_cg.py::pack_row_masks_plain``)."""
+    return torch.stack([(c != 0).to(torch.int8) * w
+                        for c, w in zip(dia.diags, _windows(cvac.to(torch.int8), meta.offsets))])
+
+
+def dia_adj_matvec(dia: DiaK, meta: DiaMeta, x: torch.Tensor) -> torch.Tensor:
+    """y_i = sum of x[i + o_d] over the K-adjacency edges of row i (0/1
+    weights). The combined kernel's second output is this product of the
+    conductive-vacancy indicator, which is how the K solve gets it."""
+    y = torch.zeros_like(x)
+    for c, w in zip(dia.diags, _windows(x, meta.offsets)):
+        y = y + torch.where(c != 0, w, 0.0)
+    return y
+
+
 def make_dia(diags, deg_static, lsum, rsum, pos, active_row, offsets,
              low_G, high_G) -> Tuple[DiaK, DiaMeta]:
     """(DiaK, DiaMeta) on the CPU from host arrays."""

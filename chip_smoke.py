@@ -96,12 +96,25 @@ line is printed):
            done, species sums are conserved, ``kmc_time`` is finite and
            grows, each kernel's launches equal the K solves the model
            counted and the iterations the fused kernel counted on the device
-           equal theirs, and the batched loop reads the device at most once
-           per batch (the fields' own reads are told apart by their source
-           file). At n_yz=64, after those, one serial superstep from the
-           initial state with ``event_select_incremental`` on and one with it
-           off, from the same stream: bit-equal in events, waiting time, CG
-           iterations, draws used and every tensor of the new state.
+           equal theirs, and the event loops, kept on the card (k steps per
+           CUDA-graph replay), read the device once per replay: at most
+           ceil(batches / k) + 1 times in a batched superstep, no more than
+           their replays in a serial one (the fields' own reads are told
+           apart by their source file); each superstep's replays and dead
+           steps go into its row. At n_yz=64, after those, on the last
+           state's fields (``loop_turns``): the serial loop (on 4,096 draws of
+           the mt19937 stream), the native loop and the batched loop, each as
+           its plain host loop and as its device loop in turns plain, device,
+           device, plain, every run bit-equal to the first (integer state,
+           rate table, waiting time, draws, every counter), timed on the host
+           clock and by CUDA events, with its capture time, replays, dead
+           steps and host reads; then one batched superstep with each loop
+           (``superstep_turns``: the same result, timed in turns, and one of
+           each under ``torch.profiler`` for the device's idle share). Then
+           one serial superstep from the initial state with
+           ``event_select_incremental`` on and one with it off, from the same
+           stream: bit-equal in events, waiting time, CG iterations, draws
+           used and every tensor of the new state.
            Then the driver on the n_yz=24 sweep: a serial run
            stopped by ``max_supersteps`` and resumed from its checkpoint must
            give the uninterrupted sweep's metrics rows and final snapshot; the
@@ -207,11 +220,13 @@ line is printed):
            selection and three ``superstep_native_batched`` (B = 64,
            ``mass_eps`` 0.1; f64 clocks, as FLAGSHIP_CLOCK_F32 says why)
            under the crossbar checks (an event each, ended done, launches
-           equal to the K solves, at most one host read per batch), and one
-           batched loop on the last state's fields replayed on the CPU from
-           the same uniforms (integer state exact, ``event_time`` within
-           1e-12). On the fields the first batched superstep raced: the rate
-           scale (``rate_scale``: the largest rate's event, the pair
+           equal to the K solves, one host read per replay of the loops); on
+           the last state's fields ``loop_turns`` and ``superstep_turns`` as
+           at n_yz=64, with the device loops also at k = 16, 32, 64 batches
+           and 32, 64, 128 events (LOOP_KS); and one batched loop on those
+           fields replayed on the CPU from the same uniforms (integer state
+           exact, ``event_time`` within 1e-12). On the fields the first
+           batched superstep raced: the rate scale (``rate_scale``: the largest rate's event, the pair
            potentials at the sites of the 64 largest rates against a plain
            f64 sum within 1e-3 V, ln_S with the f64 plane, and the cold
            fields' ln_S), and the loop with f32 clocks cut at 1,500 batches.
@@ -221,7 +236,8 @@ line is printed):
 
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
 ``disordered``, ``tiled``, ``batched``, ``full``, ``driver``, ``sharded`` and
-``flagship``, the card's name and power limit from nvidia-smi, and last
+``flagship``, a ``loops`` line (``loop_turns`` at n_yz=64 and at the
+flagship), the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels,
 sweep, disordered, tiled, batched, full, driver, sharded, flagship) runs a
 part of it while developing;
@@ -1398,6 +1414,7 @@ def batched_law(dev) -> dict:
     with the device generator."""
     from akmc_tpu_torch.models.crossbar import toy_device
     from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops.device_loop import LoopGraphs
     from akmc_tpu_torch.ops.events import (
         GeneratorDraws,
         run_event_loop_batched,
@@ -1415,13 +1432,16 @@ def batched_law(dev) -> dict:
     def sample(kind, seed):
         draws = GeneratorDraws.seeded(seed, dev)
         times, counts = np.empty(N_REP), np.empty(N_REP)
+        graphs = LoopGraphs()                 # one capture for all replicates
         t0 = time.perf_counter()
         for i in range(N_REP):
             args = (state.element, fr.charge, fr.P.clone(), fr.etype, t.act_neigh, draws, p.freq)
             if kind == "serial":
-                r = run_event_loop_native(*args, zero_rows=t.act_zero_rows, **common)
+                r = run_event_loop_native(*args, zero_rows=t.act_zero_rows, graphs=graphs,
+                                          **common)
             else:
-                r = run_event_loop_batched(*args, batch=16, mass_eps=1e-3, **common)
+                r = run_event_loop_batched(*args, batch=16, mass_eps=1e-3, graphs=graphs,
+                                           **common)
             times[i], counts[i] = r.event_time_h, r.n_events
         if not np.isfinite(times).all():
             fail(f"law: the {kind} loop ran the rate table empty")
@@ -1687,11 +1707,14 @@ class CrossbarSteps:
         self.pb_prev2 = None
 
     def step(self, kind, **kw):
+        from akmc_tpu_torch.ops import events as ev
+
         dev, model, i = self.dev, self.model, len(self.steps)
         name = f"{self.where} superstep {i} ({kind})"
         pb_before = self.state.potential_boundary
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        ev.reset_loop_counts()
         t0 = time.perf_counter()
         with count_syncs(dev) as caught:
             if kind == "serial":
@@ -1706,31 +1729,41 @@ class CrossbarSteps:
         wall = time.perf_counter() - t0
         self.pb_prev2 = pb_before
         syncs = n_syncs(caught)
+        # the loop's host reads are those made from LOOP_FILES; the rest
+        # are the fields' own (cap flags, compactions, the K solve's iteration
+        # count) and the rand chunks' copies, and the fields end at the
+        # model's ``fields_s``
+        in_loop = n_syncs([w for w in caught if os.path.basename(w.filename) in LOOP_FILES])
+        loop = ev.LOOP_COUNTS["serial" if kind in ("serial", "timed") else "batched"]
         row = {"kind": kind, "wall_s": wall, "events": stats["n_events"],
                "event_time": stats["event_time"], "cg_iterations": stats["cg_iterations"],
-               "host_syncs": syncs}
+               "host_syncs": syncs, "host_syncs_in_loop": in_loop,
+               "loop_replays": loop["replays"], "loop_steps": loop["steps"],
+               "loop_dead_steps": loop["steps"] - loop["live_steps"]}
         if kind not in ("serial", "timed"):
-            # the loop's host reads are those made from ops/events.py; the
-            # rest are the fields' own (cap flags, compactions, the K solve's
-            # iteration count), and their end is the model's ``fields_s``
             nb = stats["n_batches"]
-            in_loop = n_syncs([w for w in caught if os.path.basename(w.filename) == "events.py"])
+            k = ev.BATCHED_K if dev.type == "cuda" else 1
             row.update(batches=nb, events_per_batch=stats["n_events"] / nb,
                        cut_conflict=stats["n_cut_conflict"], cut_mass=stats["n_cut_mass"],
-                       host_syncs_in_loop=in_loop, host_syncs_in_fields=syncs - in_loop,
+                       host_syncs_in_fields=syncs - in_loop,
                        host_syncs_in_loop_per_batch=in_loop / nb, fields_s=model.fields_s,
                        loop_ms_per_batch=1e3 * (wall - model.fields_s) / nb,
-                       done=stats["done"], **kw)
+                       loop_k=k, done=stats["done"], **kw)
             if not stats["done"]:
                 fail(f"{name} did not end done: {stats['n_events']} events in {nb} batches")
-            # no card, no count: the check is the card's
-            if dev.type == "cuda" and in_loop > nb:
+            # no card, no count: the check is the card's. The device loop
+            # reads the host once per replay of k batches
+            if dev.type == "cuda" and in_loop > math.ceil(nb / k) + 1:
                 fail(f"{name}: the batched loop read the device {in_loop} times in {nb} "
-                     f"batches, at {sync_sites(caught)}")
+                     f"batches (k = {k}), at {sync_sites(caught)}")
         else:
             row["host_syncs_per_event"] = syncs / max(1, stats["n_events"])
+            row["loop_k"] = ev.SERIAL_K if dev.type == "cuda" else 1
             if i == 0:
                 row["host_sync_sites"] = sync_sites(caught)
+            if dev.type == "cuda" and in_loop > loop["replays"]:
+                fail(f"{name}: the serial loop read the device {in_loop} times in "
+                     f"{loop['replays']} replays, at {sync_sites(caught)}")
         if kind == "timed":
             row.update({k: stats[k] for k in
                         ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")})
@@ -1748,6 +1781,216 @@ class CrossbarSteps:
             fail(f"{name}: species sums not conserved")
         self.steps.append(row)
         print(f"chip_smoke: {self.where} superstep {i} " + json.dumps(row))
+
+
+# ---------------------------------------------------------------------------
+# the event loops on the card: each device loop (k steps per CUDA-graph
+# replay) against its plain host loop, from one frozen fields state
+# ---------------------------------------------------------------------------
+LOOP_SERIAL_DRAWS = 4096          # the serial loops are held on a chunk of this many draws
+LOOP_FILES = ("events.py", "device_loop.py")   # where the event loops read the host
+LOOP_KS = {"serial": (32, 64, 128), "batched": (16, 32, 64)}   # k read at the flagship
+SERIAL_FIELDS = ("element", "charge", "P", "event_time", "n_events", "draws_used", "done",
+                 "event_time_h")
+BATCHED_FIELDS = ("element", "charge", "P", "event_time", "n_events", "n_batches", "done",
+                  "n_cut_conflict", "n_cut_mass", "event_time_h")
+
+
+def synced_s(fn):
+    """(fn(), host seconds to its end on the card, device ms between two
+    CUDA events around it)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, a.elapsed_time(b)
+
+
+def same_loop(name, a, b, fields):
+    """Fails unless the two loop results are equal to the bit in ``fields``."""
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y):
+            fail(f"{name}: the device loop differs from the plain loop in {f}: "
+                 f"{getattr(a, 'n_events', None)} events against {getattr(b, 'n_events', None)}")
+
+
+def loop_turns(dev, model, state, fr, where, mass_eps, ks=False) -> dict:
+    """The three event loops on the frozen fields ``fr``, each run as its
+    plain host loop and as its device loop (the model's ``LoopGraphs``), in
+    turns plain, device, device, plain from the same draws, and every run
+    held bit-equal to the first plain one: the serial loop on
+    LOOP_SERIAL_DRAWS draws of the mt19937 stream (with the model's
+    selection), the native loop on as many events of the device generator,
+    the batched loop (B = 64) to its end. Per loop: capture seconds, host
+    seconds and device ms of each run, ms per event or batch, replays, dead
+    steps and host reads of a device run, and with ``ks`` the device loop at
+    each k of LOOP_KS (a capture each) against the same plain run. Then the
+    copy of the inputs into the batched program and of its table out."""
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.ops.device_loop import LoopGraphs
+    from akmc_tpu_torch.rng import ReferenceRNG
+
+    p, t = model.params, model.tables
+    rand = torch.as_tensor(ReferenceRNG(p.rnd_seed_kmc + 1).uniform(LOOP_SERIAL_DRAWS),
+                           device=dev)
+    loops = {
+        "serial": (ev.run_event_loop_plain, ev.run_event_loop, SERIAL_FIELDS,
+                   lambda: (rand, p.freq, t.act_idx, t.abs2act, t.act_zero_rows),
+                   dict(ln_S=fr.ln_S, incremental_select=model.event_select_incremental)),
+        "native": (ev.run_event_loop_native_plain, ev.run_event_loop_native, SERIAL_FIELDS,
+                   lambda: (ev.GeneratorDraws.seeded(11, dev), p.freq),
+                   dict(max_events=LOOP_SERIAL_DRAWS // 2, act_idx=t.act_idx,
+                        abs2act=t.abs2act, ln_S=fr.ln_S, zero_rows=t.act_zero_rows)),
+        "batched": (ev.run_event_loop_batched_plain, ev.run_event_loop_batched, BATCHED_FIELDS,
+                    lambda: (ev.GeneratorDraws.seeded(12, dev), p.freq),
+                    dict(batch=64, act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S,
+                         mass_eps=mass_eps)),
+    }
+    graphs = LoopGraphs()
+    out = {}
+    for name, (plain, device, fields, tail, kw) in loops.items():
+        def run(loop, **more):
+            P = fr.P.clone()
+            return synced_s(lambda: loop(state.element, fr.charge, P, fr.etype, t.act_neigh,
+                                         *tail(), **kw, **more))
+
+        ref, plain_s, plain_ms = run(plain)
+        # the first device call builds and captures the program
+        first, first_s, _ = run(device, graphs=graphs)
+        same_loop(f"{where} {name} loop", first, ref, fields)
+        runs = {"plain_s": [plain_s], "device_s": [], "plain_device_ms": [plain_ms],
+                "device_device_ms": []}
+        for turn in ("device", "device", "plain"):
+            ev.reset_loop_counts()
+            with count_syncs(dev) as caught:
+                res, wall, dms = run(plain if turn == "plain" else device,
+                                     **({} if turn == "plain" else {"graphs": graphs}))
+            same_loop(f"{where} {name} loop ({turn})", res, ref, fields)
+            runs[f"{turn}_s"].append(wall)
+            runs[f"{turn}_device_ms"].append(dms)
+            if turn == "device":
+                c = dict(ev.LOOP_COUNTS[name])
+                reads = n_syncs([w for w in caught
+                                 if os.path.basename(w.filename) in LOOP_FILES])
+                if dev.type == "cuda" and reads != c["replays"]:
+                    fail(f"{where} {name} loop: {reads} host reads in {c['replays']} replays")
+        steps = ref.n_batches if name == "batched" else ref.n_events
+        prog = [pg for key, pg in graphs.programs.items() if key[0] == name][0]
+        line = {"k": prog.k, "events": ref.n_events, "done": ref.done,
+                "batches" if name == "batched" else "draws_used":
+                    ref.n_batches if name == "batched" else ref.draws_used,
+                "capture_s": prog.loop.capture_s, "first_device_call_s": first_s, **runs,
+                "replays": c["replays"], "dead_steps": c["steps"] - c["live_steps"],
+                "host_reads": reads, "bitwise_equal": True,
+                "plain_ms_per_step": 1e3 * min(runs["plain_s"]) / max(steps, 1),
+                "device_ms_per_step": 1e3 * min(runs["device_s"]) / max(steps, 1)}
+        if ks:
+            line["k_readings"] = {}
+            for k in LOOP_KS["batched" if name == "batched" else "serial"]:
+                run(device, graphs=graphs, k=k)
+                res, wall, dms = run(device, graphs=graphs, k=k)
+                same_loop(f"{where} {name} loop, k = {k}", res, ref, fields)
+                line["k_readings"][k] = {"device_s": wall, "device_ms": dms,
+                                         "ms_per_step": 1e3 * wall / max(steps, 1)}
+        out[name] = line
+        print(f"chip_smoke: {where} {name} loop, device == plain: " + json.dumps(line))
+    # the batched program's inputs copied in, and its table copied out
+    prog = [pg for key, pg in graphs.programs.items() if key[0] == "batched"][0]
+    P = fr.P.clone()
+    out["batched"]["copy_in_ms"] = cuda_time_ms(
+        lambda: prog.load(state.element, fr.charge, fr.P, fr.etype, fr.ln_S, mass_eps, 1),
+        reps=5, warmup=1)
+    out["batched"]["copy_out_ms"] = cuda_time_ms(lambda: P.copy_(prog.P), reps=5, warmup=1)
+    out["rate_table"] = {"rows": int(fr.P.shape[0]), "slots_per_row": int(fr.P.shape[1]),
+                         "bytes": fr.P.numel() * fr.P.element_size()}
+    out["capture_s_all"] = graphs.capture_s()
+    return out
+
+
+@contextlib.contextmanager
+def plain_event_loops():
+    """The model's supersteps run their plain host loops while the block
+    lasts (a measurement's baseline: nothing in the package selects them)."""
+    from akmc_tpu_torch.models import vcm
+    from akmc_tpu_torch.ops import events as ev
+
+    saved = vcm.run_event_loop, vcm.run_event_loop_batched
+    vcm.run_event_loop = lambda *a, graphs=None, **kw: ev.run_event_loop_plain(*a, **kw)
+    vcm.run_event_loop_batched = (
+        lambda *a, graphs=None, **kw: ev.run_event_loop_batched_plain(*a, **kw))
+    try:
+        yield
+    finally:
+        vcm.run_event_loop, vcm.run_event_loop_batched = saved
+
+
+def busy_share(prof) -> dict:
+    """Device activity (kernels, copies, sets) in a profiled window: the
+    union of its intervals against the span of every recorded event."""
+    try:
+        evs = [(e.device_type(), e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()]
+        cuda = torch.autograd.DeviceType.CUDA
+    except AttributeError:
+        evs = [(e.device_type, 1000 * e.time_range.start, 1000 * e.time_range.end)
+               for e in prof.events()]
+        cuda = torch.autograd.DeviceType.CUDA
+    dev_iv = sorted((a, b) for d, a, b in evs if d == cuda and b > a)
+    if not dev_iv:
+        return {"device_events": 0, "idle_share": None}
+    busy, cur_a, cur_b = 0, dev_iv[0][0], dev_iv[0][1]
+    for a, b in dev_iv[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy += cur_b - cur_a
+    span = max(b for _, _, b in evs) - min(a for _, a, _ in evs)
+    return {"device_events": len(dev_iv), "span_ms": span / 1e6, "busy_ms": busy / 1e6,
+            "idle_share": 1.0 - busy / span}
+
+
+def superstep_turns(dev, model, state, where, mass_eps) -> dict:
+    """One batched superstep (B = 64, f64 clocks) from ``state`` with the
+    plain loop and with the device loop, each from a generator of one seed:
+    in turns plain, device, device, plain on the host clock (every result
+    equal to the first: events, batches, waiting time, elements), then one of
+    each under ``torch.profiler`` for the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from akmc_tpu_torch.ops import events as ev
+
+    def step():
+        return model.superstep_native_batched(state, CROSSBAR_VD,
+                                              ev.GeneratorDraws.seeded(21, dev), batch=64,
+                                              mass_eps=mass_eps)
+
+    out, ref = {"plain_s": [], "device_s": [], "fields_s": []}, None
+    for turn in ("plain", "device", "device", "plain"):
+        with plain_event_loops() if turn == "plain" else contextlib.nullcontext():
+            (new, stats), wall, _ = synced_s(step)
+        got = (stats["n_events"], stats["n_batches"], stats["event_time"])
+        if ref is None:
+            ref = (got, new.element)
+        elif got != ref[0] or not torch.equal(new.element, ref[1]):
+            fail(f"{where}: the {turn} loop's batched superstep {got} differs from {ref[0]}")
+        out[f"{turn}_s"].append(wall)
+        out["fields_s"].append(model.fields_s)
+    out.update(events=ref[0][0], batches=ref[0][1])
+    for turn in ("plain", "device"):
+        with plain_event_loops() if turn == "plain" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+        out[f"profiled_{turn}"] = busy_share(prof)
+    print(f"chip_smoke: {where} batched superstep, plain and device loop: " + json.dumps(out))
+    return out
 
 
 def reset_launches(dev, model):
@@ -1837,8 +2080,11 @@ def incremental_against_fresh(dev, model, state) -> dict:
 def batched_crossbar(dev, n_yz: int, depth: int, incremental: bool = False) -> dict:
     """Supersteps of the production path on the full-width crossbar:
     one serial, ``depth`` of each batched kind, one module-timed; with
-    ``incremental``, then one serial superstep from the initial state with
-    the incremental selection and one without (``incremental_against_fresh``)."""
+    ``incremental``, then the three event loops against their plain loops on
+    the last state's fields (``loop_turns``), a batched superstep with each
+    (``superstep_turns``), and one serial superstep from the initial state
+    with the incremental selection and one without
+    (``incremental_against_fresh``)."""
     from akmc_tpu_torch.ops.events import GeneratorDraws
     from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
     from akmc_tpu_torch.state import make_device_state
@@ -1874,6 +2120,11 @@ def batched_crossbar(dev, n_yz: int, depth: int, incremental: bool = False) -> d
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None,
     }
     if incremental:
+        if dev.type == "cuda":
+            fr = model.fields(run.state, CROSSBAR_VD)
+            out["loops"] = loop_turns(dev, model, run.state, fr, f"n_yz={n_yz}", 1e-3)
+            out["superstep_turns"] = superstep_turns(dev, model, run.state, f"n_yz={n_yz}",
+                                                     1e-3)
         out["incremental_selection"] = incremental_against_fresh(dev, model, state)
     return out
 
@@ -3280,7 +3531,7 @@ def run_flagship(dev):
     # the kernels were built and loaded when the script started: the warmup
     # finds both built and loads nothing
     t0 = time.perf_counter()
-    warm = model.warmup(state, CROSSBAR_VD, batched=64)
+    warm = {**model.warmup(state, CROSSBAR_VD), **model.warmup(state, CROSSBAR_VD, batched=64)}
     warmup_s = time.perf_counter() - t0
     at_shape = crossbar_kernels(dev, model, state, FLAGSHIP_N_YZ)
 
@@ -3294,9 +3545,13 @@ def run_flagship(dev):
     launches = crossbar_launches(dev, model, run.steps, since, where="flagship")
     peak = torch.cuda.max_memory_allocated() / 1e9
 
-    # one batched loop replayed on the CPU, from the fields of the last state
-    # and the same uniforms
+    # the three loops against their plain loops, then a batched superstep
+    # with each, on the last state; one batched loop replayed on the CPU,
+    # from the same fields and the same uniforms
     fr = model.fields(run.state, CROSSBAR_VD)
+    loops = loop_turns(dev, model, run.state, fr, "flagship", FLAGSHIP_MASS_EPS, ks=True)
+    turns = superstep_turns(dev, model, run.state, "flagship", FLAGSHIP_MASS_EPS)
+    peak_loops = torch.cuda.max_memory_allocated() / 1e9
     replay = replay_case(dev, run.state, fr, model.tables, p.freq, 215, 64, FLAGSHIP_CLOCK_F32,
                          FLAGSHIP_MASS_EPS, "the flagship's fields, B=64")
     t = model.tables
@@ -3327,7 +3582,9 @@ def run_flagship(dev):
         | {"ms_per_event": 1e3 * steps[0]["wall_s"] / steps[0]["events"]},
         "batched": batched_summary(batched), "steps": steps, "kmc_time": run.kmc_times,
         **launches, "peak_mem_gb": peak, "replay": replay, "clock_f32_probe": probe,
-        "rate_scale": scale, "kernels_at_this_shape": at_shape,
+        "rate_scale": scale, "kernels_at_this_shape": at_shape, "loops": loops,
+        "superstep_turns": turns, "peak_mem_gb_with_loop_turns": peak_loops,
+        "loop_graphs_capture_s": model.loop_graphs.capture_s(),
     }
     print("chip_smoke: flagship " + json.dumps({k: line[k] for k in (
         "slots", "build_s", "model_s", "warmup_s", "peak_mem_gb")}))
@@ -3436,6 +3693,10 @@ def main(argv=None) -> int:
     if kernels:                      # now in the kernels line
         for _, line in crossbar_lines(lines):
             del line["kernels_at_this_shape"]
+    # the device loops against their plain loops: one line for both widths
+    loops = {name: line.pop("loops") for name, line in crossbar_lines(lines) if "loops" in line}
+    if loops:
+        lines["loops"] = loops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,6 +7,10 @@ that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import subprocess
+import sys
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -631,3 +635,154 @@ def test_incremental_selection_card_matches_fresh(card, n_yz, oxide):
     c = res["cpu", True]
     assert (c.n_events, c.draws_used) == (i.n_events, i.draws_used)
     assert torch.equal(c.element, i.element.cpu())
+
+
+# ------------------------------------------- the event loops as CUDA graphs
+def _capture_and_replay(fn, *inputs):
+    """``fn(*inputs)`` captured into a CUDA graph (after one eager warm-up on
+    a side stream) and replayed once: (the graph's output, an eager one)."""
+    eager = fn(*inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn(*inputs)
+    g.replay()
+    torch.cuda.synchronize()
+    return out, eager
+
+
+def _index_put_rows(P, rows, vals):
+    Q = P.clone()
+    Q[rows] = vals
+    return Q
+
+
+def _index_fill(n, idx):
+    hit = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    hit.index_fill_(0, idx, True)
+    return hit
+
+
+def _scan(v):
+    from akmc_tpu_torch.ops.events import _cumsum
+
+    return _cumsum(v)
+
+
+# torch.cumsum of a long vector is not among them: CUB's decoupled look-back
+# associates its floats by timing, so a replay and an eager run differ in the
+# last bits (seen on an H100 at 20,000 entries); the loops scan with
+# ops/events.py::_cumsum
+_CAPTURED_OPS = {
+    "sort_stable": lambda v, *_: torch.sort(v, stable=True),
+    "searchsorted": lambda v, *_: torch.searchsorted(_scan(v), v[:7] * 10, right=True),
+    "cumsum_in_rows": lambda v, *_: _scan(v),
+    "cumsum_of_rows": lambda v, P, rows: torch.cumsum(P, dim=1),
+    "cumprod_int32": lambda v, *_: torch.cumprod((v > 0.3).to(torch.int32), 0),
+    "index_put_repeated_rows": lambda v, P, rows: _index_put_rows(P, rows, P[rows] * 0.5),
+    "index_fill": lambda v, P, rows: _index_fill(P.shape[0] + 1, rows),
+    "take": lambda v, P, rows: torch.take(P, rows),
+    "index_select_0d_cursor": lambda v, *_: v.index_select(
+        0, torch.stack([torch.ones((), dtype=torch.int64, device=v.device)] * 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(_CAPTURED_OPS))
+def test_event_loop_ops_capture_and_replay_in_a_graph(card, op):
+    """Each operation of the event loops that could synchronise or allocate
+    in a way a capture forbids, captured on the card and replayed: the same
+    bits as run eagerly."""
+    rng = np.random.default_rng(0)
+    v = torch.tensor(rng.random(20000), device=card)
+    v[rng.integers(0, 20000, 50)] = 0.5                       # ties for the stable sort
+    P = torch.tensor(rng.random((300, 9)), device=card)
+    rows = torch.tensor(rng.integers(0, 300, 70), device=card)  # repeated rows
+    out, eager = _capture_and_replay(_CAPTURED_OPS[op], v, P, rows)
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    eager if isinstance(eager, tuple) else (eager,)):
+        assert torch.equal(a, b), op
+
+
+@pytest.mark.cuda
+def test_a_capture_that_synchronises_raises(card):
+    """A loop body that reads the host cannot be captured: the capture
+    raises, and nothing runs the body another way. In a process of its own:
+    a failed capture may leave its CUDA context unusable."""
+    code = ("import torch\n"
+            "from akmc_tpu_torch.ops.device_loop import StepProgram\n"
+            "x = torch.zeros(4, device='cuda')\n"
+            "StepProgram(lambda: x.add_(float(x.sum())), x.device).capture()\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode != 0 and "during capture" in run.stderr, run.stderr[-2000:]
+
+
+def _card_frozen(card):
+    p, model, state, fr = _frozen_table(card)
+    return p, model.tables, state, fr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 64])
+def test_graph_loops_match_plain_loops_on_card(card, k):
+    """The three device loops, captured and replayed on the card, against
+    their plain host loops on the card from the same fields and uniforms:
+    equal to the bit; each replay reads the host once."""
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.ops.device_loop import FIRST_K, LoopGraphs
+    from akmc_tpu_torch.rng import ReferenceRNG
+
+    p, t, state, fr = _card_frozen(card)
+    rand = torch.from_numpy(ReferenceRNG(7).uniform(8192)).to(card)
+    common = dict(act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S)
+    graphs = LoopGraphs()
+
+    def args(draws):
+        return (state.element, fr.charge, fr.P.clone(), fr.etype, t.act_neigh, draws, p.freq)
+
+    for inc in (False, True):
+        a = ev.run_event_loop_plain(*args(rand), t.act_idx, t.abs2act, t.act_zero_rows,
+                                    ln_S=fr.ln_S, incremental_select=inc)
+        b = ev.run_event_loop(*args(rand), t.act_idx, t.abs2act, t.act_zero_rows, ln_S=fr.ln_S,
+                              incremental_select=inc, k=k, graphs=graphs)
+        assert (a.n_events, a.draws_used, a.done, a.event_time_h) == (
+            b.n_events, b.draws_used, b.done, b.event_time_h) and a.n_events >= 3
+        for x, y in ((a.element, b.element), (a.charge, b.charge), (a.P, b.P),
+                     (a.event_time, b.event_time)):
+            assert torch.equal(x, y)
+    a = ev.run_event_loop_native_plain(*args(ev.GeneratorDraws.seeded(3, card)),
+                                       zero_rows=t.act_zero_rows, **common)
+    b = ev.run_event_loop_native(*args(ev.GeneratorDraws.seeded(3, card)),
+                                 zero_rows=t.act_zero_rows, k=k, graphs=graphs, **common)
+    assert (a.n_events, a.done, a.event_time_h) == (b.n_events, b.done, b.event_time_h)
+    assert torch.equal(a.element, b.element) and torch.equal(a.P, b.P)
+    for clock_f32, max_b in ((False, 1 << 14), (True, 40)):
+        ga, gb = ev.GeneratorDraws.seeded(5, card), ev.GeneratorDraws.seeded(5, card)
+        kw = dict(batch=8, clock_f32=clock_f32, max_batches=max_b, **common)
+        a = ev.run_event_loop_batched_plain(*args(ga), **kw)
+        ev.reset_loop_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                b = ev.run_event_loop_batched(*args(gb), k=k, graphs=graphs, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        reads = sum("synchroniz" in str(w.message) for w in caught
+                    if w.filename.endswith(("events.py", "device_loop.py")))
+        first = min(FIRST_K, k)          # the first replay's steps
+        assert reads == ev.LOOP_COUNTS["batched"]["replays"] == 1 + -(
+            -max(b.n_batches - first, 0) // k)
+        assert (a.n_events, a.n_batches, a.done, a.n_cut_conflict, a.n_cut_mass,
+                a.event_time_h) == (b.n_events, b.n_batches, b.done, b.n_cut_conflict,
+                                    b.n_cut_mass, b.event_time_h)
+        assert torch.equal(a.element, b.element) and torch.equal(a.P, b.P)
+        assert torch.equal(ga.uniform((3,), torch.float64, card),
+                           gb.uniform((3,), torch.float64, card))
+    assert all(p.graph is not None for prog in graphs.programs.values()
+               for p in prog.loop.programs.values())

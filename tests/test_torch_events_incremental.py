@@ -160,15 +160,17 @@ def test_loop_incremental_equal_fresh_and_akmc_tpu(request, structure, normalize
     elem, charge, Pt, et = T(s.element), T(fr.charge), T(P), T(etype)
     assert Pt.shape[0] % 256 == 0
     assert (Pt.shape[0] // 256 >= tev._MIN_BLOCK_ROWS) == (structure == "wide")
+    # the device loop calls the refresh in every step it runs; a dead step's
+    # (its ``live`` argument false) writes nothing: count the live ones
     refreshed = []
     real = tev._refresh_block_sums
     monkeypatch.setattr(tev, "_refresh_block_sums",
-                        lambda *a: (refreshed.append(1), real(*a)))
+                        lambda *a: (refreshed.append(len(a) < 4 or bool(a[3])), real(*a)))
     rand = ReferenceRNG(7).uniform(buf_len)
     rf = _port_loop(tt, elem, charge, Pt, et, rand, p, ln_S, False)
     assert not refreshed
     ri = _port_loop(tt, elem, charge, Pt, et, rand, p, ln_S, True)
-    assert len(refreshed) == ri.n_events >= 3
+    assert sum(refreshed) == ri.n_events >= 3
     _assert_same(ri, rf)
     rj = jev.run_event_loop(
         s.element, fr.charge, P, etype, t.act_neigh, jnp.asarray(rand), p.freq,
