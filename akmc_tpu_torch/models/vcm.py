@@ -63,6 +63,7 @@ from akmc_tpu_torch.solvers.banded import (
     solve_potential_boundary_banded,
     solve_potential_boundary_banded_carry,
 )
+from akmc_tpu_torch.solvers.cg import COUNT_KEYS
 from akmc_tpu_torch.solvers.current import (
     CurrentTables,
     PowerShard,
@@ -82,6 +83,7 @@ from akmc_tpu_torch.solvers.heat import (
     build_local_heat,
     update_temperature_global,
     update_temperature_local_ref,
+    update_temperature_local_steady,
 )
 from akmc_tpu_torch.solvers.poisson import solve_cb_edge, solve_potential_boundary
 from akmc_tpu_torch.state import DeviceState
@@ -215,6 +217,13 @@ class VCMModel:
         # the event loops' programs (ops/device_loop.py): their state tensors
         # and, on a card, their CUDA graphs, captured once per shape
         self.loop_graphs = LoopGraphs()
+        # the CG device loops' programs (solvers/cg.py): one per operator key
+        # (the K, CB-edge, power and heat solves), beside the event loops'
+        self.cg_graphs = LoopGraphs()
+        # what the CG device loops did since the previous superstep ended
+        # (solves, replays: one host read each, iterations run and live)
+        self._cg_mark = self._cg_totals()
+        self.cg_step_counts = dict.fromkeys(COUNT_KEYS, 0)
         # sharded runs (parallel/mesh.py::shard_model): the rank's Mesh, every
         # rank's row ranges per sharded table, and the rank's rows of the
         # event table's row sites and neighbors
@@ -453,13 +462,13 @@ class VCMModel:
                 kop, self.band_meta, element, charge, pb_prev, Vd,
                 p.high_G, p.low_G, p.num_atoms_first_layer, p.nn_dist,
                 self._lattice_t, bool(p.pbc), self.vmax, max_iterations=max_iterations,
-                shard=self._shard("band"),
+                shard=self._shard("band"), graphs=self.cg_graphs,
             )
         else:
             pot, cg = solve_potential_boundary(
                 element, charge, pb_prev, t.k_neigh_idx, t.metal_edge, Vd,
                 p.high_G, p.low_G, p.num_atoms_first_layer, max_iterations=max_iterations,
-                shard=self._shard("int"),
+                shard=self._shard("int"), graphs=self.cg_graphs,
             )
         self.k_solves += 1
         self.k_iterations += cg.iterations
@@ -506,6 +515,7 @@ class VCMModel:
             self.banded, self.band_meta, element, charge, pb_prev, Vd,
             p.high_G, p.low_G, p.num_atoms_first_layer, p.nn_dist,
             self._lattice_t, bool(p.pbc), self.vmax, carry=carry, shard=self._shard("band"),
+            graphs=self.cg_graphs,
         )
         self.k_solves += 1
         self.k_iterations += cg.iterations
@@ -663,6 +673,7 @@ class VCMModel:
             potential_boundary=fr.potential_boundary,
             potential_charge=fr.potential_sum,
         )
+        self._count_cg_step()
         return new_state, {"cg_iterations": fr.cg_iterations}
 
     def superstep_events_only(
@@ -679,11 +690,26 @@ class VCMModel:
                                       stream, rand_chunk)
         new_state = state.replace(element=res.element, charge=res.charge,
                                   kmc_time=state.kmc_time + res.event_time)
+        self._count_cg_step()
         return new_state, {"n_events": res.n_events, "event_time": res.event_time_h,
                            "cg_iterations": 0}
 
+    def _cg_totals(self) -> dict:
+        """The counts of every CG program of ``cg_graphs``, summed."""
+        progs = self.cg_graphs.programs.values()
+        return {k: sum(p.counts[k] for p in progs) for k in COUNT_KEYS}
+
+    def _count_cg_step(self) -> None:
+        """``cg_step_counts``: what the CG device loops did since the last
+        superstep ended (a new bias point's CB-edge solve included). The
+        stats keep ``akmc_tpu``'s keys, so the counts live here."""
+        now = self._cg_totals()
+        self.cg_step_counts = {k: now[k] - self._cg_mark[k] for k in now}
+        self._cg_mark = now
+
     def _finish(self, state, fr, res, **more) -> Tuple[DeviceState, dict]:
         """The new state and the stats every superstep returns."""
+        self._count_cg_step()
         new_state = state.replace(
             element=res.element,
             charge=res.charge,
@@ -825,10 +851,11 @@ class VCMModel:
         ``batched`` B the batched loop with B candidates and ``clock_f32``'s
         clocks, drawing from a throwaway generator. Under
         ``full_physics`` the lazy tables the run uses: ``current_tables``,
-        ``power_band`` and, with the local heat model, ``local_heat``. No
-        tensor of ``state`` changes and no stream is drawn from (akmc_tpu's
-        ``warmup`` compiles its executables, while loops included, instead).
-        Returns the host seconds of each item."""
+        ``power_band`` and, with the local heat model, ``local_heat``. On a
+        card the CG programs the run takes are captured into ``cg_graphs``
+        (``_capture_cgs``). No tensor of ``state`` changes and no stream is
+        drawn from (akmc_tpu's ``warmup`` compiles its executables, while
+        loops included, instead). Returns the host seconds of each item."""
         out = {}
 
         def timed(name, fn):
@@ -853,7 +880,38 @@ class VCMModel:
             timed("power_band", lambda: self.power_band)
             if self.params.solve_heating_local:
                 timed("local_heat", lambda: self.local_heat)
+        if self.device.type == "cuda":
+            timed("cg_loops", lambda: self._capture_cgs(state, Vd, full_physics))
+        self._cg_mark = self._cg_totals()
         return out
+
+    def _capture_cgs(self, state: DeviceState, Vd: float, full_physics: bool) -> None:
+        """Each CG a superstep of this model runs on one device, cut at
+        ``max_iterations = 0`` so that its program is built and captured
+        into ``cg_graphs`` at this model's shapes: the banded or ELL K solve
+        (counted in ``k_solves`` and ``k_iterations`` as any solve) and,
+        under ``full_physics``, the CB-edge and power solves and, with the
+        local heat model, the steady heat solve (on zero power). Under a mesh
+        the CGs are host loops: nothing to capture."""
+        if self.mesh is not None:
+            return
+        if not isinstance(self.kop, DiaK):
+            self._solve_boundary(state.element, state.charge, state.potential_boundary, Vd,
+                                 max_iterations=0)
+        if not full_physics:
+            return
+        p, t = self.params, self.tables
+        solve_cb_edge(state.element, state.charge, state.cb_edge, t.k_neigh_idx,
+                      t.metal_or_edge, Vd, p.high_G * 100000, p.low_G,
+                      p.num_atoms_first_layer, max_iterations=0, graphs=self.cg_graphs)
+        m0 = torch.zeros(self.n_atom + 2, dtype=torch.float64, device=self.device)
+        self._power(state.element, state.charge, state.cb_edge, m0, Vd, self.power_rtol_scale,
+                    max_iterations=0)
+        if p.solve_heating_local:
+            update_temperature_local_steady(
+                self.local_heat, state.temperature, torch.zeros_like(state.temperature),
+                state.element, p.background_temp, p.nn_dist * 1e-10, p.k_th_interface,
+                p.k_th_vacancies, graphs=self.cg_graphs)
 
     def _capture_loops(self, state: DeviceState, batched: int, clock_f32: bool) -> None:
         """The event loop a run takes, called once on a dead input (an
@@ -897,6 +955,7 @@ class VCMModel:
         cb, res = solve_cb_edge(
             state.element, state.charge, state.cb_edge, t.k_neigh_idx, t.metal_or_edge, Vd,
             p.high_G * 100000, p.low_G, p.num_atoms_first_layer, shard=self._shard("int"),
+            graphs=self.cg_graphs,
         )
         self.cb_iterations = res.iterations
         return state.replace(cb_edge=cb)
@@ -970,7 +1029,7 @@ class VCMModel:
             ).to(self.device)
         return self._local_heat
 
-    def _power(self, element, charge, cb_edge, m_prev, Vd, rtol_scale):
+    def _power(self, element, charge, cb_edge, m_prev, Vd, rtol_scale, max_iterations=10000):
         """Current and dissipated power on (element, charge, cb_edge): (I_macro
         (0-d), site power (N,), m (N_atom+2,), CG iterations). The vacancy count
         must not exceed ``vmax``. ``power_timing`` keeps the host seconds of
@@ -1005,7 +1064,8 @@ class VCMModel:
             ct, ps, Vd, high_G, loop_G, G0, alpha, m_prev, atom_elem,
             band=pband, band_meta=self._power_band_meta if pband is not None else None,
             cvac=cvac, nn_dist=p.nn_dist, lattice=self._lattice_t, pbc=bool(p.pbc),
-            rtol_scale=rtol_scale, shard=shard,
+            rtol_scale=rtol_scale, shard=shard, max_iterations=max_iterations,
+            graphs=self.cg_graphs,
         )
         site_power = torch.zeros(element.shape[0], dtype=atom_power.dtype, device=self.device)
         site_power[ct.atom_ind] = atom_power
@@ -1054,7 +1114,7 @@ class VCMModel:
             temperature = update_temperature_local_ref(
                 self.local_heat, temperature, site_power, element, event_time_h, p.delta_t,
                 p.tau, p.background_temp, p.nn_dist * 1e-10, p.k_th_interface,
-                p.k_th_vacancies,
+                p.k_th_vacancies, graphs=self.cg_graphs,
             )
         return T_bg, temperature
 

@@ -26,6 +26,7 @@ ends where the plain loop leaves it.
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Dict, Hashable, List, Sequence
 
@@ -37,7 +38,9 @@ class StepProgram:
     the caller owns) as one CUDA graph on a card, or eagerly on the CPU.
     ``capture`` must run while the state is dead: with ``warm`` it first runs
     the body once eagerly on a side stream, as PyTorch asks before a
-    capture (a program whose steps were warmed by another needs none)."""
+    capture (a program whose steps were warmed by another needs none); the
+    cyclic collector is off during the capture, so that no dropped graph is
+    freed inside it."""
 
     def __init__(self, body: Callable[[], None], device: torch.device):
         self.body, self.device = body, device
@@ -55,8 +58,17 @@ class StepProgram:
                 self.body()
             torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.body()
+        # a dropped program keeps its graphs in a reference cycle until the
+        # cyclic collector runs; run inside a capture, it would destroy them
+        # there, which CUDA does not permit and which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
@@ -137,14 +149,14 @@ class GraphLoop:
     """The replays of one loop. ``body(n)`` runs steps 0..n-1 over the
     loop's state and packs its flags into ``flags``: ``flags[0]`` whether the
     loop is live after them, ``flags[live_at]`` the live steps so far. The
-    first replay runs min(FIRST_K, k) steps and every later one k; each
+    first replay runs min(``first``, k) steps and every later one k; each
     length is one ``StepProgram``, both captured at once while the state is
     dead, after one eager run of the shorter. ``prefill``: the loop's
     uniforms, drawn before each replay."""
 
     def __init__(self, body, k: int, device: torch.device, flags: torch.Tensor, live_at: int,
-                 prefill: "Prefill" = None):
-        self.k, self.first = k, min(FIRST_K, k)
+                 prefill: "Prefill" = None, first: int = FIRST_K):
+        self.k, self.first = k, min(first, k)
         self.flags, self.live_at, self.prefill = flags, live_at, prefill
         self.programs = {n: StepProgram(functools.partial(body, n), device)
                          for n in sorted({self.first, k})}

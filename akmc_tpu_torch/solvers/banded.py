@@ -25,8 +25,9 @@ solver frame costs two O(N) gathers per solve.
 decoded once per operator into f64 with the host-summed constants of
 ``BandMeta``, with the strided windows of the padded vector: a library
 product (``torch.bmm``) of a plain dense matrix, which ``akmc_tpu`` too
-computes outside any hand-written kernel. The CG around it is the host loop
-of ``solvers/cg.py``.
+computes outside any hand-written kernel. The CG around it is the device
+loop of ``solvers/cg.py::jacobi_cg`` (k iterations per CUDA-graph replay);
+under a mesh, its host loop.
 
 Reference semantics preserved (same matrix entries, same CG, same stopping
 rule — background_potential_gpu_sparse, potential_solver_gpu.cu:846-1128);
@@ -35,6 +36,7 @@ only float summation order changes.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 from typing import NamedTuple, Optional, Tuple
 
@@ -43,7 +45,9 @@ import torch
 
 from akmc_tpu_torch.lattice import ELEM
 from akmc_tpu_torch.ops.compact import compact_mask
-from akmc_tpu_torch.solvers.cg import CGResult, f64_matvec, jacobi_cg
+from akmc_tpu_torch.solvers.cg import (
+    CGResult, Operator, addresses, f64_matvec, jacobi_cg, jacobi_cg_plain,
+)
 
 
 @dataclass
@@ -268,44 +272,69 @@ class KCarry(NamedTuple):
     Wv: torch.Tensor          # (VMAX, VMAX) cvac adjacency of that solve
 
 
+def _scatter(n, idx_, vv_, vals):
+    """Zeros with ``vals`` added at the valid ``idx_``: every real target
+    occurs once (``compact_mask``'s list) and pad slots add exact zeros at
+    index 0, so the sum is the same in any order of the device's atomics."""
+    out = torch.zeros(n, dtype=torch.float64, device=vals.device)
+    return out.index_add_(0, idx_.clamp(min=0), torch.where(vv_, vals, 0.0))
+
+
+def _s_corr(x_p, vidx_, vv_, Wv_, dG):
+    """dG-scaled compacted cvac-adjacency scatter term."""
+    xv = torch.where(vv_, x_p[vidx_.clamp(min=0)], 0.0)
+    return _scatter(x_p.shape[0], vidx_, vv_, dG * f64_matvec(Wv_, xv))
+
+
+def _banded_op(x_p, diag_p, vidx, vv, Wv, *, bk, meta, dG, shard):
+    """A x in the solver frame: x_p a full-length vector, contacts implicitly
+    zero."""
+    is_int_p = bk.is_int
+    xz = torch.where(is_int_p, x_p, 0.0)
+    y = diag_p * xz - sharded_band_matvec(bk, meta, xz, shard)
+    y = y - _s_corr(xz, vidx, vv, Wv, dG)
+    # BAND includes edges to contact columns, but xz zeroes them; rows of
+    # contacts are masked out of the solve entirely:
+    return torch.where(is_int_p, y, x_p)
+
+
 def _assemble_banded(bk, meta, element, charge, Vd, high_G, low_G,
                      num_atoms_first_layer, nn_dist, lattice, pbc, vmax, shard=None):
-    """The solve's pieces. ``shard`` (mesh, block ranges): ``bk`` holds this
-    rank's band blocks and the band product is gathered whole
-    (``sharded_band_matvec``); every vector stays whole on every rank, so the
-    CG computes on each what it computes on one device."""
+    """The solve's pieces; the operator is an ``Operator`` over the
+    per-solve diagonal and compacted cvac plane. ``shard`` (mesh, block
+    ranges): ``bk`` holds this rank's band blocks and the band product is
+    gathered whole (``sharded_band_matvec``); every vector stays whole on
+    every rank, so the CG computes on each what it computes on one device."""
     n = element.shape[0]
     dG = high_G - low_G
     cvac = (element == int(ELEM.VACANCY)) & (charge == 0)
     cvac_p = cvac[bk.perm]
     vidx, vv, Wv, vdeg = cvac_correction(bk, cvac_p, nn_dist, lattice, pbc, vmax)
 
-    def scatter(idx_, vv_, vals):
-        """Zeros with ``vals`` added at the valid ``idx_``: every real target
-        occurs once and pad slots add exact zeros at index 0."""
-        out = torch.zeros(n, dtype=torch.float64, device=element.device)
-        return out.index_add_(0, idx_.clamp(min=0), torch.where(vv_, vals, 0.0))
-
     # diagonal: static all-neighbor sums + dynamic cvac-edge upgrades
-    diag_p = bk.deg_static + dG * scatter(vidx, vv, vdeg)
+    diag_p = bk.deg_static + dG * _scatter(n, vidx, vv, vdeg)
     is_int_p = bk.is_int
     rhs_p = (bk.lsum * (-Vd / 2.0) + bk.rsum * (Vd / 2.0)) * is_int_p
 
-    def S_corr(x_p, vidx_, vv_, Wv_):
-        """dG-scaled compacted cvac-adjacency scatter term."""
-        xv = torch.where(vv_, x_p[vidx_.clamp(min=0)], 0.0)
-        return scatter(vidx_, vv_, dG * f64_matvec(Wv_, xv))
+    A_frame = Operator(
+        "banded", functools.partial(_banded_op, bk=bk, meta=meta, dG=dG, shard=shard),
+        (diag_p, vidx, vv, Wv),
+        (addresses(bk.values(meta), bk.is_int, bk.perm), meta, dG),
+    )
 
-    def A_frame(x_p):
-        # x_p: solver-frame full-length vector, contacts implicitly zero
-        xz = torch.where(is_int_p, x_p, 0.0)
-        y = diag_p * xz - sharded_band_matvec(bk, meta, xz, shard)
-        y = y - S_corr(xz, vidx, vv, Wv)
-        # BAND includes edges to contact columns, but xz zeroes them; rows of
-        # contacts are masked out of the solve entirely:
-        return torch.where(is_int_p, y, x_p)
+    def S_corr(x_p, vidx_, vv_, Wv_):
+        return _s_corr(x_p, vidx_, vv_, Wv_, dG)
 
     return cvac_p, (vidx, vv, Wv), diag_p, is_int_p, rhs_p, A_frame, S_corr
+
+
+def _k_cg(A, rhs_p, x0_p, inv_diag_p, rtol, max_iterations, shard, graphs, r0=None):
+    """The K-CG: the device loop, or under ``shard`` the host loop (gloo
+    collectives cannot be captured into a graph)."""
+    if shard is None:
+        return jacobi_cg(A, rhs_p, x0_p, inv_diag_p, rtol, max_iterations, r0=r0,
+                         graphs=graphs)
+    return jacobi_cg_plain(A, rhs_p, x0_p, inv_diag_p, rtol, max_iterations, r0=r0)
 
 
 def solve_potential_boundary_banded(
@@ -325,10 +354,12 @@ def solve_potential_boundary_banded(
     rtol_coeff: float = 1e-14,
     max_iterations: int = 10000,
     shard=None,
+    graphs=None,
 ) -> Tuple[torch.Tensor, CGResult]:
     """Drop-in replacement for poisson.solve_potential_boundary using the
     static band + dynamic cvac correction. ``shard`` (mesh, block ranges):
-    ``bk`` holds this rank's blocks (``_assemble_banded``)."""
+    ``bk`` holds this rank's blocks (``_assemble_banded``). ``graphs``: the
+    caller's ``LoopGraphs`` for the CG's device loop (``solvers/cg.py``)."""
     n = element.shape[0]
     n_int = n - 2 * num_atoms_first_layer
 
@@ -343,9 +374,8 @@ def solve_potential_boundary_banded(
     x0_p = torch.where(is_int_p, potential_boundary_prev[bk.perm], 0.0)
     inv_diag_p = torch.where(is_int_p, 1.0 / diag_p, 1.0)
 
-    res = jacobi_cg(
-        A_frame, rhs_p, x0_p, inv_diag_p, rtol_coeff * n_int, max_iterations
-    )
+    res = _k_cg(A_frame, rhs_p, x0_p, inv_diag_p, rtol_coeff * n_int, max_iterations,
+                shard, graphs)
     full = torch.where(is_int_p, res.x, 0.0)[bk.inv_perm]
     return full, res
 
@@ -368,6 +398,7 @@ def solve_potential_boundary_banded_carry(
     rtol_coeff: float = 1e-14,
     max_iterations: int = 10000,
     shard=None,
+    graphs=None,
 ) -> Tuple[torch.Tensor, CGResult, KCarry]:
     """Warm solve with an incrementally-rebased initial residual.
 
@@ -378,8 +409,8 @@ def solve_potential_boundary_banded_carry(
     carried compacted plane. b is constant within a bias (rhs = static
     contact sums × Vd). carry=None (a bias change, or a periodic re-base)
     runs the fresh path, which also re-bases any recurrence-residual drift
-    from the CG iterations of previous steps. ``shard`` as
-    ``solve_potential_boundary_banded`` takes it."""
+    from the CG iterations of previous steps. ``shard`` and ``graphs`` as
+    ``solve_potential_boundary_banded`` takes them."""
     n = element.shape[0]
     n_int = n - 2 * num_atoms_first_layer
 
@@ -397,10 +428,8 @@ def solve_potential_boundary_banded_carry(
         dS = S_corr(x0_p, vidx, vv, Wv) - S_corr(x0_p, carry.vidx, carry.vv, carry.Wv)
         r0 = torch.where(is_int_p, carry.r + d_diag + dS, 0.0)
 
-    res = jacobi_cg(
-        A_frame, rhs_p, x0_p, inv_diag_p, rtol_coeff * n_int,
-        max_iterations, r0=r0,
-    )
+    res = _k_cg(A_frame, rhs_p, x0_p, inv_diag_p, rtol_coeff * n_int, max_iterations,
+                shard, graphs, r0=r0)
     full = torch.where(is_int_p, res.x, 0.0)[bk.inv_perm]
     new_carry = KCarry(r=res.r, diag=diag_p, vidx=vidx, vv=vv, Wv=Wv)
     return full, res, new_carry

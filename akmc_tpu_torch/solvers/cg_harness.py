@@ -20,7 +20,9 @@ row-sharded: each rank computes its rows of the gather part and of the dense
 product (gathered whole, ``Mesh.gather_rows``) and its rows' part of the
 transposed scatter (added over ranks in rank order, ``Mesh.sum_partials``).
 The CG vectors stay whole on every rank, so every rank holds the same
-iterates.
+iterates. On one device the CG is the device loop of ``solvers/cg.py`` (one
+program for a run's solves); over ranks, its host loop (gloo collectives
+cannot be captured into a graph).
 
 CLI:
     python -m akmc_tpu_torch.solvers.cg_harness --n 100000 --devices 4 --contrast 1e8
@@ -39,7 +41,8 @@ import numpy as np
 import torch
 
 from akmc_tpu_torch.device import resolve_device
-from akmc_tpu_torch.solvers.cg import jacobi_cg
+from akmc_tpu_torch.ops.device_loop import LoopGraphs
+from akmc_tpu_torch.solvers.cg import Operator, jacobi_cg, jacobi_cg_plain
 
 
 def make_system(n: int, nnz_per_row: int = 12, contrast: float = 1e8, seed: int = 0):
@@ -118,7 +121,11 @@ def _solve(mesh, device, n, contrast, rtol_coeff, n_sub=None, density=0.43, more
         # action): together the symmetric off-diagonal part
         y = diag * x - 0.5 * whole(torch.sum(w_t * x[nbr_t], dim=1), ranges)
         contrib = 0.5 * w_t * x[rows[0]:rows[1], None]
-        y = y - over_ranks(torch.zeros_like(x).index_add_(0, flat, contrib.reshape(-1)))
+        # flat repeats its indices: index_put_ adds each index's values in
+        # their order on the CPU and, sorted, on a card (index_add_'s atomics
+        # would add them in whatever order they land)
+        y = y - over_ranks(torch.zeros_like(x).index_put_((flat,), contrib.reshape(-1),
+                                                          accumulate=True))
         if sub_idx is not None:
             # tunnel subblock: gather the subvector, dense rows, scatter-add
             y = y.index_add(0, sub_t, -whole(torch.mv(W_t, x[sub_t]), sranges))
@@ -126,13 +133,17 @@ def _solve(mesh, device, n, contrast, rtol_coeff, n_sub=None, density=0.43, more
 
     x_true = torch.as_tensor(np.random.RandomState(1).randn(n), device=dev)
     b = A(x_true)
+    op, graphs = Operator("harness", A), LoopGraphs()
 
     def solve(coeff):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        res = jacobi_cg(A, b, torch.zeros(n, dtype=torch.float64, device=dev), 1.0 / diag,
-                        coeff * n, 20000)
+        x0 = torch.zeros(n, dtype=torch.float64, device=dev)
+        if mesh is None:       # one program for every tolerance's solve
+            res = jacobi_cg(op, b, x0, 1.0 / diag, coeff * n, 20000, graphs=graphs)
+        else:                  # gloo collectives cannot be captured: the host loop
+            res = jacobi_cg_plain(op, b, x0, 1.0 / diag, coeff * n, 20000)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0

@@ -26,9 +26,12 @@ within the {V, O} / {Od, d} classes). The last atom is grounded. Terms:
 No (N_atom+2)^2 matrix is formed: the CG operator is the atom diagonal, the
 neighbor part (the static int8 atom band of ``build_power_band``, or a gather
 over the atom adjacency), the dense tunnel blocks W_tt / W_ct / W_cc on the
-compacted vacancy and contact lists, and the rail terms. The CG is the host
-loop of ``solvers/cg.py::jacobi_cg`` with the multiply + sum dot, one host
-read per iteration.
+compacted vacancy and contact lists, and the rail terms. The CG is the device
+loop of ``solvers/cg.py::jacobi_cg`` with the multiply + sum dot (k
+iterations per CUDA-graph replay, one host read per replay). Its scatters
+(``_scatter_add``) add at most one non-zero value per index: the compacted
+vacancy and contact lists hold each atom once and their pads add exact zeros,
+so the device's atomics give the same sum in any order.
 
 The contact-trap energy integral runs its shared energy loop to a bound read
 on the host once per block (the largest eligible pair window): every term past
@@ -43,6 +46,7 @@ matrix (set_ineg, 2353-2379); site power = -alpha * P_i on non-metal atoms.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 from typing import NamedTuple, Optional, Tuple
 
@@ -52,7 +56,7 @@ import torch
 from akmc_tpu_torch.config import EV_TO_J, H_BAR
 from akmc_tpu_torch.lattice import ELEM, build_neighbor_list, metal_mask
 from akmc_tpu_torch.ops.compact import compact_mask
-from akmc_tpu_torch.solvers.cg import f64_vdot, jacobi_cg
+from akmc_tpu_torch.solvers.cg import Operator, addresses, f64_vdot, jacobi_cg, jacobi_cg_plain
 
 F64 = torch.float64
 
@@ -555,6 +559,45 @@ def _cvac_fold(pos_v, cvac_v, vac_idx, lattice, pbc, nn_dist, dtype, dG, rows=sl
                       for s in range(0, pos_r.shape[0], B)], dim=0)
 
 
+def _power_band_op(v, diag_p, W_tt, W_ct, W_cc, vi_p, vv, cidx_p, gmask, inj_p, ext_p,
+                   inj_pm, ext_pm, *, bk, meta, high_G, loop_G, diag0, diag1, block0, shard):
+    """X v in the band's solver frame. v: (N_atom + 2,) = [ext, inj, atoms
+    (solver frame; the grounded slot pinned by an identity row)]."""
+    from akmc_tpu_torch.solvers.banded import band_matvec
+
+    va = torch.where(gmask, v[2:], 0.0)
+    y = _tunnel_matvec(W_tt, W_ct, W_cc, lambda bm: diag_p * va - bm, va, vi_p, vv,
+                       cidx_p, shard, first=(band_matvec(bk, meta, va, block0), "band_rows"))
+    y = y - high_G * inj_p * v[1] - high_G * ext_p * v[0]
+    y0 = diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ext_pm, va, 0.0))
+    y1 = diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(inj_pm, va, 0.0))
+    y = torch.where(gmask, y, v[2:])
+    return torch.cat([torch.stack([y0, y1]), y])
+
+
+def _power_gather_op(v, diag, G_nbr, vac_idx, W_tt, W_ct, W_cc, inj, ext, *, ct, high_G,
+                     loop_G, diag0, diag1, shard):
+    """X v over the atom adjacency. v: (N_atom + 1,) = [ext, inj,
+    atoms[:-1]] (the grounded atom dropped)."""
+    ps = PowerSystem(G_nbr=G_nbr, vac_idx=vac_idx, W_tt=W_tt, W_ct=W_ct, W_cc=W_cc, diag=diag,
+                     diag0=diag0, diag1=diag1)
+    va = torch.cat([v[2:], torch.zeros(1, dtype=v.dtype, device=v.device)])
+    y_at = diag * va + _X_atoms_matvec(ct, ps, va, (W_tt, W_ct, W_cc), shard)
+    y_at = y_at - high_G * inj * v[1] - high_G * ext * v[0]
+    y0 = diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ct.ext_tie, va, 0.0))
+    y1 = diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(ct.inj_tie, va, 0.0))
+    return torch.cat([torch.stack([y0, y1]), y_at[:-1]])
+
+
+def _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs):
+    """The power CG with the multiply + sum dot: the device loop, or under
+    ``shard`` the host loop."""
+    if shard is None:
+        return jacobi_cg(A, b, x0, inv_diag, rtol, max_iterations, dot_fn=f64_vdot,
+                         graphs=graphs)
+    return jacobi_cg_plain(A, b, x0, inv_diag, rtol, max_iterations, dot_fn=f64_vdot)
+
+
 def solve_power(
     ct: CurrentTables,
     ps: PowerSystem,
@@ -578,6 +621,7 @@ def solve_power(
     #                                  of large virtual potentials, so callers
     #                                  tighten the solve there
     shard: Optional[PowerShard] = None,   # the system and the band are this rank's rows
+    graphs=None,                     # the caller's LoopGraphs for the CG's device loop
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Solve X m = b; returns (I_macro [A] (0-d), atom_power (N_atom,) [W],
     m (N_atom+2) unscaled, CG iterations).
@@ -589,9 +633,11 @@ def solve_power(
     it the neighbor part is a gather over the atom adjacency and the grounded
     atom is dropped from the unknowns.
 
-    Under ``shard`` the CG vectors stay whole on every rank and every rank
+    On one device the CG is the device loop of ``solvers/cg.py``. Under
+    ``shard`` the CG vectors stay whole on every rank and every rank
     computes the same iterates: each product with a sharded block is the
-    rank's rows, gathered (``PowerShard``)."""
+    rank's rows, gathered (``PowerShard``); the CG is the host loop there
+    (gloo collectives cannot be captured into a graph)."""
     n_atom = ct.atom_ind.shape[0]
     dev = m_prev.device
     inj = ct.inj_tie.to(F64)
@@ -601,8 +647,6 @@ def solve_power(
     rtol = rtol_coeff * n_atom * rtol_scale
 
     if band is not None:
-        from akmc_tpu_torch.solvers.banded import band_matvec
-
         bk, meta = band, band_meta
         perm, invp = bk.perm, bk.inv_perm
         dGv = meta.val_both - meta.val_low
@@ -624,44 +668,40 @@ def solve_power(
         W_ct, W_cc = ps.W_ct.to(F64), ps.W_cc.to(F64)
         block0 = 0 if shard is None else shard.band[shard.mesh.rank][0]
 
-        def A(v):
-            # v: (N_atom + 2,) = [ext, inj, atoms (solver frame; grounded slot
-            # pinned by the identity row)]
-            va = torch.where(gmask, v[2:], 0.0)
-            y = _tunnel_matvec(W_tt, W_ct, W_cc, lambda bm: diag_p * va - bm, va, vi_p, vv,
-                               cidx_p, shard, first=(band_matvec(bk, meta, va, block0),
-                                                     "band_rows"))
-            y = y - high_G * inj_p * v[1] - high_G * ext_p * v[0]
-            y0 = ps.diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ext_pm, va, 0.0))
-            y1 = ps.diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(inj_pm, va, 0.0))
-            y = torch.where(gmask, y, v[2:])
-            return torch.cat([torch.stack([y0, y1]), y])
+        A = Operator(
+            "power_band",
+            functools.partial(_power_band_op, bk=bk, meta=meta, high_G=high_G, loop_G=loop_G,
+                              diag0=ps.diag0, diag1=ps.diag1, block0=block0, shard=shard),
+            (diag_p, W_tt, W_ct, W_cc, vi_p, vv, cidx_p, gmask, inj_p, ext_p, inj_pm, ext_pm),
+            (addresses(bk.values(meta), perm), meta, high_G, loop_G, ps.diag0, ps.diag1,
+             block0),
+        )
 
         b = torch.zeros(n_atom + 2, dtype=F64, device=dev)
         b[0], b[1] = -loop_G * Vd, loop_G * Vd
         d01 = torch.tensor([ps.diag0, ps.diag1], dtype=F64, device=dev)
         inv_diag = torch.cat([1.0 / d01, torch.where(gmask, 1.0 / torch.where(gmask, diag_p, 1.0), 1.0)])
         x0 = torch.cat([m_prev[:2], torch.where(gmask, m_prev[2:][perm], 0.0)])
-        res = jacobi_cg(A, b, x0, inv_diag, rtol, max_iterations, dot_fn=f64_vdot)
+        res = _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs)
         m = torch.cat([res.x[:2], res.x[2:][invp]])
     else:
         blocks = (ps.W_tt.to(F64), ps.W_ct.to(F64), ps.W_cc.to(F64))
 
-        def A(v):
-            # v: (N_atom + 1,) = [ext, inj, atoms[:-1]]
-            va = torch.cat([v[2:], torch.zeros(1, dtype=v.dtype, device=dev)])
-            y_at = ps.diag * va + _X_atoms_matvec(ct, ps, va, blocks, shard)
-            y_at = y_at - high_G * inj * v[1] - high_G * ext * v[0]
-            y0 = ps.diag0 * v[0] - loop_G * v[1] - high_G * torch.sum(torch.where(ct.ext_tie, va, 0.0))
-            y1 = ps.diag1 * v[1] - loop_G * v[0] - high_G * torch.sum(torch.where(ct.inj_tie, va, 0.0))
-            return torch.cat([torch.stack([y0, y1]), y_at[:-1]])
+        A = Operator(
+            "power_gather",
+            functools.partial(_power_gather_op, ct=ct, high_G=high_G, loop_G=loop_G,
+                              diag0=ps.diag0, diag1=ps.diag1, shard=shard),
+            (ps.diag, ps.G_nbr, ps.vac_idx, *blocks, inj, ext),
+            (addresses(ct.atom_neigh_idx, ct.contact_idx, ct.ext_tie, ct.inj_tie), high_G,
+             loop_G, ps.diag0, ps.diag1),
+        )
 
         b = torch.zeros(n_atom + 1, dtype=F64, device=dev)
         b[0], b[1] = -loop_G * Vd, loop_G * Vd
         d01 = torch.tensor([ps.diag0, ps.diag1], dtype=F64, device=dev)
         inv_diag = 1.0 / torch.cat([d01, ps.diag[:-1]])
         x0 = m_prev[: n_atom + 1]
-        res = jacobi_cg(A, b, x0, inv_diag, rtol, max_iterations, dot_fn=f64_vdot)
+        res = _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs)
         m = torch.cat([res.x, torch.zeros(1, dtype=res.x.dtype, device=dev)])   # grounded atom
     m_scaled = m * G0
 

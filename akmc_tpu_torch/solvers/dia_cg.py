@@ -35,7 +35,7 @@ from akmc_tpu_torch.ops.dia_matvec import (
     dia_combined_matvec_plain,
     require_tensor,
 )
-from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg
+from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg_plain
 
 _KERNEL = "dia_cg"
 CHUNK = 256      # rows per first-level reduction: kChunk of csrc/dia_cg.cu
@@ -145,7 +145,7 @@ def dia_cg_solve_plain(
     relative_tolerance: float,
     max_iterations: int,
 ) -> CGResult:
-    """Plain PyTorch twin on any device: the host-loop ``jacobi_cg`` over the
+    """Plain PyTorch twin on any device: the host loop ``jacobi_cg_plain`` over the
     plain matvec with ``blocked_vdot``. It repeats the kernel bit for bit."""
     offsets = op.offsets_list
 
@@ -154,8 +154,8 @@ def dia_cg_solve_plain(
         mv, corr = dia_combined_matvec_plain(op.diags, offsets, op.val_low, op.val_high, x, xv)
         return torch.where(is_int, diag_i * x - mv - dgc * corr, x)
 
-    return jacobi_cg(A, rhs, x0, inv_diag, relative_tolerance, max_iterations,
-                     dot_fn=blocked_vdot)
+    return jacobi_cg_plain(A, rhs, x0, inv_diag, relative_tolerance, max_iterations,
+                           dot_fn=blocked_vdot)
 
 
 def dia_cg_solve_sharded(

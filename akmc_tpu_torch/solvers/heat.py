@@ -18,13 +18,14 @@ with the contacts as Dirichlet values, as in akmc_tpu.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
 from akmc_tpu_torch.lattice import ELEM
-from akmc_tpu_torch.solvers.cg import jacobi_cg
+from akmc_tpu_torch.solvers.cg import Operator, addresses, jacobi_cg
 
 
 def update_temperature_global(
@@ -121,6 +122,13 @@ def _lap(lh: LocalHeat, t: torch.Tensor) -> torch.Tensor:
     return torch.where(lh.if_mask, nbr_sum - degree * t, 0.0)
 
 
+def _neg_lap(u, degree, valid, nbr, *, if_mask):
+    """-Lap u with Dirichlet-zero contacts, identity on contact rows."""
+    uz = torch.where(if_mask, u, 0.0)
+    tj = torch.where(valid, uz[nbr], 0.0)
+    return torch.where(if_mask, degree * uz - torch.sum(tj, dim=1), u)
+
+
 def _source(lh, site_power, element, background_temp, nn_dist_m, k_th_interface,
             k_th_vacancies):
     """(src, T_1 - T0): the power injected per interface site, scaled by the
@@ -147,6 +155,7 @@ def update_temperature_local_ref(
     nn_dist_m: float,
     k_th_interface: float,
     k_th_vacancies: float,
+    graphs=None,
 ) -> torch.Tensor:
     """The reference's Device::updateTemperature LOCAL dispatch
     (heat_solver.cpp:75-97):
@@ -155,11 +164,12 @@ def update_temperature_local_ref(
       * otherwise                      -> ``int(step_time/delta_t) + 1``
         transient explicit steps of duration ``delta_t`` each (at most 1,001).
 
-    The choice is made on the host from ``step_time``."""
+    The choice is made on the host from ``step_time``; ``graphs``: the
+    caller's ``LoopGraphs`` for the steady solve's CG."""
     if step_time > 1e3 * delta_t:
         return update_temperature_local_steady(
             lh, temperature, site_power, element, background_temp,
-            nn_dist_m, k_th_interface, k_th_vacancies,
+            nn_dist_m, k_th_interface, k_th_vacancies, graphs=graphs,
         )
     src, scale = _source(lh, site_power, element, background_temp, nn_dist_m,
                          k_th_interface, k_th_vacancies)
@@ -211,23 +221,21 @@ def update_temperature_local_steady(
     k_th_interface: float,
     k_th_vacancies: float,
     tol: float = 1e-10,
+    graphs=None,
 ) -> torch.Tensor:
     """Steady-state local model: -Lap T' = src with Dirichlet contacts at
     T_bg (updateLocalTemperatureSteadyState, heat_solver.cpp:235-303, with
-    the dense laplacian_ss replaced by CG)."""
+    the dense laplacian_ss replaced by CG: the device loop of
+    ``solvers/cg.py``, ``graphs`` the caller's ``LoopGraphs``)."""
     src, scale = _source(lh, site_power, element, background_temp, nn_dist_m,
                          k_th_interface, k_th_vacancies)
     valid = lh.neigh_idx >= 0
     degree = torch.sum(valid, dim=1).to(temperature.dtype)
     nbr = lh.neigh_idx.clamp(min=0)
-
-    def A(u):
-        # -Lap with Dirichlet-zero contacts, identity on contact rows
-        uz = torch.where(lh.if_mask, u, 0.0)
-        tj = torch.where(valid, uz[nbr], 0.0)
-        return torch.where(lh.if_mask, degree * uz - torch.sum(tj, dim=1), u)
+    A = Operator("heat", functools.partial(_neg_lap, if_mask=lh.if_mask), (degree, valid, nbr),
+                 addresses(lh.if_mask))
 
     b = src * scale
     inv_diag = torch.where(lh.if_mask, 1.0 / torch.clamp(degree, min=1.0), 1.0)
-    res = jacobi_cg(A, b, torch.zeros_like(b), inv_diag, tol, 20000)
+    res = jacobi_cg(A, b, torch.zeros_like(b), inv_diag, tol, 20000, graphs=graphs)
     return torch.where(lh.if_mask, background_temp + res.x, temperature)

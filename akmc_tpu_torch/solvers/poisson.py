@@ -23,7 +23,7 @@ with edge conductances (calc_off_diagonal_dist, potential_solver_gpu.cu:246):
 No matrix is assembled: the adjacency is the static padded table (PBC-aware,
 = the K CSR sparsity); the conductance table ``G`` is computed once per solve
 from element and charge, and each CG iteration is one gather, one multiply
-and one row sum over (N_int, NN).
+and one row sum over (N_int, NN), in the device loop of ``solvers/cg.py``.
 
 The contact-slice entries of the returned N-vector remain 0
 (kmc_main.cpp:567-573 is commented out in the reference).
@@ -31,13 +31,16 @@ The contact-slice entries of the returned N-vector remain 0
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from akmc_tpu_torch.config import EV_TO_J
 from akmc_tpu_torch.lattice import ELEM
-from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg, symscaled_cg
+from akmc_tpu_torch.solvers.cg import (
+    CGResult, Operator, jacobi_cg, jacobi_cg_plain, symscaled_cg, symscaled_cg_plain,
+)
 
 
 def edge_conductance(
@@ -72,6 +75,7 @@ def solve_potential_boundary(
     rtol_coeff: float = 1e-14,
     max_iterations: int = 10000,
     shard=None,
+    graphs=None,
 ) -> Tuple[torch.Tensor, CGResult]:
     """Solve the K system; returns the full-length N-vector (contacts zero)
     and CG diagnostics. rtol = rtol_coeff * N_interface
@@ -81,7 +85,9 @@ def solve_potential_boundary(
     this rank's interface rows ``ranges[mesh.rank]`` (counted from the first
     interface row); each rank computes its rows of every product, which are
     gathered whole (``interface_rows``), so the CG computes on every rank what
-    it computes on one device."""
+    it computes on one device; it runs the host loop there (gloo collectives
+    cannot be captured), and on one device the device loop of
+    ``solvers/cg.py`` with ``graphs`` the caller's ``LoopGraphs``."""
     n = element.shape[0]
     L = R = num_atoms_first_layer
     n_int = n - L - R
@@ -115,11 +121,7 @@ def solve_potential_boundary(
     # interface-local column; contact neighbors carry G_int = 0 and are
     # clamped into range (akmc_tpu's gather clamps them the same way)
     nbr_int = (j - L).clamp(0, n_int - 1)
-    rows = slice(i0, i0 + diag_r.shape[0])
-
-    def A(x):
-        # A x = diag*x - sum_j G_ij x_j  over interface neighbors
-        return whole(diag_r * x[rows] - torch.sum(G_int * x[nbr_int], dim=1))
+    A = _interface_operator("ell", diag_r, G_int, nbr_int, i0, whole)
 
     x0 = potential_boundary_prev[L : n - R]
     # zero-degree interface rows (e.g. a grid structure's null placeholder
@@ -127,10 +129,27 @@ def solve_potential_boundary(
     # and kill CG on the FIRST iteration; such rows carry rhs 0 and stay 0
     pos = diag > 0.0
     inv_diag = torch.where(pos, 1.0 / torch.where(pos, diag, 1.0), 1.0)
-    res = jacobi_cg(A, rhs, x0, inv_diag, rtol_coeff * n_int, max_iterations)
+    if shard is None:
+        res = jacobi_cg(A, rhs, x0, inv_diag, rtol_coeff * n_int, max_iterations, graphs=graphs)
+    else:
+        res = jacobi_cg_plain(A, rhs, x0, inv_diag, rtol_coeff * n_int, max_iterations)
     full = torch.zeros(n, dtype=res.x.dtype, device=res.x.device)
     full[L : n - R] = res.x
     return full, res
+
+
+def _interface_op(x, diag_r, G_int, nbr_int, *, i0, whole):
+    """A x = diag*x - sum_j G_ij x_j over interface neighbors, for the rows
+    from ``i0`` on that ``diag_r`` holds, gathered whole."""
+    rows = slice(i0, i0 + diag_r.shape[0])
+    return whole(diag_r * x[rows] - torch.sum(G_int * x[nbr_int], dim=1))
+
+
+def _interface_operator(name, diag_r, G_int, nbr_int, i0, whole) -> Operator:
+    """The interface operator with its per-solve tables as operands (the
+    gather columns too: recomputed per solve from the static table)."""
+    return Operator(name, functools.partial(_interface_op, i0=i0, whole=whole),
+                    (diag_r, G_int, nbr_int), (i0,))
 
 
 def interface_rows(shard):
@@ -156,6 +175,8 @@ def solve_cb_edge(
     tol: float = 1e-14,
     eV_to_J: float = EV_TO_J,
     shard=None,
+    graphs=None,
+    max_iterations: int = 100000,
 ) -> Tuple[torch.Tensor, CGResult]:
     """Laplace solve for the conduction-band edge profile, once per bias point.
 
@@ -163,7 +184,8 @@ def solve_cb_edge(
     scaling (potential_solver_gpu.cu:574-772). The CB solve uses VL = +Vd/2,
     VR = -Vd/2 (the electron-energy sign) and the metal-OR rule for high-G
     edges (calc_off_diagonal_A_CB_gpu, 290-319); ``element`` and ``charge``
-    do not enter it. ``shard`` as ``solve_potential_boundary`` takes it."""
+    do not enter it. ``shard`` and ``graphs`` as ``solve_potential_boundary``
+    takes them."""
     n = element.shape[0]
     L = R = num_atoms_first_layer
     n_int = n - L - R
@@ -193,16 +215,17 @@ def solve_cb_edge(
 
     G_int = torch.where(in_int, G, 0.0)
     nbr_int = (j - L).clamp(0, n_int - 1)
-    rows = slice(i0, i0 + diag_r.shape[0])
-
-    def A(x):
-        return whole(diag_r * x[rows] - torch.sum(G_int * x[nbr_int], dim=1))
+    A = _interface_operator("cb_edge", diag_r, G_int, nbr_int, i0, whole)
 
     # warm start: the reference feeds the previous (J-scaled) buffer directly
     # as the V-space guess without undoing the eV->J scaling, i.e. a near-zero
     # guess; kept (potential_solver_gpu.cu:738)
     x0 = cb_edge_prev[L : n - R]
-    res = symscaled_cg(A, diag, rhs, x0, tol=tol)
+    if shard is None:
+        res = symscaled_cg(A, diag, rhs, x0, tol=tol, max_iterations=max_iterations,
+                           graphs=graphs)
+    else:
+        res = symscaled_cg_plain(A, diag, rhs, x0, tol=tol, max_iterations=max_iterations)
 
     full = torch.zeros(n, dtype=res.x.dtype, device=res.x.device)
     full[L : n - R] = res.x

@@ -55,6 +55,15 @@ line is printed):
            within BANDED_ELL_RTOL/ATOL of each other, iteration counts and
            times printed, with both dot products (``torch.dot`` and
            multiply + sum), and the whole sweep once more with the other dot.
+           Each of those solves runs its CG (``solvers/cg.py``) as the device
+           loop (k iterations per CUDA-graph replay, one host read each) and
+           as the host loop in turns (``cg_turns``): bit-equal in x, r,
+           residual and iteration count, with ms per iteration, replays,
+           dead iterations, host reads per solve and capture seconds, and k
+           = 8, 16, 32 on the open torch.dot solves; then one cold banded
+           solve the same way at n_yz = LARGE_BANDED_N_YZ (124,412 sites;
+           the lists' 497,648 sites take no banded operator), and the sweep
+           once more with the host loops, equal row for row but for time.
            The driver builds this structure file's lists on the card
            (``lattice_device.py``); beside the sweep, that builder against
            the k-d tree on ``synthetic_stack`` at n_yz = 24 (neighbor list,
@@ -131,12 +140,18 @@ line is printed):
            elements exactly, KMC times within GOLDEN_KMC_RTOL, each superstep's
            P_tot within FULL_POWER_RTOL and I_macro within FULL_CURRENT_ATOL,
            one 'Current [uA]' line per superstep, DIA launches equal to the
-           model's K solves. Then three supersteps with ``--wkb-f32`` (the f64
+           model's K solves, power-CG counts equal to the golden's at every
+           superstep; the sweep once more with the CGs' host loops, equal
+           row for row but for time (host reads and superstep times before
+           and after). Then three supersteps with ``--wkb-f32`` (the f64
            run's events; P_tot within akmc_tpu's f32-against-f64 spread,
            I_macro within FULL_CURRENT_ATOL); one power solve at 8 V and
            rtol_scale 1, 1e-2, 1e-4 on the sweep's first state and on the
            disordered stand-in's (whose CB edge is finite, so that its W blocks
-           tunnel); three full-physics supersteps of the stand-in through the
+           tunnel); on the stand-in at 8 V the CB-edge CG, the power CG with the
+           band (k = 8, 16, 32) and with the gather operator and the steady
+           heat CG, each device loop against its host loop as in the
+           disordered phase; three full-physics supersteps of the stand-in through the
            driver; four supersteps each with ``solve_heating_global = 1`` and
            ``solve_heating_local = 1`` (deck copies from
            ``runtime/synth_deck.py::write_heating_deck``): events and elements
@@ -237,7 +252,9 @@ line is printed):
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
 ``disordered``, ``tiled``, ``batched``, ``full``, ``driver``, ``sharded`` and
 ``flagship``, a ``loops`` line (``loop_turns`` at n_yz=64 and at the
-flagship), the card's name and power limit from nvidia-smi, and last
+flagship), a ``cg_loops`` line (each CG's device loop against its host loop,
+from the disordered and full phases), the card's name and power limit from
+nvidia-smi, and last
 ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels,
 sweep, disordered, tiled, batched, full, driver, sharded, flagship) runs a
 part of it while developing;
@@ -987,17 +1004,161 @@ def run_sweep():
     return sweep, problem
 
 
-@contextlib.contextmanager
-def cg_dot(dot):
-    """The banded and the ELL K solve with ``dot`` as their CG's dot product."""
-    from akmc_tpu_torch.solvers import banded, cg, poisson
+# ---------------------------------------------------------------------------
+# the CG device loops (solvers/cg.py) against their host loops
+# ---------------------------------------------------------------------------
+CG_FILES = ("cg.py", "device_loop.py")       # where the CG loops read the host
+CG_KS = (8, 16, 32)                          # k read on the banded K solve and the power CG
+K_MODULES = ("banded", "poisson")            # the K solves' callers
+# One cold banded solve at the largest synthetic_stack the banded operator
+# takes within the phase's time: at n_yz = 96 (497,648 sites, the lists'
+# size) the band would be about 11 GB of int8 codes, past build_banded_k's
+# 4e9-byte cap, and 87 GB decoded (the model falls back to ELL there); n_yz =
+# 48 is 124,412 sites, 0.73 GB of codes, 5.8 GB decoded.
+LARGE_BANDED_N_YZ = 48
 
-    old = banded.jacobi_cg, poisson.jacobi_cg
-    banded.jacobi_cg = poisson.jacobi_cg = functools.partial(cg.jacobi_cg, dot_fn=dot)
+
+def _cg_wrap(cg, fn, plain, k, dot, log):
+    device, host = getattr(cg, fn), getattr(cg, fn + "_plain")
+
+    def run(*args, graphs=None, **kw):
+        if dot is not None:
+            kw["dot_fn"] = dot
+        res = host(*args, **kw) if plain else device(*args, graphs=graphs, k=k, **kw)
+        log.append(res)
+        return res
+    return run
+
+
+@contextlib.contextmanager
+def cg_as(plain=False, k=None, dot=None, modules=("banded", "poisson", "current", "heat")):
+    """The single-device CGs of ``modules`` (of ``akmc_tpu_torch.solvers``)
+    as their host loops ``*_plain`` or as their device loops at ``k`` (None:
+    ``cg.CG_K``), with ``dot`` in place of the caller's dot product when
+    given; each CG's result is appended to the yielded list. A measurement's
+    baseline: nothing in the package selects a host loop on one device."""
+    import importlib
+
+    from akmc_tpu_torch.solvers import cg
+
+    log, saved = [], []
+    for name in modules:
+        mod = importlib.import_module(f"akmc_tpu_torch.solvers.{name}")
+        for fn in ("jacobi_cg", "symscaled_cg"):
+            if hasattr(mod, fn):
+                saved.append((mod, fn, getattr(mod, fn)))
+                setattr(mod, fn, _cg_wrap(cg, fn, plain, k, dot, log))
     try:
-        yield
+        yield log
     finally:
-        banded.jacobi_cg, poisson.jacobi_cg = old
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def same_bits(a, b) -> bool:
+    """Equal to the bit (NaNs included) for tensors, equal for the rest."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        return a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def _flat(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    if dataclasses.is_dataclass(out):
+        return [t for f in dataclasses.fields(out) for t in _flat(getattr(out, f.name))]
+    return [out]
+
+
+def same_cg(label, a, b) -> None:
+    """Fails unless two runs (outputs, CG results) are equal to the bit: each
+    CG's x, r, residual and iteration count, and every output."""
+    (out_a, log_a), (out_b, log_b) = a, b
+    if [r.iterations for r in log_a] != [r.iterations for r in log_b]:
+        fail(f"{label}: the device loop ran {[r.iterations for r in log_a]} iterations, the "
+             f"plain loop {[r.iterations for r in log_b]}")
+    for ra, rb in zip(log_a, log_b):
+        for f in ("x", "r", "residual_sq"):
+            if not same_bits(getattr(ra, f), getattr(rb, f)):
+                fail(f"{label}: the device loop's {f} differs from the plain loop's")
+    fa, fb = _flat(out_a), _flat(out_b)
+    if len(fa) != len(fb) or not all(same_bits(u, v) for u, v in zip(fa, fb)):
+        fail(f"{label}: the device loop's output differs from the plain loop's")
+
+
+def cg_turns(dev, label, solve, graphs, dot=None, modules=("banded", "poisson", "current",
+                                                               "heat"), ks=(), turns=3,
+             firsts=()):
+    """``solve()`` (one caller's CGs on fixed inputs) with the device loops
+    (programs in ``graphs``; the first call builds and captures them) and
+    with the host loops, in turns plain, device, device, plain (``turns`` 1:
+    plain only after the first device call); every run bit-equal to the
+    first plain one. Returns (readings, the plain run's outputs): iterations,
+    ms of each run (host clock, the device drained), ms per iteration,
+    capture seconds, replays, dead iterations, host reads per solve of each
+    loop (synchronisations made in ``CG_FILES``) and, with ``ks``, the device
+    loop at each k, with ``firsts`` at each length of the first replay
+    (``cg.CG_FIRST``; a capture each)."""
+    from akmc_tpu_torch.solvers import cg
+
+    def run(plain, k=None):
+        cg.reset_cg_counts()
+        with count_syncs(dev) as caught, cg_as(plain, k, dot, modules) as log:
+            ms, out = wall_ms(solve)
+        counts = {key: sum(c[key] for c in cg.CG_COUNTS.values())
+                  for key in ("solves", "replays", "steps", "live_steps")}
+        reads = n_syncs([w for w in caught if os.path.basename(w.filename) in CG_FILES])
+        if not plain and dev.type == "cuda" and reads != counts["replays"]:
+            fail(f"{label}: {reads} host reads in {counts['replays']} replays")
+        return (out, log), {"ms": ms, "reads": reads, "syncs": n_syncs(caught), **counts}
+
+    cap0 = graphs.capture_s()
+    first, first_r = run(False)
+    capture_s = graphs.capture_s() - cap0
+    ref, plain_r = run(True)
+    same_cg(f"{label} (first device call)", first, ref)
+    runs = {True: [plain_r], False: []}
+    for plain in (False, False, True)[:turns] if turns > 1 else (True,):
+        got, r = run(plain)
+        same_cg(f"{label} ({'plain' if plain else 'device'})", got, ref)
+        runs[plain].append(r)
+    device_runs = runs[False] or [first_r]
+    iters = [res.iterations for res in ref[1]]
+    n_it, n_cg = max(sum(iters), 1), max(len(iters), 1)
+    d = min(device_runs, key=lambda r: r["ms"])
+    pl = min(runs[True], key=lambda r: r["ms"])
+    line = {
+        "iterations": iters, "bitwise_equal": True,
+        "plain_ms": [r["ms"] for r in runs[True]], "device_ms": [r["ms"] for r in device_runs],
+        "first_device_call_ms": first_r["ms"], "capture_s": capture_s,
+        "plain_ms_per_iteration": pl["ms"] / n_it, "device_ms_per_iteration": d["ms"] / n_it,
+        "replays": d["replays"], "dead_iterations": d["steps"] - d["live_steps"],
+        "host_reads_per_solve_plain": pl["reads"] / n_cg,
+        "host_reads_per_solve_device": d["reads"] / n_cg,
+        "host_syncs_plain": pl["syncs"], "host_syncs_device": d["syncs"],
+    }
+    for name, values in (("k_readings", ks), ("first_readings", firsts)):
+        if not values:
+            continue
+        line[name] = {}
+        for v in values:
+            saved = cg.CG_FIRST
+            if name == "first_readings":
+                cg.CG_FIRST = v
+            try:
+                k = v if name == "k_readings" else None
+                run(False, k)                              # builds and captures
+                got, r = run(False, k)
+            finally:
+                cg.CG_FIRST = saved
+            same_cg(f"{label}, {name[:-9]} = {v}", got, ref)
+            line[name][v] = {"ms": r["ms"], "ms_per_iteration": r["ms"] / n_it,
+                             "replays": r["replays"],
+                             "dead_iterations": r["steps"] - r["live_steps"]}
+    print(f"chip_smoke: {label}, device loop == plain loop: " + json.dumps(line))
+    return line, ref[0]
 
 
 def wall_ms(fn):
@@ -1009,62 +1170,91 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def cold_k_solves(deck, dev, pbc: bool) -> dict:
-    """The sweep's first state at 1 V through the banded and the ELL
-    operator, from a zero start, with both dot products."""
+def _k_system(deck, dev, pbc: bool, **model_kw):
+    """The sweep's first state of ``deck``'s structure, its charges and the
+    banded model (no pair table): (p, lat, model, element, charge, zeros)."""
     from akmc_tpu_torch.config import KMCParameters
     from akmc_tpu_torch.lattice import build_lattice
     from akmc_tpu_torch.models.vcm import VCMModel
     from akmc_tpu_torch.ops.charge import update_charge_compact
     from akmc_tpu_torch.rng import ReferenceRNG
     from akmc_tpu_torch.runtime.driver import load_structure
-    from akmc_tpu_torch.solvers.banded import band_matvec, solve_potential_boundary_banded
-    from akmc_tpu_torch.solvers.cg import f64_vdot
-    from akmc_tpu_torch.solvers.poisson import solve_potential_boundary
     from akmc_tpu_torch.state import make_substoichiometric
 
     p = KMCParameters.from_file(deck).replace(pbc=pbc)
     element, x, y, z = load_structure(p, os.path.dirname(deck))
     element = make_substoichiometric(element, p.initial_vacancy_concentration,
                                      ReferenceRNG(p.rnd_seed))
-    lat = build_lattice(element, x, y, z, p)
+    lat = build_lattice(element, x, y, z, p, device=dev)
     # the K operators only: no pair table for these solves
-    model = VCMModel(p, lat, device=dev, rate_normalize=True, pair_table_budget=0)
+    model = VCMModel(p, lat, device=dev, rate_normalize=True, pair_table_budget=0, **model_kw)
     if model.describe()["k_operator"] != "banded":
-        fail(f"pbc={pbc}: the disordered structure did not get the banded operator")
-    t, bk, meta = model.tables, model.banded, model.band_meta
+        fail(f"pbc={pbc}: the disordered structure of {deck} did not get the banded operator")
+    t = model.tables
     elem = torch.as_tensor(lat.element0, dtype=torch.int32, device=dev)
     charge = update_charge_compact(elem, torch.zeros_like(elem), t.neigh_idx,
                                    t.any_metal_nbr, model.vmax)
-    zeros = torch.zeros(lat.N, dtype=torch.float64, device=dev)
+    return p, lat, model, elem, charge, torch.zeros(lat.N, dtype=torch.float64, device=dev)
+
+
+def cold_k_solves(deck, dev, pbc: bool) -> dict:
+    """The sweep's first state at 1 V through the banded and the ELL
+    operator, from a zero start, with both dot products: each CG with its
+    device loop and its host loop in turns (``cg_turns``), bit-equal."""
+    from akmc_tpu_torch.solvers.banded import band_matvec, solve_potential_boundary_banded
+    from akmc_tpu_torch.solvers.cg import f64_vdot
+    from akmc_tpu_torch.solvers.poisson import solve_potential_boundary
+
+    p, lat, model, elem, charge, zeros = _k_system(deck, dev, pbc)
+    t, bk, meta = model.tables, model.banded, model.band_meta
     geom = (1.0, p.high_G, p.low_G, p.num_atoms_first_layer)
+    graphs = model.cg_graphs
 
     def banded():
         return solve_potential_boundary_banded(bk, meta, elem, charge, zeros, *geom, p.nn_dist,
-                                               model._lattice_t, pbc, model.vmax)
+                                               model._lattice_t, pbc, model.vmax, graphs=graphs)
 
     def ell():
-        return solve_potential_boundary(elem, charge, zeros, t.k_neigh_idx, t.metal_edge, *geom)
+        return solve_potential_boundary(elem, charge, zeros, t.k_neigh_idx, t.metal_edge, *geom,
+                                        graphs=graphs)
 
     out = {"pbc": pbc, "k_edges": int((lat.k_neigh_idx >= 0).sum()),
            "band_blocks": list(bk.blocks.shape), "half_band": meta.half_band}
-    banded(), ell()                              # first use: decode the band, load kernels
+    bk.values(meta)                              # first use: decode the band
     for dot_name, dot in (("torch.dot", torch.dot), ("sum(a*b)", f64_vdot)):
-        with cg_dot(dot):
-            ms_b, (pot_b, res_b) = wall_ms(banded)
-            ms_e, (pot_e, res_e) = wall_ms(ell)
+        ks = CG_KS if dot is torch.dot and not pbc else ()
+        lb, (pot_b, res_b) = cg_turns(dev, f"pbc={int(pbc)} banded K-CG, {dot_name}", banded,
+                                      graphs, dot, K_MODULES, ks)
+        le, (pot_e, res_e) = cg_turns(dev, f"pbc={int(pbc)} ELL K-CG, {dot_name}", ell,
+                                      graphs, dot, K_MODULES, ks)
         err = float((pot_b - pot_e).abs().max())
         close = torch.allclose(pot_b, pot_e, rtol=BANDED_ELL_RTOL, atol=BANDED_ELL_ATOL)
+        ms_b, ms_e = min(lb["device_ms"]), min(le["device_ms"])
         out[dot_name] = {
             "banded_iterations": res_b.iterations, "ell_iterations": res_e.iterations,
             "banded_ms": ms_b, "ell_ms": ms_e,
             "banded_ms_per_iteration": ms_b / res_b.iterations,
             "ell_ms_per_iteration": ms_e / res_e.iterations,
             "max_abs_banded_minus_ell": err, "within_tolerance": bool(close),
+            "banded_cg": lb, "ell_cg": le,
         }
         print(f"chip_smoke: cold K solve at 1 V, pbc={int(pbc)}, {dot_name}: banded "
-              f"{res_b.iterations} iterations {ms_b:.1f} ms, ELL {res_e.iterations} iterations "
-              f"{ms_e:.1f} ms, max |banded - ELL| {err:.3e}")
+              f"{res_b.iterations} iterations {ms_b:.1f} ms (host loop "
+              f"{min(lb['plain_ms']):.1f}), ELL {res_e.iterations} iterations {ms_e:.1f} ms "
+              f"(host loop {min(le['plain_ms']):.1f}), max |banded - ELL| {err:.3e}")
+        if ks:
+            # a warm solve from its own solution (a sweep's warm superstep):
+            # converged at entry, it runs one dead iteration (the first
+            # replay's), or CG_FIRST's other lengths'
+            for op_name, fn, pot in (("banded", solve_potential_boundary_banded, pot_b),
+                                     ("ell", solve_potential_boundary, pot_e)):
+                args = ((bk, meta, elem, charge, pot, *geom, p.nn_dist, model._lattice_t, pbc,
+                         model.vmax) if op_name == "banded" else
+                        (elem, charge, pot, t.k_neigh_idx, t.metal_edge, *geom))
+                out[dot_name][op_name + "_warm_cg"], _ = cg_turns(
+                    dev, f"pbc={int(pbc)} warm {op_name} K-CG, {dot_name}",
+                    functools.partial(fn, *args, graphs=graphs), graphs, dot, K_MODULES,
+                    firsts=(1, 4))
     out["problem"] = None
     if not out["torch.dot"]["within_tolerance"]:
         out["problem"] = (f"pbc={int(pbc)}: banded and ELL potentials differ by "
@@ -1085,6 +1275,40 @@ def cold_k_solves(deck, dev, pbc: bool) -> dict:
             "ops_bound_ms": n_ops / F64_FLOP_PER_S * 1e3,
             "int8_codes_bytes": nb * T * W,
         }
+    return out
+
+
+def large_banded_solve(dev) -> dict:
+    """One cold banded K solve at 1 V on ``synthetic_stack(n_yz =
+    LARGE_BANDED_N_YZ)``, its lists built on the card: the device loop
+    against the host loop, bit-equal, timed, with the build's seconds."""
+    from akmc_tpu_torch.runtime import synth_deck
+    from akmc_tpu_torch.solvers.banded import solve_potential_boundary_banded
+
+    t0 = time.perf_counter()
+    wd = os.path.join(SYNTH_DIR + f"_n{LARGE_BANDED_N_YZ}")
+    shutil.rmtree(wd, ignore_errors=True)
+    deck = synth_deck.write_synth_deck(DECK, wd, LARGE_BANDED_N_YZ)
+    p, lat, model, elem, charge, zeros = _k_system(deck, dev, False,
+                                                   pair_tiling_min_n=1 << 62)
+    bk, meta = model.banded, model.band_meta
+    bk.values(meta)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def banded():
+        return solve_potential_boundary_banded(
+            bk, meta, elem, charge, zeros, 1.0, p.high_G, p.low_G, p.num_atoms_first_layer,
+            p.nn_dist, model._lattice_t, False, model.vmax, graphs=model.cg_graphs)
+
+    line, _ = cg_turns(dev, f"banded K-CG at {lat.N} sites", banded, model.cg_graphs,
+                       modules=K_MODULES, turns=1)
+    nb, T, W = bk.blocks.shape
+    out = {"n_yz": LARGE_BANDED_N_YZ, "sites": lat.N, "band_blocks": [nb, T, W],
+           "half_band": meta.half_band, "int8_codes_bytes": nb * T * W,
+           "decoded_bytes": nb * T * W * 8, "build_s": build_s, **line}
+    del model, bk
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1174,11 +1398,20 @@ def run_disordered(dev):
         json.dump(got, f)
 
     # the same sweep with the other dot product in the K-CG: a reading, no gate
-    with cg_dot(f64_vdot):
+    with cg_as(dot=f64_vdot, modules=K_MODULES):
         _, rows_sum, counts_sum = drive(deck, os.path.join(SYNTH_DIR, "out_sum_dot"))
     dist_sum = golden.distance(gold, golden.summarize(os.path.join(SYNTH_DIR, "out_sum_dot")))
+    # and with the K-CG's host loop: every row but its time equal to the
+    # device loop's (the counts the golden is read against do not move)
+    plain_dir = os.path.join(SYNTH_DIR, "out_plain_cg")
+    with cg_as(plain=True):
+        _, rows_plain, counts_plain = drive(deck, plain_dir)
+    if _rows_but_time(plain_dir) != _rows_but_time(out_dir):
+        bad.append("the sweep with the K-CG's host loop differs from the device loop's: "
+                   + _first_difference(_rows_but_time(out_dir), _rows_but_time(plain_dir)))
 
     solves = [cold_k_solves(deck, dev, pbc) for pbc in (False, True)]
+    large = large_banded_solve(dev)
     cg = sum(r["cg_iterations"] for r in rows)
     cold = [r for r in rows[1:] if r["cg_iterations"] > 1]
     warm = [r for r in rows[1:] if r["cg_iterations"] == 1]
@@ -1214,8 +1447,22 @@ def run_disordered(dev):
             "driver_supersteps_s": sum(r["superstep_s"] for r in rows_sum),
         },
         "cold_k_solves": solves,
+        "large_banded_solve": large,
+        "plain_cg_sweep": {
+            "rows_equal_but_time": True, "host_syncs_per_superstep":
+            counts_plain["host_syncs"] / len(rows_plain),
+            "driver_supersteps_s": sum(r["superstep_s"] for r in rows_plain),
+            "superstep_s": [r["superstep_s"] for r in rows_plain],
+        },
         "lists": disordered_lists(dev),
     }
+    line["cg_loops"] = {f"cold_pbc{int(s['pbc'])}_{op}_{dot}": s[dot][op + "_cg"]
+                        for s in solves for dot in ("torch.dot", "sum(a*b)")
+                        for op in ("banded", "ell")}
+    line["cg_loops"]["large_banded"] = {k: large[k] for k in (
+        "sites", "iterations", "bitwise_equal", "plain_ms", "device_ms", "capture_s",
+        "plain_ms_per_iteration", "device_ms_per_iteration", "replays", "dead_iterations",
+        "host_reads_per_solve_plain", "host_reads_per_solve_device")}
     problems = [s["problem"] for s in solves if s["problem"]]
     if bad:
         problems.append("disordered sweep disagrees with the golden: " + "; ".join(bad[:10]))
@@ -2424,6 +2671,71 @@ def heating_part(dev, kind: str, ref: dict) -> dict:
             "problems": bad}
 
 
+def power_solve(model, state, Vd, rtol_scale, gather=False, m_prev=None):
+    """A function that runs ``solve_power`` at ``Vd`` on ``state`` (its
+    charges and CB edge) with the model's CG programs, the system built
+    once, as ``VCMModel._power`` builds it; ``gather``: the gather operator
+    in place of the power band."""
+    from akmc_tpu_torch.lattice import ELEM
+    from akmc_tpu_torch.solvers.current import build_power_system, solve_power
+
+    p, ct = model.params, model.current_tables
+    high_G, loop_G = p.high_G * 100000, p.high_G * 10000000
+    band = None if gather else model.power_band
+    ae, ac = state.element[ct.atom_ind], state.charge[ct.atom_ind]
+    ps, _ = build_power_system(ct, ae, ac, state.cb_edge[ct.atom_ind], model._lattice_t,
+                               bool(p.pbc), p.nn_dist, high_G, p.low_G, loop_G, p.q * 0.01,
+                               p.m_e, p.V0, vmax=model.vmax, ne_max=model.ne_max)
+    cvac = (ae == int(ELEM.VACANCY)) & (ac == 0)
+    m0 = torch.zeros(model.n_atom + 2, dtype=torch.float64, device=model.device)
+    if m_prev is not None:
+        m0 = m_prev
+    return lambda: solve_power(
+        ct, ps, Vd, high_G, loop_G, 2 * 3.8612e-5 * 1e-5, 1.0, m0, ae, band=band,
+        band_meta=None if band is None else model._power_band_meta, cvac=cvac,
+        nn_dist=p.nn_dist, lattice=model._lattice_t, pbc=bool(p.pbc), rtol_scale=rtol_scale,
+        graphs=model.cg_graphs)
+
+
+def full_cg_loops(dev, model, state) -> dict:
+    """The full-physics CGs on the disordered stand-in (finite CB edge, live
+    tunneling) at 8 V, each with its device loop and its host loop in turns
+    (``cg_turns``, bit-equal): the CB-edge solve, the power CG with the band
+    (k read at CG_KS; then from its own solution, the first replay 1 and 4
+    iterations long) and with the gather operator, the steady local heat
+    solve on that power (the heating deck copies' constants). With the
+    decoded power band's bytes: what its product must read per iteration."""
+    from akmc_tpu_torch.runtime.synth_deck import HEAT_CONSTANTS
+    from akmc_tpu_torch.solvers.heat import update_temperature_local_steady
+
+    g, Vd = model.cg_graphs, 8.0
+    out = {}
+    out["cb_edge"], _ = cg_turns(dev, "stand-in CB-edge CG", lambda: model.update_cb_edge(
+        state, Vd).cb_edge, g)
+    state = model.update_cb_edge(state, Vd)
+    out["power_band"], (_, atom_power, m, _) = cg_turns(
+        dev, "stand-in power CG, band", power_solve(model, state, Vd, 1.0), g, ks=CG_KS)
+    out["power_band_warm"], _ = cg_turns(
+        dev, "stand-in power CG, band, from its solution", power_solve(
+            model, state, Vd, 1.0, m_prev=m), g, firsts=(1, 4))
+    out["power_gather"], _ = cg_turns(dev, "stand-in power CG, gather",
+                                      power_solve(model, state, Vd, 1.0, gather=True), g)
+    power = torch.zeros_like(state.temperature)
+    power[model.current_tables.atom_ind] = atom_power
+    hp = model.params.replace(**{k: float(HEAT_CONSTANTS[k]) for k in (
+        "k_th_non_vacancy", "k_th_vacancies", "L_char")})
+    out["heat_steady"], _ = cg_turns(dev, "stand-in steady heat CG", lambda: (
+        update_temperature_local_steady(
+            model.local_heat, state.temperature, power, state.element, hp.background_temp,
+            hp.nn_dist * 1e-10, hp.k_th_interface, hp.k_th_vacancies, graphs=g)), g)
+    band = model.power_band.values(model._power_band_meta)
+    out["power_band_bytes"] = band.numel() * band.element_size()
+    out["power_band_bytes_ms"] = out["power_band_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["programs"] = len(g.programs)
+    out["capture_s_all"] = g.capture_s()
+    return out
+
+
 def run_full(dev):
     """(full line, what is wrong with it or None)."""
     from akmc_tpu_torch.runtime import golden, synth_deck
@@ -2478,6 +2790,28 @@ def run_full(dev):
     }
     print(f"chip_smoke: full sweep: {len(rows)} supersteps, P_tot {dist['P_tot_max_rel']:.3e} "
           f"and I_macro {dist['I_macro_max_rel']:.3e} from the golden (relative)")
+    moved = [i for i, (a, b) in enumerate(dist["power_cg_iterations"]) if a != b]
+    if moved or len(dist["power_cg_iterations"]) != len(rows):
+        problems.append(f"the power CG's counts differ from the golden's at supersteps {moved}")
+
+    # the same sweep with the host loops of its CGs (power, CB edge): every
+    # row but its time equal; host reads and superstep times before and after
+    with full_physics_probe() as (steps_p, _), cg_as(plain=True):
+        _, rows_p, counts_p = drive(DECK, FULL_DIR + "_plain_cg", synthesize_crossbar=N_YZ,
+                                    committed_parity=False, dia_pallas=True)
+    if _rows_but_time(FULL_DIR + "_plain_cg") != _rows_but_time(FULL_DIR):
+        problems.append("the full sweep with the host-loop CGs differs from the device loops': "
+                        + _first_difference(_rows_but_time(FULL_DIR),
+                                            _rows_but_time(FULL_DIR + "_plain_cg")))
+    plain_steps = _summarize_steps(steps_p)
+    line["plain_cg_sweep"] = {
+        "rows_equal_but_time": True,
+        "host_syncs_per_superstep": counts_p["host_syncs"] / len(rows_p),
+        "driver_supersteps_s": sum(r["superstep_s"] for r in rows_p),
+        "superstep_ms": plain_steps["superstep_ms"],
+        "power_solve_ms": plain_steps["power_solve_ms"],
+        "power_ms_per_iteration": plain_steps["power_ms_per_iteration"],
+    }
 
     # --wkb-f32: three supersteps, held to akmc_tpu's f32 run within its f32-vs-f64 spread
     f32_ref, f32_spread = parts["wkb_f32"], gold["spread"]["wkb_f32_vs_f64"]
@@ -2517,6 +2851,7 @@ def run_full(dev):
     line["tolerances_disordered"] = tolerance_solves(
         model, state, parts["synth_rtol"], "disordered stand-in",
         current_rtol=(STANDIN_SOLVE_CURRENT_RTOL,) * 3, power_rtol=(STANDIN_SOLVE_POWER_RTOL,) * 3)
+    line["cg_loops"] = full_cg_loops(dev, model, state)
     del model, state
     for key in ("tolerances_crossbar", "tolerances_disordered"):
         problems += line[key].pop("problems")
@@ -3697,6 +4032,11 @@ def main(argv=None) -> int:
     loops = {name: line.pop("loops") for name, line in crossbar_lines(lines) if "loops" in line}
     if loops:
         lines["loops"] = loops
+    # the CG device loops against their host loops: one line for both phases
+    cg_loops = {name: lines[name].pop("cg_loops") for name in ("disordered", "full")
+                if "cg_loops" in lines.get(name, {})}
+    if cg_loops:
+        lines["cg_loops"] = cg_loops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

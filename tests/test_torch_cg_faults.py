@@ -95,7 +95,8 @@ def test_k_extrap_saves_no_iteration_in_akmc_tpu(name):
 
 def _recorders(jmodule, tmodule, log):
     """``jacobi_cg`` of each module with every dot product of its solves
-    appended to ``log["j"]`` and ``log["t"]``, the arithmetic unchanged."""
+    appended to ``log["j"]`` and ``log["t"]``, the arithmetic unchanged (the
+    port's other arguments, its programs' cache, passed on)."""
     j_cg, t_cg = jmodule.jacobi_cg, tmodule.jacobi_cg
 
     def j_recording(A, b, x0, inv_diag, rtol, max_it, r0=None, dot_fn=jnp.dot):
@@ -105,12 +106,12 @@ def _recorders(jmodule, tmodule, log):
             return out
         return j_cg(A, b, x0, inv_diag, rtol, max_it, r0=r0, dot_fn=dot)
 
-    def t_recording(A, b, x0, inv_diag, rtol, max_it, r0=None, dot_fn=torch.dot):
+    def t_recording(A, b, x0, inv_diag, rtol, max_it, r0=None, dot_fn=torch.dot, **kw):
         def dot(u, v):
             out = dot_fn(u, v)
             log["t"].append(float(out))
             return out
-        return t_cg(A, b, x0, inv_diag, rtol, max_it, r0=r0, dot_fn=dot)
+        return t_cg(A, b, x0, inv_diag, rtol, max_it, r0=r0, dot_fn=dot, **kw)
 
     return j_recording, t_recording
 

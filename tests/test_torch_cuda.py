@@ -7,6 +7,7 @@ that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import subprocess
 import sys
 import warnings
@@ -688,6 +689,9 @@ _CAPTURED_OPS = {
     "take": lambda v, P, rows: torch.take(P, rows),
     "index_select_0d_cursor": lambda v, *_: v.index_select(
         0, torch.stack([torch.ones((), dtype=torch.int64, device=v.device)] * 2)),
+    # the CG harness's transposed scatter: repeated indices, added in order
+    "index_put_accumulate_repeated": lambda v, P, rows: torch.zeros(
+        300, dtype=v.dtype, device=v.device).index_put_((rows,), v[:70], accumulate=True),
 }
 
 
@@ -720,6 +724,36 @@ def test_a_capture_that_synchronises_raises(card):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)
     assert run.returncode != 0 and "during capture" in run.stderr, run.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_a_dropped_program_is_not_freed_inside_a_capture(card):
+    """A program's graphs sit in a reference cycle (its steps are bound
+    methods of the program), so a dropped program waits for the cyclic
+    collector, which may run at any allocation; the collector is off while
+    a capture runs, so it cannot destroy a graph inside one. Here the body
+    sets it to run at every allocation. In a process of its own: a failed
+    capture may leave its CUDA context unusable."""
+    code = ("import gc, torch\n"
+            "from akmc_tpu_torch.ops.device_loop import GraphLoop, StepProgram\n"
+            "x, f = torch.zeros(4, device='cuda'), torch.zeros(2, device='cuda')\n"
+            "class Program:\n"
+            "    def __init__(self):\n"
+            "        self.loop = GraphLoop(self.body, 2, x.device, f, 1)\n"
+            "    def body(self, n):\n"
+            "        f.zero_()\n"
+            "Program()\n"
+            "def body():\n"
+            "    x.add_(1.0)\n"
+            "    gc.set_threshold(1, 1, 1)\n"
+            "    return [[] for _ in range(1000)]\n"
+            "StepProgram(body, x.device).capture(warm=False)\n"
+            "torch.cuda.synchronize()\n"
+            "print('captured')\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode == 0 and "captured" in run.stdout, run.stderr[-2000:]
+    assert "not permitted when stream is capturing" not in run.stderr, run.stderr[-2000:]
 
 
 def _card_frozen(card):
@@ -786,3 +820,167 @@ def test_graph_loops_match_plain_loops_on_card(card, k):
                            gb.uniform((3,), torch.float64, card))
     assert all(p.graph is not None for prog in graphs.programs.values()
                for p in prog.loop.programs.values())
+
+
+# ----------------------------------------------------------------------------
+# the CG device loops (solvers/cg.py)
+# ----------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [31_088, 409_600])
+@pytest.mark.parametrize("dot", ["torch.dot", "f64_vdot"])
+def test_cg_dots_are_the_same_bits_in_a_graph(card, n, dot):
+    """The CG's two dots (cuBLAS ``ddot``; multiply + sum) give the same bits
+    replayed in a graph as run eagerly, at the disordered stand-in's and the
+    409,600-slot crossbar's lengths."""
+    from akmc_tpu_torch.solvers.cg import f64_vdot
+
+    fn = torch.dot if dot == "torch.dot" else f64_vdot
+    rng = np.random.default_rng(n)
+    a, b = (torch.tensor(rng.standard_normal(n), device=card) for _ in range(2))
+    out, eager = _capture_and_replay(fn, a, b)
+    assert torch.equal(out, eager)
+
+
+@contextlib.contextmanager
+def _cg_as(mode, graphs_seen):
+    """Every single-device caller's CG as the host loop (``mode`` "plain")
+    or as the device loop at k = ``mode`` (None: the default on a card),
+    each result appended to the yielded list and each programs' cache to
+    ``graphs_seen``."""
+    from akmc_tpu_torch.solvers import banded, cg, cg_harness, current, heat, poisson
+
+    log, saved = [], []
+
+    def wrap(name):
+        device, plain = getattr(cg, name), getattr(cg, name + "_plain")
+
+        def run(*args, graphs=None, **kw):
+            if mode == "plain":
+                res = plain(*args, **kw)
+            else:
+                graphs_seen.append(graphs)
+                res = device(*args, graphs=graphs, k=mode, **kw)
+            log.append(res)
+            return res
+        return run
+
+    for mod in (banded, poisson, current, heat, cg_harness):
+        for name in ("jacobi_cg", "symscaled_cg"):
+            if hasattr(mod, name):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, wrap(name))
+    try:
+        yield log
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _cg_toy(dev, **model_kw):
+    from akmc_tpu_torch.models.crossbar import toy_device
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat = toy_device(nx=10, ny=3, nz=3, contact_layers=3, vacancy_fraction=0.3)
+    model = VCMModel(p, lat, device=dev, use_dia_k=False, **model_kw)
+    state = make_device_state(lat, p.background_temp, torch.device(dev))
+    return model, state.replace(potential_boundary=torch.full_like(state.potential_boundary,
+                                                                   0.1))
+
+
+def _cg_caller(name, dev):
+    """A function that runs ``name``'s CG solves on the toy and returns what
+    they give back."""
+    from akmc_tpu_torch.solvers import cg_harness
+    from akmc_tpu_torch.solvers.heat import build_local_heat, update_temperature_local_steady
+
+    if name == "harness":
+        return lambda: [cg_harness.run(n=4096, devices=1, contrast=1e8, device=dev),
+                        cg_harness.run_split(n=4096, n_sub=592, devices=1, device=dev)]
+    model, state = _cg_toy(dev, use_banded_k=name != "ell")
+    el, q, pb = state.element, state.charge, state.potential_boundary
+    if name in ("banded", "ell"):
+        # at 0 V from a nonzero start b = 0 and r.z / b.b is infinite: the
+        # solve runs to its cut, its iterates underflowing towards 0 / 0
+        return lambda: [model._solve_boundary(el, q, pb, 2.0),
+                        model._solve_boundary(el, q, pb, 0.0, max_iterations=50)]
+    if name == "banded_carry":
+        def carried():
+            out, carry = [], None
+            for _ in range(3):
+                pot, res, carry = model._solve_boundary_carry(el, q, pb, 2.0, carry)
+                out += [pot, res, carry.r]
+            return out
+        return carried
+    if name == "cb_edge":
+        return lambda: [model.update_cb_edge(state, Vd).cb_edge for Vd in (2.0, 3.0)]
+    if name.startswith("power"):
+        if name == "power_gather":
+            model._power_band_built = True
+        s = model.update_cb_edge(state, 2.0)
+        return lambda: [model.update_power(s, Vd, rtol_scale=r)[1:]
+                        for Vd, r in ((2.0, 1.0), (2.0, 1e-3))]
+    lat = model.lat
+    lh = build_local_heat(lat.neigh_idx, lat.N, model.params.num_atoms_first_layer * 3).to(dev)
+    power = torch.linspace(0.0, 1e-9, state.temperature.shape[0], dtype=torch.float64,
+                           device=dev)
+    return lambda: [update_temperature_local_steady(
+        lh, state.temperature, w, el, 300.0, 3.5e-10, 0.725, 5.0, graphs=model.cg_graphs)
+        for w in (power, 0.0 * power)]
+
+
+def _same_bits(a, b) -> bool:
+    """Equal to the bit, NaNs included."""
+    if a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return torch.equal(a, b)
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    if isinstance(out, dict):
+        return [v for k, v in sorted(out.items()) if k != "wall_s"]
+    return [out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", ["banded", "banded_carry", "ell", "cb_edge", "power_band",
+                                    "power_gather", "heat", "harness"])
+def test_cg_device_loops_match_plain_on_card(card, caller):
+    """Each single-device caller's CG replayed on the card (k = 3, and the
+    default) against its host loop on the card from the same inputs: x, r,
+    residual, iteration count and every output equal to the bit. Then one
+    replay and one eager step of each program it used with host reads made
+    errors: no hidden read is left inside a step."""
+    from akmc_tpu_torch.solvers import cg
+
+    solve = _cg_caller(caller, card)
+    with _cg_as("plain", []) as ref_log:
+        ref = solve()
+    seen = []
+    for k in (3, None):
+        cg.reset_cg_counts()
+        with _cg_as(k, seen) as log:
+            out = solve()
+        assert [r.iterations for r in log] == [r.iterations for r in ref_log], k
+        for a, b in zip(log, ref_log):
+            for f in ("x", "r", "residual_sq"):
+                assert _same_bits(getattr(a, f), getattr(b, f)), (caller, k, f)
+        for a, b in zip(_tensors(out), _tensors(ref)):
+            assert _same_bits(a, b) if isinstance(a, torch.Tensor) else a == b, (caller, k)
+        steps = sum(c["steps"] for c in cg.CG_COUNTS.values())
+        assert steps >= sum(max(r.iterations - 1, 0) for r in log)
+    progs = [p for g in seen if g is not None for prog in g.programs.values()
+             for p in prog.loop.programs.values()]
+    assert progs and all(p.graph is not None for p in progs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p in progs:
+            p.run()
+            p.body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
