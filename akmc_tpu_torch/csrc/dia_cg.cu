@@ -1,5 +1,6 @@
 // The whole Jacobi-preconditioned CG of one boundary-potential K solve in one
-// cooperative launch, written for Hopper (sm_90a).
+// cooperative launch, written for Hopper (sm_90a). The launch can be captured
+// into a CUDA graph; the kernel's arithmetic is the same either way.
 //
 // Together with dia_matvec.cu it replaces
 // akmc_tpu/ops/pallas_dia.py::dia_combined_matvec_pallas (the TPU kernel) and
@@ -774,9 +775,21 @@ extern "C" int dia_cg_solve_launch(
   void* args[] = {&a};
   const void* fn = regs ? reinterpret_cast<const void*>(dia_cg_resident)
                         : reinterpret_cast<const void*>(dia_cg_stream<kPrefetch>);
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(static_cast<unsigned>(blocks)), dim3(kChunk), args, 0,
-      static_cast<cudaStream_t>(stream));
+  // cudaLaunchKernelEx with the cooperative attribute rather than
+  // cudaLaunchCooperativeKernel: the same launch, and one that a stream
+  // capture records as a cooperative kernel node (a superstep's CUDA graph,
+  // models/step_program.py, launches the solve from inside the graph)
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kChunk);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

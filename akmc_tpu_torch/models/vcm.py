@@ -15,7 +15,10 @@ structures), else from the on-the-fly plane.
 ``VCMModel`` owns the static tables as tensors on its device;
 ``DeviceState`` carries the dynamic fields. ``superstep`` is the
 committed-parity path of ``akmc_tpu/models/vcm.py::VCMModel.superstep``
-(``superstep_timed``: the same with each module timed apart);
+(``superstep_timed``: the same with each module timed apart); it and
+``superstep_multi`` run as one program per dispatch
+(``models/step_program.py``: on a card one CUDA graph, its loops conditional
+while nodes, one host read), as ``akmc_tpu`` runs them as one executable;
 ``superstep_native`` and ``superstep_native_batched`` are the production
 paths, which draw their own uniforms and, batched, fire many events per loop
 iteration. ``superstep_full`` is the full-physics superstep (``--full-physics``):
@@ -38,9 +41,13 @@ from scipy.special import erfc
 from akmc_tpu_torch.config import KMCParameters
 from akmc_tpu_torch.device import resolve_device
 from akmc_tpu_torch.lattice import ELEM, Lattice, metal_mask
+from akmc_tpu_torch.models.step_program import SuperstepProgram
+from akmc_tpu_torch.ops import device_loop
+from akmc_tpu_torch.ops import events as events_mod
 from akmc_tpu_torch.ops.charge import update_charge_compact
 from akmc_tpu_torch.ops.device_loop import LoopGraphs
 from akmc_tpu_torch.ops.events import (
+    _BLK,
     GeneratorDraws,
     build_event_table,
     run_event_loop,
@@ -55,6 +62,7 @@ from akmc_tpu_torch.ops.pairwise import (
     pairwise_potential_table,
     pairwise_potential_tiled,
 )
+from akmc_tpu_torch.solvers import cg as cg_mod
 from akmc_tpu_torch.solvers.banded import (
     BandedK,
     BandMeta,
@@ -163,6 +171,7 @@ class VCMModel:
         power_rtol_scale: float = 1.0,
         k_carry_residual: bool = False,
         event_select_incremental: bool = False,
+        step_program: bool = True,
     ):
         """``qmax``/``vmax``: static caps on the charged and vacancy counts
         (sized from the initial population; doubled on overflow).
@@ -193,8 +202,15 @@ class VCMModel:
         ``event_select_incremental``: the serial loop of every mt19937-stream
         superstep carries its selection's block sums and sums again only the
         touched blocks per event (``ops/events.py::run_event_loop``): the
-        same trajectory to the bit."""
+        same trajectory to the bit.
+
+        ``step_program``: ``superstep`` and ``superstep_multi`` run as one
+        program per dispatch (``models/step_program.py``; on one device
+        only: under a mesh the collectives keep the loops on the host).
+        False runs the fields and each loop as their own device loops, with
+        host reads between them: the same results to the bit."""
         self.params, self.lat = params, lat
+        self.step_program = bool(step_program)
         self.k_carry_residual = bool(k_carry_residual)
         self.event_select_incremental = bool(event_select_incremental)
         self.ne_max = int(ne_max)
@@ -220,6 +236,12 @@ class VCMModel:
         # the CG device loops' programs (solvers/cg.py): one per operator key
         # (the K, CB-edge, power and heat solves), beside the event loops'
         self.cg_graphs = LoopGraphs()
+        # the superstep programs (models/step_program.py), by k, chunk, carry and
+        # caps, and what the dispatches did: program runs (one host read each),
+        # steps redone on a grown cap, events-only chunks after a window ran
+        # out, batches of ``superstep_multi`` discarded and replayed
+        self.step_graphs = LoopGraphs()
+        self.step_counts = dict.fromkeys(("runs", "redos", "continues", "discards"), 0)
         # what the CG device loops did since the previous superstep ended
         # (solves, replays: one host read each, iterations run and live)
         self._cg_mark = self._cg_totals()
@@ -470,9 +492,19 @@ class VCMModel:
                 p.high_G, p.low_G, p.num_atoms_first_layer, max_iterations=max_iterations,
                 shard=self._shard("int"), graphs=self.cg_graphs,
             )
-        self.k_solves += 1
-        self.k_iterations += cg.iterations
+        self._count_k_solve(cg.iterations)
         return pot, cg
+
+    def _count_k_solve(self, iterations) -> None:
+        """One K solve in ``k_solves`` and its iterations in ``k_iterations``;
+        inside a program, once its read gives the count."""
+        def add(v):
+            self.k_solves += 1
+            self.k_iterations += int(v[0])
+        if device_loop.in_program():
+            device_loop.record((torch.as_tensor(iterations, device=self.device),), add)
+        else:
+            add([iterations])
 
     def _pairwise(self, charge):
         """Pairwise potential through the path the structure got: (potential,
@@ -517,8 +549,7 @@ class VCMModel:
             self._lattice_t, bool(p.pbc), self.vmax, carry=carry, shard=self._shard("band"),
             graphs=self.cg_graphs,
         )
-        self.k_solves += 1
-        self.k_iterations += cg.iterations
+        self._count_k_solve(cg.iterations)
         return pot, cg, new_carry
 
     def _fields(self, element, charge, potential_boundary_prev, T_bg, Vd,
@@ -622,13 +653,104 @@ class VCMModel:
     ) -> Tuple[DeviceState, dict]:
         """One full KMC superstep. ``stream`` is a ``rng.BufferedStream``
         over the KMC mt19937 stream; it advances by exactly the draws the
-        event loop used. Caps that overflow grow first (``_fields_grown``)."""
-        new_state, stats, _ = self._step(state, Vd, stream, rand_chunk)
-        return new_state, stats
+        event loop used.
+
+        As ``akmc_tpu``'s ``superstep`` runs it: one program (fields and
+        event loop; on a card one CUDA graph) on a window of ``rand_chunk``
+        draws and one read of its diagnostics; on an overflow of a cap the
+        exceeded caps double and the step is redone from the same inputs
+        (the stream has not advanced); if the window ran out before the
+        superstep was done, the loop goes on in events-only chunks. Without
+        ``step_program`` (or under a mesh): the fields with their caps grown
+        first (``_fields_grown``), then the loop, each a device loop of its
+        own."""
+        if not self._programmed():
+            new_state, stats, _ = self._step(state, Vd, stream, rand_chunk)
+            return new_state, stats
+        window = stream.peek(rand_chunk)
+        while True:
+            prog = self._superstep_program(state, 1, rand_chunk, False)
+            prog.load(state, Vd, window)
+            out, (d,) = prog.run()
+            self.step_counts["runs"] += 1
+            if not self._grow(d[5], d[6], d[7]):
+                break
+            self.step_counts["redos"] += 1
+            self._drop_stale_programs()
+        stream.advance(int(d[1]))
+        n_events, ev_time, ev_h = int(d[0]), out["event_time"], d[2]
+        element, charge = out["element"], out["charge"]
+        if not d[3]:
+            # the window ran out mid-superstep: events-only chunks on the
+            # mutated table and the carried waiting time, as akmc_tpu goes on
+            P, etype, ln_S = out["P"], out["etype"], out["ln_S"]
+            done = False
+            while not done:
+                self.step_counts["continues"] += 1
+                res = self._events(element, charge, P, etype, stream, rand_chunk,
+                                   event_time_in=ev_time, ln_S=ln_S)
+                element, charge, P = res.element, res.charge, res.P
+                n_events += res.n_events
+                ev_time, ev_h, done = res.event_time, res.event_time_h, res.done
+        self._count_cg_step()
+        new_state = state.replace(
+            element=element, charge=charge,
+            potential_boundary=out["potential_boundary"],
+            potential_charge=out["potential_charge"],
+            kmc_time=state.kmc_time + ev_time,
+        )
+        return new_state, {"n_events": n_events, "event_time": ev_h,
+                           "cg_iterations": int(d[4])}
+
+    def _programmed(self) -> bool:
+        """Whether the serial supersteps run as programs (one device)."""
+        return self.step_program and self.mesh is None
+
+    def _incremental_select(self) -> bool:
+        """The serial loop's incremental selection, where the rate table's
+        rows allow it (``ops/events.py::run_event_loop``)."""
+        return self.event_select_incremental and self.tables.act_neigh.shape[0] % _BLK == 0
+
+    def _superstep_program(self, state: DeviceState, k: int, chunk: int,
+                           carry: bool) -> SuperstepProgram:
+        """The program of k supersteps on windows of ``chunk`` draws at the
+        current caps, built once per key (caps, k, chunk, carry, the loops'
+        steps per pass, the options its body reads, the state's types, the
+        static tables' addresses)."""
+        t = self.tables
+        key = (k, chunk, carry, self.qmax, self.vmax, self.pair_cand_cap,
+               cg_mod.CG_NODE_K, events_mod.SERIAL_NODE_K, self._incremental_select(),
+               self.pair_f32, state.element.dtype, state.charge.dtype,
+               tuple((x.data_ptr(), tuple(x.shape)) for x in
+                     (t.act_neigh, t.act_idx, t.abs2act, t.act_zero_rows)))
+        return self.step_graphs.get(
+            key, lambda: SuperstepProgram(self, state, k, chunk, carry))
+
+    def _drop_stale_programs(self) -> None:
+        """Forget the programs of caps below the current ones: caps only grow,
+        so they would never run again (each holds its graph's memory)."""
+        caps = (self.qmax, self.vmax, self.pair_cand_cap)
+        progs = self.step_graphs.programs
+        for key in [key for key in progs if key[3:6] != caps]:
+            del progs[key]
+
+    def _capture_program(self, state: DeviceState, Vd: float, k: int,
+                         chunk: Optional[int] = None) -> SuperstepProgram:
+        """Build, and on a card capture, the program ``superstep`` (k = 1)
+        or ``superstep_multi`` (k > 1) takes next on windows of ``chunk``
+        draws (default: theirs), warmed on ``state`` and a window of zeros.
+        Changes no state."""
+        if chunk is None:
+            chunk = RAND_CHUNK if k == 1 else 2048
+        carry = k > 1 and self.k_carry_residual and isinstance(self.kop, BandedK)
+        prog = self._superstep_program(state, k, chunk, carry)
+        prog.load(state, Vd, np.zeros(k * chunk))
+        prog.capture()
+        return prog
 
     def _step(self, state, Vd, stream, rand_chunk, k_carry=None):
-        """``superstep`` with ``_fields``'s ``k_carry``: (state', stats, the
-        fields' new carry)."""
+        """The superstep of the per-loop path with ``_fields``'s ``k_carry``:
+        (state', stats, the fields' new carry)."""
         fr = self._fields_grown(state, Vd, k_carry=k_carry)
         res = self._events_to_the_end(state.element, fr.charge, fr.P, fr.etype, fr.ln_S,
                                       stream, rand_chunk)
@@ -645,23 +767,43 @@ class VCMModel:
         solve with a fresh entry matvec and steps 2..k rebase the previous
         step's residual.
 
-        akmc_tpu runs the k steps as one executable and, when a step's rand
-        window runs out or a cap overflows, discards the batch and replays
-        it step by step. Here caps grow before any draw (``_fields_grown``)
-        and an event loop whose window runs out goes on in the next one, so
-        no batch is ever discarded, and the result is the one akmc_tpu's
-        replay gives (on a grown cap the carry is kept, where akmc_tpu's
-        replay solves fresh). The event counts and waiting times come from
-        the serial loop's own reads and the CG counts from the solves'; k
-        supersteps in one CUDA graph wait for the fields' host reads (cap
-        flags, compactions, the K solve's count) to go."""
+        As akmc_tpu runs it: the k steps as one program (on a card one CUDA
+        graph) on a buffer of k * ``rand_chunk`` draws and one read of the
+        (k, 8) diagnostics; if any step ran out of its window or overflowed
+        a cap, the batch is discarded (the stream was only peeked, the state
+        not touched) and replayed step by step with ``superstep``, which
+        grows the caps. Without ``step_program`` (or under a mesh) the k
+        steps run one after the other on the per-loop path, caps grown
+        before any draw and a window that runs out continued in the next,
+        which gives the same result (on a grown cap the carry is kept)."""
         use_kc = self.k_carry_residual and isinstance(self.kop, BandedK)
-        kc = "init" if use_kc else None
-        stats_list = []
-        for _ in range(k):
-            state, stats, kc = self._step(state, Vd, stream, rand_chunk, k_carry=kc)
-            stats_list.append(stats)
-        return state, stats_list
+        if not self._programmed():
+            kc = "init" if use_kc else None
+            stats_list = []
+            for _ in range(k):
+                state, stats, kc = self._step(state, Vd, stream, rand_chunk, k_carry=kc)
+                stats_list.append(stats)
+            return state, stats_list
+        prog = self._superstep_program(state, k, rand_chunk, use_kc)
+        prog.load(state, Vd, stream.peek(k * rand_chunk))
+        out, diag = prog.run()
+        self.step_counts["runs"] += 1
+        if any(d[3] == 0.0 or d[5] or d[6] or d[7] for d in diag):
+            self.step_counts["discards"] += 1
+            stats_list = []
+            for _ in range(k):
+                state, stats = self.superstep(state, Vd, stream, rand_chunk)
+                stats_list.append(stats)
+            return state, stats_list
+        stream.advance(sum(int(d[1]) for d in diag))
+        self._count_cg_step()
+        new_state = state.replace(
+            element=out["element"], charge=out["charge"],
+            potential_boundary=out["potential_boundary"],
+            potential_charge=out["potential_charge"], kmc_time=out["kmc_time"],
+        )
+        return new_state, [{"n_events": int(d[0]), "event_time": d[2],
+                            "cg_iterations": int(d[4])} for d in diag]
 
     def fields_only(self, state: DeviceState, Vd: float) -> Tuple[DeviceState, dict]:
         """Charges and both potentials without the event step
@@ -840,7 +982,8 @@ class VCMModel:
 
 
     def warmup(self, state: DeviceState, Vd: float, full_physics: bool = False,
-               batched: int = 0, clock_f32: bool = False) -> dict:
+               batched: int = 0, clock_f32: bool = False,
+               steps_per_dispatch: int = 1) -> dict:
         """What superstep 0 would otherwise pay for, done before it. On a
         CUDA device: both kernel sources built (``ops/cuda_build.py``) and,
         on the DIA operator, each kernel loaded by one K solve from ``state``
@@ -855,7 +998,9 @@ class VCMModel:
         card the CG programs the run takes are captured into ``cg_graphs``
         (``_capture_cgs``). No tensor of ``state`` changes and no stream is
         drawn from (akmc_tpu's ``warmup`` compiles its executables, while
-        loops included, instead). Returns the host seconds of each item."""
+        loops included, instead). On a card, on the serial path, the
+        superstep program of ``steps_per_dispatch`` supersteps is built and
+        captured (``_capture_program``). Returns the host seconds of each item."""
         out = {}
 
         def timed(name, fn):
@@ -870,7 +1015,8 @@ class VCMModel:
             from akmc_tpu_torch.ops import dia_matvec
             from akmc_tpu_torch.solvers import dia_cg
 
-            timed("cuda_build", lambda: cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL]))
+            timed("cuda_build", lambda: cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL,
+                                                          "graph_while"]))
             if isinstance(self.kop, DiaK):
                 timed("dia_kernels", lambda: self._empty_dia_solve(state, Vd))
         timed(f"batched_B{batched}" if batched else "serial_loop",
@@ -882,6 +1028,9 @@ class VCMModel:
                 timed("local_heat", lambda: self.local_heat)
         if self.device.type == "cuda":
             timed("cg_loops", lambda: self._capture_cgs(state, Vd, full_physics))
+        if self.device.type == "cuda" and self._programmed() and not (full_physics or batched):
+            timed("superstep_program",
+                  lambda: self._capture_program(state, Vd, steps_per_dispatch))
         self._cg_mark = self._cg_totals()
         return out
 

@@ -13,11 +13,17 @@ def compact_mask(mask: torch.Tensor, size: int) -> Tuple[torch.Tensor, torch.Ten
     ``size`` — the ``jnp.nonzero(mask, size=size, fill_value=-1)`` contract
     of ``akmc_tpu/ops/compact.py::compact_mask``.
 
-    Returns (idx int64 (size,), valid bool (size,)). On CUDA the nonzero
-    reads its count back to the host (one synchronisation)."""
-    nz = torch.nonzero(mask).flatten()[:size]
-    idx = torch.full((size,), -1, dtype=torch.int64, device=mask.device)
-    idx[: nz.numel()] = nz
+    Returns (idx int64 (size,), valid bool (size,)). Nothing is read back to
+    the host, so it runs inside a captured CUDA graph: each True entry's
+    slot is its integer prefix count (exact in any order of summation), and
+    one scatter writes every index to its slot; entries past ``size`` and
+    False entries go to one spill slot, which is dropped."""
+    n = mask.shape[0]
+    slot = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    slot = torch.where(mask & (slot < size), slot, size)
+    idx = torch.full((size + 1,), -1, dtype=torch.int64, device=mask.device)
+    idx.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=mask.device))
+    idx = idx[:size]
     return idx, idx >= 0
 
 

@@ -21,14 +21,25 @@ the k steps' uniforms into static buffers before each replay, in the order the
 plain loop draws them, and after the last replay gives back the draws of the
 steps that were dead (``mark``/``rewind`` of the draws source), so the source
 ends where the plain loop leaves it.
+
+Inside a program (``models/step_program.py``: a whole superstep as one CUDA
+graph, the counterpart of ``akmc_tpu``'s one executable per superstep) a loop
+is no chain of replays but a ``while_loop``: on a card a conditional WHILE
+node of the enclosing capture (``csrc/graph_while.cu``), elsewhere the same
+body run eagerly while its device flag is set. A program's body reads nothing
+back: what its loops count (passes, live steps, launches, iterations) it
+``record``s as device tensors, and the program reads them all at once with
+its result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
 import gc
 import time
-from typing import Callable, Dict, Hashable, List, Sequence
+from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
 
@@ -94,7 +105,7 @@ class LoopGraphs:
 
     def capture_s(self) -> float:
         """Host seconds spent capturing all programs so far."""
-        return sum(p.loop.capture_s for p in self.programs.values())
+        return sum(p.capture_s for p in self.programs.values())
 
 
 def program(graphs, key: Hashable, make: Callable[[], object]):
@@ -184,3 +195,191 @@ class GraphLoop:
             live_before = live
             if not flags[0]:
                 return flags, replays, steps
+
+
+# ----------------------------------------------------------------------
+# programs: a body that runs its loops as while nodes and reads nothing back
+# ----------------------------------------------------------------------
+class Recording:
+    """What a program's body registers while it runs: device tensors to read
+    with its result, each with the host action that takes their values
+    (``apply``; a warm run's recording is dropped, not applied)."""
+
+    def __init__(self):
+        self.entries: List[tuple] = []     # (tensors, apply)
+
+    def pack(self, dtype=torch.float64) -> List[torch.Tensor]:
+        """The recorded tensors as 1-D pieces of ``dtype``, in order."""
+        return [t.reshape(-1).to(dtype) for ts, _ in self.entries for t in ts]
+
+    def apply(self, values: Sequence[float]) -> None:
+        """Hand each entry its values, as read."""
+        at = 0
+        for ts, fn in self.entries:
+            n = sum(t.numel() for t in ts)
+            fn(values[at: at + n])
+            at += n
+
+
+_RECORDING: Optional[Recording] = None
+
+
+@contextlib.contextmanager
+def recording(rec: Recording):
+    """Runs a program's body: while it is open, the loops are while loops,
+    and counts are recorded in ``rec`` instead of made on the host."""
+    global _RECORDING
+    prev, _RECORDING = _RECORDING, rec
+    try:
+        yield rec
+    finally:
+        _RECORDING = prev
+
+
+def in_program() -> bool:
+    """Whether a program's body is running (or being captured)."""
+    return _RECORDING is not None
+
+
+def record(tensors: Sequence[torch.Tensor], apply: Callable[[Sequence[float]], None]) -> None:
+    """Inside a program, keep ``tensors`` to be read with its result and
+    handed to ``apply``; outside one, read them now and apply."""
+    rec = _RECORDING
+    if rec is None:
+        apply([v for t in tensors for v in t.reshape(-1).tolist()])
+        return
+    if _WHILE_DEPTH:
+        raise RuntimeError("a count inside a while loop's body would be made once per "
+                           "capture, not once per pass: record it after the loop")
+    rec.entries.append((tuple(tensors), apply))
+
+
+def count_launch(fn) -> None:
+    """One launch of a kernel wrapper ``fn`` (``fn.launches``): now, or in a
+    program once per run of the program (not per capture or warm run)."""
+    def add(_):
+        fn.launches += 1
+    record((), add)
+
+
+_CONDITION_READS = 0     # > 0 while an eager while loop reads its flag
+_WHILE_DEPTH = 0         # while loops open around the code that runs
+
+
+def condition_read() -> bool:
+    """Whether the read under way is an eager while loop's read of its flag
+    (on a card the node's condition, which the device reads itself)."""
+    return _CONDITION_READS > 0
+
+
+def _condition(live: torch.Tensor) -> bool:
+    global _CONDITION_READS
+    _CONDITION_READS += 1
+    try:
+        return bool(live)
+    finally:
+        _CONDITION_READS -= 1
+
+
+def _while_lib():
+    """``csrc/graph_while.cu``, built and typed on first use."""
+    from akmc_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("graph_while")
+    if lib.graph_while_begin.argtypes is None:
+        v = ctypes.c_void_p
+        lib.graph_while_begin.argtypes = [v, v, v, ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.graph_while_begin.restype = ctypes.c_int
+        lib.graph_while_end.argtypes = [v, ctypes.c_ulonglong, v]
+        lib.graph_while_end.restype = ctypes.c_int
+        lib.graph_while_versions.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.graph_while_versions.restype = ctypes.c_int
+    return lib
+
+
+def cuda_versions() -> tuple:
+    """(runtime, driver) CUDA versions as the while nodes' library sees them,
+    e.g. (12090, 13000); conditional nodes need 12030 or later of both."""
+    rt, drv = ctypes.c_int(), ctypes.c_int()
+    err = _while_lib().graph_while_versions(ctypes.byref(rt), ctypes.byref(drv))
+    if err:
+        raise RuntimeError(f"cudaRuntimeGetVersion failed: CUDA error {err}")
+    return rt.value, drv.value
+
+
+# per device: the streams the while bodies are captured on (one per
+# nesting depth) and the private pool their allocations go to
+_BODY_STREAMS: Dict[tuple, torch.cuda.Stream] = {}
+_BODY_POOLS: Dict[int, tuple] = {}
+
+
+def body_pool(device: torch.device):
+    """The private memory pool of while bodies captured on ``device``. A
+    body's temporaries are made and dropped in each pass in the same order,
+    and the graphs that hold bodies replay one after the other on one
+    stream, so they share it."""
+    pool = _BODY_POOLS.get(device.index)
+    if pool is None:
+        pool = _BODY_POOLS[device.index] = torch.cuda.graph_pool_handle()
+    return pool
+
+
+@contextlib.contextmanager
+def refuse_syncs():
+    """PyTorch's synchronisation check set to raise while the block runs: an
+    operation that would read back (and so invalidate a capture under way)
+    raises before it reaches CUDA, and the capture can still be ended."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _while_node(live: torch.Tensor, body: Callable[[], None], depth: int) -> None:
+    dev = live.device
+    lib = _while_lib()
+    outer = torch.cuda.current_stream(dev)
+    side = _BODY_STREAMS.get((dev.index, depth))
+    if side is None:
+        side = _BODY_STREAMS[(dev.index, depth)] = torch.cuda.Stream(dev)
+    handle = ctypes.c_ulonglong()
+    err = lib.graph_while_begin(outer.cuda_stream, side.cuda_stream, live.data_ptr(),
+                                ctypes.byref(handle))
+    if err:
+        raise RuntimeError(
+            "could not open a CUDA graph while node "
+            + ("(the stream is not capturing)" if err == -1 else f"(CUDA error {err})"))
+    pool = body_pool(dev)
+    with torch.cuda.stream(side):
+        torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
+        try:
+            with refuse_syncs():
+                body()
+        finally:
+            torch._C._cuda_endAllocateToPool(dev.index, pool)
+            err = lib.graph_while_end(side.cuda_stream, handle.value, live.data_ptr())
+    if err:
+        raise RuntimeError(f"could not close a CUDA graph while node (CUDA error {err})")
+
+
+def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
+    """``while live: body()`` for a 0-d bool device flag that ``body`` sets
+    again as its last step. In a CUDA stream capture: a conditional while
+    node of the graph being captured, with the body captured once into it
+    (a capture that cannot take one raises; nothing falls back). Elsewhere
+    (the CPU, an eager run on a card) the body runs eagerly while a read of
+    the flag is true."""
+    global _WHILE_DEPTH
+    if live.dtype != torch.bool or live.dim() != 0:
+        raise ValueError("while_loop needs a 0-d bool flag")
+    _WHILE_DEPTH += 1
+    try:
+        if live.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            _while_node(live, body, _WHILE_DEPTH - 1)
+        else:
+            while _condition(live):
+                body()
+    finally:
+        _WHILE_DEPTH -= 1

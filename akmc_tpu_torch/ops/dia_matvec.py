@@ -24,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from akmc_tpu_torch.ops import cuda_build
+from akmc_tpu_torch.ops import cuda_build, device_loop
 
 _KERNEL = "dia_matvec"
 
@@ -104,7 +104,9 @@ class DiaOperator:
         self.diags, self.offsets = diags, offsets
         self.val_low, self.val_high = float(val_low), float(val_high)
         self.device = dev
-        self._offsets_list: Optional[Sequence[int]] = None
+        # on the CPU the offsets are at hand; on the card read once, when first asked
+        self._offsets_list: Optional[Sequence[int]] = (
+            offsets.tolist() if dev.type == "cpu" else None)
         if dev.type == "cuda":
             self._op = _DiaOp(diags.data_ptr(), offsets.data_ptr(), self.D, self.n,
                               self.val_low, self.val_high, self.row0, self.rows)
@@ -145,7 +147,7 @@ class DiaOperator:
                 err = self._launch(*args)
         if err != 0:
             raise RuntimeError(f"dia_combined_matvec kernel launch failed: CUDA error {err}")
-        dia_combined_matvec.launches += 1
+        device_loop.count_launch(dia_combined_matvec)
         return out.unbind(0)     # one call for both views
 
 

@@ -40,6 +40,7 @@ import torch
 
 from akmc_tpu_torch.config import KB_EV, Q_C
 from akmc_tpu_torch.lattice import ELEM, EVENT
+from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops.device_loop import GraphLoop, Prefill, program
 
 _EPS_OVERFLOW = 1e-200   # exponential overflow guard (kmc_events.cu:150)
@@ -438,6 +439,10 @@ def run_event_loop_plain(
 # the flags costs nothing and a dead step costs a whole step, so k is 1 there
 SERIAL_K = 64
 BATCHED_K = 32
+# events per pass of the serial loop's while node inside a superstep's
+# program on a card: a sweep's superstep fires one to a few events, and a
+# dead event costs a whole one (PERF.md §6)
+SERIAL_NODE_K = 1
 
 
 def _steps(k: Optional[int], card_k: int, device: torch.device) -> int:
@@ -474,10 +479,15 @@ class _SerialProgram:
     (``run_event_loop_native``): one (2,) vector per event from static
     buffers that ``Prefill`` fills before each replay. The tables are the
     caller's tensors, read in place; everything the loop writes is owned
-    here and starts dead (``ev_time`` inf)."""
+    here and starts dead (``ev_time`` inf).
+
+    ``rand_len``: the length of the static draw buffer when it holds several
+    windows of ``buf_len`` draws (a program of k supersteps), each loop
+    reading its window from ``base`` on. ``run_nested`` runs the loop as a
+    while loop inside a program (``ops/device_loop.py``)."""
 
     def __init__(self, P, etype, code, tables, freq, buf_len, native, has_ln_S,
-                 incremental, k):
+                 incremental, k, rand_len=None):
         dev = P.device
         f64 = dict(dtype=torch.float64, device=dev)
         i64 = dict(dtype=torch.int64, device=dev)
@@ -492,18 +502,46 @@ class _SerialProgram:
         self.ln_S = torch.zeros((), **f64) if has_ln_S else None
         self.ev_time = torch.full((), math.inf, dtype=P.dtype, device=dev)
         self.cnt = torch.zeros((), **i64)        # draws used (mt19937 form)
+        self.base = torch.zeros((), **i64)       # where the window starts in ``rand``
         self.limit = torch.zeros((), **i64)      # max_events (native form)
         self.n_ev = torch.zeros((), **i64)
         self.n_it = torch.zeros((), **i64)       # live iterations (events and an empty table)
         self.flags = torch.zeros(5, **f64)
-        prefill = None
+        self.live = torch.zeros((), dtype=torch.bool, device=dev)
+        self.prefill = None
         if native:
             self.rand = None
             self.u = [torch.zeros(2, dtype=P.dtype, device=dev) for _ in range(k)]
-            prefill = Prefill([(u,) for u in self.u])
+            self.prefill = Prefill([(u,) for u in self.u])
         else:
-            self.rand = torch.zeros(max(buf_len, 2), dtype=P.dtype, device=dev)
-        self.loop = GraphLoop(self._body, k, dev, self.flags, 3, prefill)
+            self.rand = torch.zeros(max(rand_len or buf_len, 2), dtype=P.dtype, device=dev)
+        self._loop = None
+        if not device_loop.in_program():
+            self._make_loop()
+
+    def _make_loop(self) -> None:
+        """Capture the replays of the host-driven loop. A capture runs the
+        body, so it runs with the loop dead (``ev_time`` inf), and a state
+        loaded before is left as it was."""
+        kept = self.ev_time.clone()
+        self.ev_time.fill_(math.inf)
+        try:
+            self._loop = GraphLoop(self._body, self.k, self.code.device, self.flags, 3,
+                                   self.prefill)
+        finally:
+            self.ev_time.copy_(kept)
+
+    @property
+    def loop(self) -> GraphLoop:
+        """The replays of the host-driven loop: captured when the program is
+        made, or, for one made inside a superstep's program, on first use."""
+        if self._loop is None:
+            self._make_loop()
+        return self._loop
+
+    @property
+    def capture_s(self) -> float:
+        return 0.0 if self._loop is None else self._loop.capture_s
 
     def _live(self):
         if self.native:
@@ -516,7 +554,7 @@ class _SerialProgram:
             r_sel, r_time = self.u[i]
             e_of = lambda r: -torch.log1p(-r)  # noqa: E731
         else:
-            c = self.cnt.clamp(max=self.rand.shape[0] - 2)
+            c = (self.base + self.cnt).clamp(max=self.rand.shape[0] - 2)
             r_sel, r_time = self.rand.index_select(0, torch.stack([c, c + 1]))
             e_of = lambda r: -torch.log(r)  # noqa: E731
         code, total, ok = _fire_event(
@@ -558,6 +596,22 @@ class _SerialProgram:
         for c in (self.cnt, self.n_ev, self.n_it):
             c.zero_()
         self.limit.fill_(max_events)
+
+    def run_nested(self) -> None:
+        """The loop as a ``while_loop`` of k-step passes inside a program;
+        its passes and live iterations are recorded for the program's read."""
+        passes = torch.zeros((), dtype=torch.int64, device=self.code.device)
+
+        def body():
+            for i in range(self.k):
+                self._step(i)
+            passes.add_(1)
+            self.live.copy_(self._live())
+
+        self.live.copy_(self._live())
+        device_loop.while_loop(self.live, body)
+        device_loop.record((passes, self.n_it.clone()), lambda v: _count(
+            "serial", int(v[0]), int(v[0]) * self.k, int(v[1])))
 
     def run(self, name, draws=None):
         """Replays until the loop is dead: (n_events, draws used, live
@@ -1071,6 +1125,10 @@ class _BatchedProgram:
         self.zero_gap = torch.zeros(1, dtype=clock_dtype, device=dev)
         self.loop = GraphLoop(self._body, k, dev, self.flags, 2,
                               Prefill(list(zip(self.u, self.v))))
+
+    @property
+    def capture_s(self) -> float:
+        return self.loop.capture_s
 
     def _live(self):
         return ~self.done & (self.n_b < self.max_b)

@@ -227,9 +227,11 @@ def tile_candidates(
     cen32 = tiling.tile_center.to(f32)
     qp32 = q_pos.to(f32)
     coord_scale = torch.max(torch.abs(cen32))
-    pad = torch.tensor(1e-3, dtype=f32, device=dev) + 64.0 * torch.tensor(
-        1.2e-7, dtype=f32, device=dev) * coord_scale
-    reach = (torch.tensor(cutoff_radius + r_tile, dtype=f32, device=dev) + pad) ** 2
+    # 0-d constants made by a fill on the device, not copied from the host:
+    # the pairwise solve runs inside a captured superstep (models/step_program.py)
+    pad = torch.full((), 1e-3, dtype=f32, device=dev) + 64.0 * torch.full(
+        (), 1.2e-7, dtype=f32, device=dev) * coord_scale
+    reach = (torch.full((), cutoff_radius + r_tile, dtype=f32, device=dev) + pad) ** 2
     fblk = max(1, min(T, plane_budget // max(1, 4 * qv.shape[0])))
     sel, cand, cnt = [], [], []
     for s in range(0, T, fblk):
@@ -296,10 +298,10 @@ def pairwise_potential_tiled(
             else max(1, plane_budget // (S * cand_cap * 8))
         )
     dev = pos.device
-    cut2_p = torch.tensor(cutoff_radius * cutoff_radius, dtype=dt, device=dev).to(pdt)
-    inv_sig_p = torch.tensor(1.0 / (sigma * math.sqrt(2.0)), dtype=pdt, device=dev)
-    kq_p = torch.tensor(k * Q_E, dtype=pdt, device=dev)
-    ang = torch.tensor(1e-10, dtype=pdt, device=dev)
+    cut2_p = torch.full((), cutoff_radius * cutoff_radius, dtype=dt, device=dev).to(pdt)
+    inv_sig_p = torch.full((), 1.0 / (sigma * math.sqrt(2.0)), dtype=pdt, device=dev)
+    kq_p = torch.full((), k * Q_E, dtype=pdt, device=dev)
+    ang = torch.full((), 1e-10, dtype=pdt, device=dev)
     one = torch.ones((), dtype=pdt, device=dev)
     zero = torch.zeros((), dtype=pdt, device=dev)
     pos_tiles = tiling.pos_tiles.to(pdt)

@@ -68,7 +68,7 @@ def check_devices(n: int, device: str, backend: str) -> None:
         raise ValueError(f"CPU ranks run over gloo, not {backend}")
 
 
-def _worker(rank, n, store_path, device, backend, timeout_s, fn, args, results):
+def _worker(rank, n, store_path, device, backend, timeout_s, fn, args, results, received):
     global current_device
     from akmc_tpu_torch.parallel.mesh import Mesh
 
@@ -90,6 +90,9 @@ def _worker(rank, n, store_path, device, backend, timeout_s, fn, args, results):
             dist.destroy_process_group()
     except BaseException:                       # noqa: BLE001 - reported to the parent
         results.put((rank, False, traceback.format_exc()))
+    # a tensor in the result travels as a file descriptor that this process
+    # hands out on request: stay until the parent has read every result
+    received.wait(timeout_s)
 
 
 def spawn(fn: Callable, n: int, device: str, backend: str, *args,
@@ -100,10 +103,11 @@ def spawn(fn: Callable, n: int, device: str, backend: str, *args,
     check_devices(n, device, backend)
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="akmc_ranks_")
-    results = ctx.Queue()
+    results, received = ctx.Queue(), ctx.Event()
     procs = [ctx.Process(target=_worker, daemon=False,
                          args=(r, n, os.path.join(tmp, "store"), device, backend,
-                               float(timeout or COLLECTIVE_TIMEOUT_S), fn, args, results))
+                               float(timeout or COLLECTIVE_TIMEOUT_S), fn, args, results,
+                               received))
              for r in range(n)]
     deadline = time.monotonic() + (timeout if timeout is not None else float("inf"))
     out: dict = {}
@@ -128,9 +132,11 @@ def spawn(fn: Callable, n: int, device: str, backend: str, *args,
             if not ok:
                 raise RuntimeError(f"rank {rank} of {n} failed:\n{value}")
             out[rank] = value
+        received.set()
         for p in procs:
             p.join(max(1.0, min(60.0, deadline - time.monotonic())))
     finally:
+        received.set()
         for p in procs:
             if p.is_alive():
                 p.kill()

@@ -129,6 +129,7 @@ def run(
     devices: int = 0,
     concern_split=None,
     rank_timeout: Optional[float] = None,
+    step_program: bool = True,
 ) -> dict:
     """Run the full bias sweep on ``device`` (default: the CUDA card).
     Returns summary metrics.
@@ -171,7 +172,9 @@ def run(
     all), on the CPU over ``gloo`` (``concern_split``: K + P ranks).
     ``rank_timeout`` bounds the whole run in seconds (None: no bound; a
     collective still fails after ``parallel/launch.py``'s own limit). The
-    summary is rank 0's, with every rank's under ``"ranks"``."""
+    summary is rank 0's, with every rank's under ``"ranks"``.
+    ``step_program`` False runs the serial supersteps on the per-loop path
+    (``VCMModel(step_program=False)``: a comparison's baseline, no CLI flag)."""
     options = dict(
         workdir=workdir, max_supersteps=max_supersteps, cache_dir=cache_dir, log=log,
         committed_parity=committed_parity, checkpoint_every=checkpoint_every,
@@ -180,7 +183,7 @@ def run(
         rate_normalize=rate_normalize, batched_events=batched_events,
         batched_mass_eps=batched_mass_eps, batched_clock_f32=batched_clock_f32,
         batched_k_extrap=batched_k_extrap, pair_f32=pair_f32, wkb_f32=wkb_f32,
-        power_rtol_scale=power_rtol_scale, warmup=warmup,
+        power_rtol_scale=power_rtol_scale, warmup=warmup, step_program=step_program,
     )
     del dia_stacked, dia_pallas
     if devices and devices > 1 and concern_split is not None:
@@ -242,6 +245,7 @@ def _run(
     warmup: bool = False,
     device=None,
     concern_split=None,
+    step_program: bool = True,
 ) -> dict:
     from akmc_tpu_torch.ops.dia_matvec import dia_combined_matvec
 
@@ -309,7 +313,7 @@ def _run(
         # 256 x devices for even shards; uneven rank ranges gather as well here,
         # and the batched loop then draws what it draws on one device)
         model = VCMModel(p, lat, device=device, rate_normalize=rate_normalize,
-                         pair_f32=pair_f32, wkb_f32=wkb_f32)
+                         pair_f32=pair_f32, wkb_f32=wkb_f32, step_program=step_program)
         state = make_device_state(lat, p.background_temp, model.device)
         if sharded:
             from akmc_tpu_torch.parallel.mesh import replicate_state, shard_model
@@ -337,7 +341,8 @@ def _run(
         if warmup and p.V_switch and p.perturb_structure and p.solve_potential:
             t_warm = time.perf_counter()
             warm_s = model.warmup(state, float(p.V_switch[0]), full_physics=full_physics,
-                                  batched=batched_events, clock_f32=batched_clock_f32)
+                                  batched=batched_events, clock_f32=batched_clock_f32,
+                                  steps_per_dispatch=steps_per_dispatch)
             out.write(
                 f"AOT warmup: {time.perf_counter() - t_warm:.1f} s ("
                 + ", ".join(f"{k} {v:.0f}s" for k, v in warm_s.items())

@@ -19,6 +19,13 @@ change nothing and the result (x, r, residual, iteration count) is the host
 loop's to the bit. The host loops are ``jacobi_cg_plain`` and
 ``symscaled_cg_plain``, one read of the stop rule per iteration.
 
+Inside a program's body (``ops/device_loop.py::in_program``: a superstep
+captured whole, ``models/step_program.py``) the same k-iteration step is the
+body of a ``while_loop``, a conditional while node of the program's graph on a
+card, and nothing is read: the iteration count of the result is a 0-d device
+tensor, and the passes and live iterations are recorded for the program's
+one read (``CGResult.iterations`` is then a tensor).
+
 A graph binds addresses. The operator is therefore an ``Operator``: a
 function of the vector and of the tensors that change between solves
 (``operands``, copied into the program's own buffers before each solve),
@@ -33,6 +40,7 @@ from typing import Callable, Hashable, NamedTuple, Optional
 
 import torch
 
+from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops.device_loop import GraphLoop, program
 
 Dot = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -42,6 +50,9 @@ Dot = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # iteration) or run a hundred and more. See PERF.md §6 for the readings
 CG_K = 16
 CG_FIRST = 1
+# iterations per pass of a CG while node inside a program on a card: a dead
+# iteration costs a whole one, a pass a few µs (PERF.md §6)
+CG_NODE_K = 4
 
 
 def f64_matvec(M: torch.Tensor, v: torch.Tensor, axis: int = 1) -> torch.Tensor:
@@ -62,6 +73,7 @@ def f64_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class CGResult(NamedTuple):
     x: torch.Tensor
     iterations: int              # final k; the solve applied A exactly k times
+    #                              (a 0-d device tensor inside a program)
     residual_sq: torch.Tensor    # final r.z
     r: torch.Tensor              # final (recurrence) residual vector
 
@@ -193,8 +205,36 @@ class _CGProgram:
         self.it = torch.zeros((), dtype=torch.int64, device=device)
         self.max_it = torch.full((), -1, dtype=torch.int64, device=device)
         self.flags = torch.zeros(2, dtype=torch.float64, device=device)
+        self.live = torch.zeros((), dtype=torch.bool, device=device)
+        self.k = k
         self.counts = dict.fromkeys(COUNT_KEYS, 0)
-        self.loop = GraphLoop(self._body, k, device, self.flags, 1, first=CG_FIRST)
+        self._loop = None
+        if not device_loop.in_program():
+            self._make_loop()
+
+    def _make_loop(self) -> None:
+        """Capture the replays of the host-driven loop. A capture runs the
+        body, so it runs with the loop dead (``max_it`` -1), and a state
+        loaded before is left as it was."""
+        kept = self.max_it.clone()
+        self.max_it.fill_(-1)
+        try:
+            self._loop = GraphLoop(self._body, self.k, self.it.device, self.flags, 1,
+                                   first=CG_FIRST)
+        finally:
+            self.max_it.copy_(kept)
+
+    @property
+    def loop(self) -> GraphLoop:
+        """The replays of the host-driven loop: captured when the program is
+        made, or, for one made inside a superstep's program, on first use."""
+        if self._loop is None:
+            self._make_loop()
+        return self._loop
+
+    @property
+    def capture_s(self) -> float:
+        return 0.0 if self._loop is None else self._loop.capture_s
 
     def A(self, v):
         return self.fn(v, *self.ops)
@@ -221,6 +261,25 @@ class _CGProgram:
         (_, it), replays, steps = self.loop.run()
         it = int(it)
         self._count(replays, steps, it - it0)
+        return it
+
+    def run_nested(self, it0: int) -> torch.Tensor:
+        """The loop as a ``while_loop`` of k-iteration passes inside a
+        program: the iteration count as a 0-d device tensor; the passes and
+        live iterations are recorded for the program's read."""
+        passes = torch.zeros((), dtype=torch.int64, device=self.it.device)
+
+        def body():
+            for _ in range(self.k):
+                self._step()
+            passes.add_(1)
+            self.live.copy_(self._live())
+
+        self.live.copy_(self._live())
+        device_loop.while_loop(self.live, body)
+        it = self.it.clone()
+        device_loop.record((passes, it - it0), lambda v: self._count(
+            int(v[0]), int(v[0]) * self.k, int(v[1])))
         return it
 
     def _count(self, replays: int, steps: int, live: int) -> None:
@@ -278,7 +337,15 @@ class _SymscaledProgram(_CGProgram):
 def _steps(k: Optional[int], device: torch.device) -> int:
     if k is not None:
         return k
-    return CG_K if device.type == "cuda" else 1
+    if device.type != "cuda":
+        return 1
+    return CG_NODE_K if device_loop.in_program() else CG_K
+
+
+def _run(prog, it0: int):
+    """The loop of a loaded program: inside a program's body a while loop
+    (the count a device tensor), else the replays (an int)."""
+    return prog.run_nested(it0) if device_loop.in_program() else prog.run(it0)
 
 
 def _program(kind, cls, graphs, A, b: torch.Tensor, dot_fn: Dot, k: int):
@@ -323,7 +390,7 @@ def jacobi_cg(
     prog.p.copy_(prog.z)
     prog.s.copy_(dot_fn(prog.r, prog.z))
     prog.it.fill_(1)
-    it = prog.run(1)
+    it = _run(prog, 1)
     return CGResult(x=prog.x.clone(), iterations=it, residual_sq=prog.s.clone(),
                     r=prog.r.clone())
 
@@ -351,5 +418,5 @@ def symscaled_cg(
     torch.neg(prog.r, out=prog.p)
     prog.s.copy_(dot_fn(prog.r, prog.r))
     prog.it.zero_()
-    it = prog.run(0)
+    it = _run(prog, 0)
     return CGResult(x=prog.y * w, iterations=it, residual_sq=prog.s.clone(), r=prog.r.clone())

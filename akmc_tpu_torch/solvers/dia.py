@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from akmc_tpu_torch.lattice import ELEM
+from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops.dia_matvec import DiaOperator
 from akmc_tpu_torch.solvers.cg import CGResult
 from akmc_tpu_torch.solvers.dia_cg import dia_cg_solve, dia_cg_solve_sharded
@@ -222,7 +223,7 @@ def k_system(
     # are masked, A passes exterior rows through), so the masks fold into
     # these once-per-solve vectors
     diag_i = torch.where(is_int, diag, 1.0)
-    dgc = torch.where(cvac_r, torch.tensor(dG, dtype=f64, device=diag.device), 0.0)
+    dgc = torch.where(cvac_r, torch.full((), dG, dtype=f64, device=diag.device), 0.0)
     x0 = torch.where(is_int, potential_boundary_prev[sl], 0.0)
     inv_diag = torch.where(is_int, 1.0 / diag_i, 1.0)
     return KSystem(cvac=cvac, is_int=is_int, diag_i=diag_i, dgc=dgc,
@@ -247,12 +248,15 @@ def solve_potential_boundary_dia(
     ``akmc_tpu/solvers/dia.py::solve_potential_boundary_dia``. On the card
     the CG is one launch of the fused kernel and the iteration count is the
     solve's only host read; on the CPU it is the plain host loop with the
-    kernel's dot-product order."""
+    kernel's dot-product order. Inside a program's body
+    (``ops/device_loop.py::in_program``) nothing is read: the iteration count
+    stays a 0-d tensor, and ``Vd`` may be a 0-d tensor."""
     ks = k_system(dia, meta, element, charge, potential_boundary_prev, Vd,
                   high_G, low_G, num_atoms_first_layer)
     n_int = element.shape[0] - 2 * num_atoms_first_layer
     res = dia_cg_solve(dia.operator(meta), *ks, rtol_coeff * n_int, max_iterations)
-    res = res._replace(iterations=int(res.iterations))   # on the card: the one host read
+    if not device_loop.in_program():
+        res = res._replace(iterations=int(res.iterations))   # on the card: the one host read
     return torch.where(ks.is_int, res.x, 0.0), res
 
 

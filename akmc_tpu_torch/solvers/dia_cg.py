@@ -21,6 +21,7 @@ There is no fallback between the two.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict
 
@@ -28,14 +29,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from akmc_tpu_torch.ops import cuda_build
+from akmc_tpu_torch.ops import cuda_build, device_loop
 from akmc_tpu_torch.ops.dia_matvec import (
     DiaOperator,
     current_raw_stream,
     dia_combined_matvec_plain,
     require_tensor,
 )
-from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg_plain
+from akmc_tpu_torch.solvers.cg import CGResult, jacobi_cg, jacobi_cg_plain
 
 _KERNEL = "dia_cg"
 CHUNK = 256      # rows per first-level reduction: kChunk of csrc/dia_cg.cu
@@ -146,7 +147,10 @@ def dia_cg_solve_plain(
     max_iterations: int,
 ) -> CGResult:
     """Plain PyTorch twin on any device: the host loop ``jacobi_cg_plain`` over the
-    plain matvec with ``blocked_vdot``. It repeats the kernel bit for bit."""
+    plain matvec with ``blocked_vdot``. It repeats the kernel bit for bit.
+    Inside a program's body (``ops/device_loop.py::in_program``) the same
+    iteration runs as ``jacobi_cg``'s while loop, which reads nothing back
+    (the iteration count a 0-d tensor) and equals the host loop to the bit."""
     offsets = op.offsets_list
 
     def A(x):
@@ -154,8 +158,8 @@ def dia_cg_solve_plain(
         mv, corr = dia_combined_matvec_plain(op.diags, offsets, op.val_low, op.val_high, x, xv)
         return torch.where(is_int, diag_i * x - mv - dgc * corr, x)
 
-    return jacobi_cg_plain(A, rhs, x0, inv_diag, relative_tolerance, max_iterations,
-                           dot_fn=blocked_vdot)
+    cg = jacobi_cg if device_loop.in_program() else jacobi_cg_plain
+    return cg(A, rhs, x0, inv_diag, relative_tolerance, max_iterations, dot_fn=blocked_vdot)
 
 
 def dia_cg_solve_sharded(
@@ -262,6 +266,17 @@ def _iterations_total(dev: torch.device) -> torch.Tensor:
     return total
 
 
+def _workspace(op: DiaOperator, size: int) -> torch.Tensor:
+    """The operator's scratch of ``size`` doubles, made on its first solve and
+    kept for every later one (a solve inside a captured graph then reads and
+    writes the same buffer at every replay)."""
+    work = op.__dict__.get("_cg_work")
+    if work is None or work.numel() != size:
+        work = op.__dict__["_cg_work"] = torch.empty(size, dtype=torch.float64,
+                                                     device=op.device)
+    return work
+
+
 def dia_cg_solve(
     op: DiaOperator,
     cvac: torch.Tensor,       # (N,) bool: conductive vacancy
@@ -276,7 +291,11 @@ def dia_cg_solve(
 ) -> CGResult:
     """The solve in one kernel launch on CUDA tensors, the plain twin on CPU
     tensors. On the card nothing is read back: ``iterations`` and
-    ``residual_sq`` of the result are 0-d tensors on the device."""
+    ``residual_sq`` of the result are 0-d tensors on the device. The
+    scratch is the operator's (``_workspace``), so solves of one operator
+    run one after the other on one stream. Inside a program the launch is
+    counted once per run of the program (``device_loop.count_launch``), and
+    the kernel adds its count to ``iterations_total`` at every run."""
     dev = op.device
     if op.rows != op.n:
         raise ValueError("dia_cg_solve takes the whole operator, not a row window")
@@ -299,7 +318,7 @@ def dia_cg_solve(
         size = lib.dia_cg_workspace_doubles(op.D, n)
         if size < 0:      # an error code; a CUDA error e comes as -1000 - e
             _raise_launch_error(size if size > -1000 else -1000 - size)
-        work = torch.empty(size, dtype=torch.float64, device=dev)
+        work = _workspace(op, size)
         err = lib.dia_cg_solve_launch(
             op.diags.data_ptr(), op.offsets.data_ptr(), op.D, n, op.val_low, op.val_high,
             cvac.data_ptr(), is_int.data_ptr(), diag_i.data_ptr(), dgc.data_ptr(),
@@ -311,7 +330,7 @@ def dia_cg_solve(
         )
     if err != 0:
         _raise_launch_error(err)
-    dia_cg_solve.launches += 1
+    device_loop.count_launch(dia_cg_solve)
     dia_cg_solve.last_grid = (info[0], bool(info[1]))
     return CGResult(x=out[0], iterations=iterations, residual_sq=residual_sq, r=out[1])
 
@@ -333,3 +352,16 @@ def iterations_total(device) -> int:
 
 def reset_iterations_total(device) -> None:
     _iterations_total(_indexed(device)).zero_()
+
+
+@contextlib.contextmanager
+def iterations_total_kept(device):
+    """The running sum as it was before the block, whatever the block's
+    solves added (a program's warm run before its capture): device copies,
+    no read."""
+    total = _iterations_total(_indexed(device))
+    kept = total.clone()
+    try:
+        yield
+    finally:
+        total.copy_(kept)

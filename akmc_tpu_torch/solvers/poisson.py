@@ -57,8 +57,8 @@ def edge_conductance(
     j = k_neigh_idx.clamp(min=0)
     cvac = (element == int(ELEM.VACANCY)) & (charge == 0)
     cvac_edge = cvac[row0 : row0 + k_neigh_idx.shape[0], None] & cvac[j]
-    hi = torch.tensor(high_G, dtype=torch.float64, device=element.device)
-    lo = torch.tensor(low_G, dtype=torch.float64, device=element.device)
+    hi = torch.full((), high_G, dtype=torch.float64, device=element.device)
+    lo = torch.full((), low_G, dtype=torch.float64, device=element.device)
     return torch.where(metal_edge | cvac_edge, hi, lo)
 
 

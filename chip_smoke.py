@@ -69,6 +69,22 @@ line is printed):
            the k-d tree on ``synthetic_stack`` at n_yz = 24 (neighbor list,
            periodic K adjacency, cutoff list) and at n_yz = 96 (497,648
            sites: the first two), equal entry for entry, both timed.
+4b. superstep_graph  the serial superstep as one CUDA graph
+           (``models/step_program.py``: the K-CG and the event loop
+           conditional while nodes, one host read a superstep) against the
+           per-loop path (``VCMModel(step_program=False)``), in turns (loops,
+           program, program, loops), 16 supersteps at the deck's first eight
+           biases on the sweep's crossbar (DIA, 58,752 slots, pair table) and
+           on the disordered structure (banded and ELL, 31,088 sites): every
+           superstep bit-equal (state, stats, the stream), one host read a
+           superstep without a redo or a continuation, the DIA kernels
+           launched from inside the graph once per K solve, their iterations
+           counted on the device. Read: ms and host reads a superstep (warm
+           and cold), capture s, while passes, redos, continuations, the
+           while nodes at k = 1, 4, 16 (SG_NODE_KS), and on the crossbar
+           ``superstep_multi`` of 4 against one at a time (the same
+           supersteps; one read per dispatch). Its line also gives the CUDA
+           runtime and driver versions.
 5. tiled   the pairwise paths at a size that needs them: three supersteps of
            the deck on a synthesized crossbar at n_yz=32 (104,448 slots, pair
            table past its 8e9-byte budget). The model must have taken the tiled
@@ -250,13 +266,14 @@ line is printed):
            and host reads, and the peak memory go into its line.
 
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered``, ``tiled``, ``batched``, ``full``, ``driver``, ``sharded`` and
+``disordered``, ``superstep_graph``, ``tiled``, ``batched``, ``full``, ``driver``, ``sharded`` and
 ``flagship``, a ``loops`` line (``loop_turns`` at n_yz=64 and at the
 flagship), a ``cg_loops`` line (each CG's device loop against its host loop,
 from the disordered and full phases), the card's name and power limit from
 nvidia-smi, and last
 ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels,
-sweep, disordered, tiled, batched, full, driver, sharded, flagship) runs a
+sweep, disordered, superstep_graph, tiled, batched, full, driver, sharded,
+flagship) runs a
 part of it while developing;
 ``--only nccl`` (never run by default) runs the sharded phase's sweep and
 batched path, under the same checks, on 2 and 4 ranks with a card each over
@@ -291,6 +308,7 @@ GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24.json")
 WORKDIR = os.path.join(HERE, "build", "chip_smoke", "iv_sweep_n24")
 N_YZ = 24
 KERNELS = ("dia_matvec", "dia_cg")
+PLUMBING = ("graph_while",)      # built with the kernels: the superstep graph's while nodes
 MATVEC_RTOL = 1e-12
 CG_BIASES = (1.0, 8.0)           # the deck's first and highest bias
 # Each KMC time is an exponential of potentials the CG returns only to its
@@ -1405,7 +1423,8 @@ def run_disordered(dev):
     # device loop's (the counts the golden is read against do not move)
     plain_dir = os.path.join(SYNTH_DIR, "out_plain_cg")
     with cg_as(plain=True):
-        _, rows_plain, counts_plain = drive(deck, plain_dir)
+        # host loops cannot run inside a captured superstep: the per-loop path
+        _, rows_plain, counts_plain = drive(deck, plain_dir, step_program=False)
     if _rows_but_time(plain_dir) != _rows_but_time(out_dir):
         bad.append("the sweep with the K-CG's host loop differs from the device loop's: "
                    + _first_difference(_rows_but_time(out_dir), _rows_but_time(plain_dir)))
@@ -1469,6 +1488,280 @@ def run_disordered(dev):
     if not _final_potentials_finite(out_dir):
         problems.append("non-finite potentials in the disordered sweep's final snapshot")
     return line, "; ".join(problems) or None
+
+
+# ---------------------------------------------------------------------------
+# the serial superstep as one CUDA graph (models/step_program.py) against the
+# per-loop path (VCMModel(step_program=False))
+# ---------------------------------------------------------------------------
+SG_DIR = os.path.join(HERE, "build", "chip_smoke", "superstep_graph")
+SG_BIASES = 8                 # the deck's first bias points, two supersteps at each
+SG_NODE_KS = (1, 4, 16)       # events, then iterations, per while-node pass, read on each path
+SG_SPD = 4                    # supersteps per dispatch against one at a time
+SG_SPD_CHUNK = 2048           # the rand window of both (superstep_multi's default)
+STATE_FIELDS = ("element", "charge", "potential_boundary", "potential_charge", "kmc_time")
+
+
+def _sg_structures(dev):
+    """(name, params, lattice, model options) of the ``sweep`` phase's
+    crossbar (DIA, pair table) and the ``disordered`` phase's structure
+    (banded, and ELL with the banded form refused)."""
+    from akmc_tpu_torch.config import KMCParameters
+    from akmc_tpu_torch.lattice import build_lattice
+    from akmc_tpu_torch.rng import ReferenceRNG
+    from akmc_tpu_torch.runtime import synth_deck
+    from akmc_tpu_torch.runtime.driver import load_structure
+    from akmc_tpu_torch.state import make_substoichiometric
+
+    _, _, p, lat = crossbar_dia(N_YZ)
+    yield "sweep_dia", p, lat, {}
+    shutil.rmtree(SG_DIR, ignore_errors=True)
+    deck = synth_deck.write_synth_deck(DECK, SG_DIR, N_YZ)
+    p = KMCParameters.from_file(deck)
+    element, x, y, z = load_structure(p, os.path.dirname(deck))
+    element = make_substoichiometric(element, p.initial_vacancy_concentration,
+                                     ReferenceRNG(p.rnd_seed))
+    lat = build_lattice(element, x, y, z, p, device=dev)
+    yield "disordered_banded", p, lat, dict(use_dia_k=False)
+    yield "disordered_ell", p, lat, dict(use_dia_k=False, use_banded_k=False)
+
+
+def _sg_states(model, p, lat, biases, steps_fn):
+    """Supersteps of ``model`` from the initial state on a fresh mt19937
+    stream, each timed (host clock, the card drained) and its host reads
+    counted: (states, stats, ms, reads, loop passes, the stream's next draw)."""
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.solvers import cg
+    from akmc_tpu_torch.state import make_device_state
+
+    dev = model.device
+    state = make_device_state(lat, p.background_temp, dev)
+    stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
+    states, stats, ms, reads, passes = [], [], [], [], []
+    for Vd in biases:
+        ev.reset_loop_counts()
+        cg.reset_cg_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_syncs(dev) as caught:
+            state, st = steps_fn(model, state, Vd, stream)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(n_syncs(caught))
+        stats.extend(st)
+        states.append({f: getattr(state, f).clone() for f in STATE_FIELDS})
+        passes.append({"event_loop": ev.LOOP_COUNTS["serial"]["replays"],
+                       "cg": sum(c["replays"] for c in cg.CG_COUNTS.values())})
+    return states, stats, ms, reads, passes, stream.peek(1)[0]
+
+
+def _sg_one(model, state, Vd, stream):
+    state, st = model.superstep(state, Vd, stream)
+    return state, [st]
+
+
+def _sg_same(label, a, b) -> None:
+    """Fails unless two runs' supersteps are equal to the bit."""
+    if a[1] != b[1] or a[5] != b[5]:
+        fail(f"superstep_graph {label}: stats or stream differ")
+    for i, (sa, sb) in enumerate(zip(a[0], b[0])):
+        for f in STATE_FIELDS:
+            if not same_bits(sa[f], sb[f]):
+                fail(f"superstep_graph {label}: superstep {i} differs in {f}")
+
+
+def superstep_graph_case(dev, name, p, lat, kw) -> dict:
+    """One structure: the per-loop path and the program in turns (loops,
+    program, program, loops), every superstep bit-equal; the program's
+    reads, passes, capture, redos and continuations; then the program at
+    each k of SG_NODE_KS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.solvers import cg, dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    biases = [Vd for Vd in p.V_switch[:SG_BIASES] for _ in range(2)]
+    loops = VCMModel(p, lat, device=dev, step_program=False, **kw)
+    prog = VCMModel(p, lat, device=dev, **kw)
+    desc = prog.describe()
+    t0 = time.perf_counter()
+    prog._capture_program(make_device_state(lat, p.background_temp, dev), biases[0], 1)
+    capture_s = time.perf_counter() - t0
+    runs = {False: [], True: []}
+    launches = None
+    for programmed in (False, True, True, False):
+        model = prog if programmed else loops
+        if programmed:
+            mv.dia_combined_matvec.launches = dia_cg.dia_cg_solve.launches = 0
+            dia_cg.reset_iterations_total(dev)
+            solves0, iters0 = model.k_solves, model.k_iterations
+        counts0 = dict(model.step_counts)
+        r = _sg_states(model, p, lat, biases, _sg_one)
+        runs[programmed].append(r)
+        if programmed:
+            launches = {"dia_launches": mv.dia_combined_matvec.launches,
+                        "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+                        "cg_iterations_counted_on_device": dia_cg.iterations_total(dev),
+                        "k_solves": model.k_solves - solves0,
+                        "k_iterations": model.k_iterations - iters0}
+            steps = {k: model.step_counts[k] - counts0[k] for k in counts0}
+    ref = runs[False][0]
+    for label, r in (("program 1", runs[True][0]), ("program 2", runs[True][1]),
+                     ("loops 2", runs[False][1])):
+        _sg_same(f"{name}: {label} against loops 1", ref, r)
+    if desc["k_operator"] == "dia":
+        # both kernels launched from inside the graph, once per K solve per replay
+        if (launches["dia_launches"], launches["dia_cg_launches"]) != (launches["k_solves"],) * 2:
+            fail(f"superstep_graph {name}: DIA launches {launches} for the program's K solves")
+        if launches["cg_iterations_counted_on_device"] != launches["k_iterations"]:
+            fail(f"superstep_graph {name}: the fused CG counted "
+                 f"{launches['cg_iterations_counted_on_device']} iterations, the model "
+                 f"{launches['k_iterations']}")
+    elif launches["dia_launches"] or launches["dia_cg_launches"]:
+        fail(f"superstep_graph {name}: a DIA kernel was launched: {launches}")
+    best = {pr: min(runs[pr], key=lambda r: sum(r[2])) for pr in (False, True)}
+    prog_reads = best[True][3]
+    if steps["redos"] == 0 and steps["continues"] == 0 and any(n != 1 for n in prog_reads):
+        fail(f"superstep_graph {name}: the program read the host {prog_reads} times")
+    warm = [i for i, s in enumerate(ref[1]) if s["cg_iterations"] <= 1]
+    cold = [i for i in range(len(ref[1])) if i not in warm]
+    out = {
+        "model": desc, "supersteps": len(biases), "biases": biases,
+        "events": sum(s["n_events"] for s in ref[1]),
+        "cg_iterations": [s["cg_iterations"] for s in ref[1]],
+        "bitwise_equal": True, "capture_s": capture_s,
+        "ms_per_superstep_loops": [sum(r[2]) / len(biases) for r in runs[False]],
+        "ms_per_superstep_program": [sum(r[2]) / len(biases) for r in runs[True]],
+        "superstep_ms_loops": best[False][2], "superstep_ms_program": best[True][2],
+        "warm_ms_mean": {
+            "loops": sum(best[False][2][i] for i in warm) / max(1, len(warm)),
+            "program": sum(best[True][2][i] for i in warm) / max(1, len(warm))},
+        "cold_ms_mean": {
+            "loops": sum(best[False][2][i] for i in cold) / max(1, len(cold)),
+            "program": sum(best[True][2][i] for i in cold) / max(1, len(cold))},
+        "host_reads_per_superstep_loops": sum(best[False][3]) / len(biases),
+        "host_reads_per_superstep_program": sum(prog_reads) / len(biases),
+        "host_reads_program": prog_reads,
+        "while_passes_program": best[True][4], "replays_loops": best[False][4],
+        "redos": steps["redos"], "continues": steps["continues"], "program_runs": steps["runs"],
+        "node_k": {"cg": cg.CG_NODE_K, "event_loop": ev.SERIAL_NODE_K},
+        "launches": launches,
+    }
+    # each while node's k in turn, the other node at its default
+    saved = cg.CG_NODE_K, ev.SERIAL_NODE_K
+    out["node_k_readings"] = {}
+    nodes = (("event_loop", ev), ("cg", cg)) if desc["k_operator"] != "dia" else (
+        ("event_loop", ev),)
+    try:
+        for node, mod in nodes:
+            attr = "SERIAL_NODE_K" if node == "event_loop" else "CG_NODE_K"
+            for k in SG_NODE_KS:
+                cg.CG_NODE_K, ev.SERIAL_NODE_K = saved
+                setattr(mod, attr, k)
+                t0 = time.perf_counter()
+                prog._capture_program(make_device_state(lat, p.background_temp, dev),
+                                      biases[0], 1)
+                cap = time.perf_counter() - t0
+                r = _sg_states(prog, p, lat, biases, _sg_one)
+                _sg_same(f"{name}: {node} node k = {k}", ref, r)
+                out["node_k_readings"][f"{node}_k{k}"] = {
+                    "ms_per_superstep": sum(r[2]) / len(biases),
+                    "warm_ms_mean": sum(r[2][i] for i in warm) / max(1, len(warm)),
+                    "cold_ms_mean": sum(r[2][i] for i in cold) / max(1, len(cold)),
+                    "passes": r[4], "capture_s": cap}
+    finally:
+        cg.CG_NODE_K, ev.SERIAL_NODE_K = saved
+    # the device's idle share over the first four supersteps under the
+    # profiler, against their unprofiled wall (the best run's)
+    out["profiled"] = {}
+    for pr, model in ((False, loops), (True, prog)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            _sg_states(model, p, lat, biases[:4], _sg_one)
+            torch.cuda.synchronize()
+        share = busy_share(trace)
+        wall = sum(best[pr][2][:4])
+        share["unprofiled_ms"] = wall
+        if share.get("busy_ms") is not None:
+            share["idle_share_vs_unprofiled"] = 1.0 - share["busy_ms"] / wall
+        out["profiled"]["program" if pr else "loops"] = share
+    out["program_capture_s_all"] = prog.step_graphs.capture_s()
+    print(f"chip_smoke: superstep_graph {name}: " + json.dumps(out))
+    return out
+
+
+def superstep_graph_spd(dev, p, lat) -> dict:
+    """``superstep_multi`` of SG_SPD supersteps per dispatch against one at a
+    time (both on windows of SG_SPD_CHUNK draws), on the sweep's crossbar:
+    the same stats, states and stream; reads and ms per superstep."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.state import make_device_state
+
+    model = VCMModel(p, lat, device=dev)
+    biases = list(p.V_switch[:SG_BIASES // 2])
+    state0 = make_device_state(lat, p.background_temp, dev)
+    t0 = time.perf_counter()
+    model._capture_program(state0, biases[0], SG_SPD, SG_SPD_CHUNK)
+    model._capture_program(state0, biases[0], 1, SG_SPD_CHUNK)
+    capture_s = time.perf_counter() - t0
+
+    def one_at_a_time(m, state, Vd, stream):
+        sts = []
+        for _ in range(SG_SPD):
+            state, st = m.superstep(state, Vd, stream, rand_chunk=SG_SPD_CHUNK)
+            sts.append(st)
+        return state, sts
+
+    def batched(m, state, Vd, stream):
+        return m.superstep_multi(state, Vd, stream, k=SG_SPD, rand_chunk=SG_SPD_CHUNK)
+
+    runs = {}
+    for name, fn in (("k1", one_at_a_time), ("spd", batched), ("spd", batched),
+                     ("k1", one_at_a_time)):
+        counts0 = dict(model.step_counts)
+        r = _sg_states(model, p, lat, biases, fn)
+        runs.setdefault(name, []).append((r, {k: model.step_counts[k] - counts0[k]
+                                              for k in counts0}))
+    ref = runs["k1"][0][0]
+    for name, rs in runs.items():
+        for r, _ in rs:
+            _sg_same(f"steps per dispatch {name}", ref, r)
+    n = len(biases) * SG_SPD
+    best = {name: min(rs, key=lambda x: sum(x[0][2])) for name, rs in runs.items()}
+    spd_reads = sum(best["spd"][0][3])
+    if best["spd"][1]["discards"] == 0 and spd_reads != len(biases):
+        fail(f"superstep_graph: {SG_SPD} supersteps per dispatch read the host {spd_reads} "
+             f"times in {len(biases)} dispatches")
+    return {
+        "supersteps": n, "k": SG_SPD, "rand_chunk": SG_SPD_CHUNK, "bitwise_equal": True,
+        "capture_s": capture_s,
+        "ms_per_superstep_k1": [sum(r[2]) / n for r, _ in runs["k1"]],
+        "ms_per_superstep_spd": [sum(r[2]) / n for r, _ in runs["spd"]],
+        "host_reads_per_superstep_k1": sum(best["k1"][0][3]) / n,
+        "host_reads_per_superstep_spd": spd_reads / n,
+        "discards": best["spd"][1]["discards"], "continues_k1": best["k1"][1]["continues"],
+    }
+
+
+def run_superstep_graph(dev):
+    """(superstep_graph line, None): every check fails the script itself."""
+    from akmc_tpu_torch.ops import device_loop
+
+    runtime, driver = device_loop.cuda_versions()
+    line = {"cuda_runtime": runtime, "cuda_driver": driver,
+            "torch": torch.__version__, "torch_cuda": torch.version.cuda}
+    crossbar = None
+    for name, p, lat, kw in _sg_structures(dev):
+        line[name] = superstep_graph_case(dev, name, p, lat, kw)
+        if name == "sweep_dia":
+            crossbar = (p, lat)
+        torch.cuda.empty_cache()
+    line["steps_per_dispatch"] = superstep_graph_spd(dev, *crossbar)
+    return line, None
 
 
 def run_tiled(dev):
@@ -1959,6 +2252,13 @@ class CrossbarSteps:
         dev, model, i = self.dev, self.model, len(self.steps)
         name = f"{self.where} superstep {i} ({kind})"
         pb_before = self.state.potential_boundary
+        capture_s = None
+        if kind == "serial" and dev.type == "cuda" and model._programmed():
+            # the superstep's program is captured before its timed run: the
+            # warm run that precedes a capture reads the host per pass
+            t0 = time.perf_counter()
+            model._capture_program(self.state, CROSSBAR_VD, 1)
+            capture_s = time.perf_counter() - t0
         if dev.type == "cuda":
             torch.cuda.synchronize()
         ev.reset_loop_counts()
@@ -2005,7 +2305,10 @@ class CrossbarSteps:
                      f"batches (k = {k}), at {sync_sites(caught)}")
         else:
             row["host_syncs_per_event"] = syncs / max(1, stats["n_events"])
-            row["loop_k"] = ev.SERIAL_K if dev.type == "cuda" else 1
+            row["loop_k"] = (1 if dev.type != "cuda" else ev.SERIAL_NODE_K
+                             if kind == "serial" and model._programmed() else ev.SERIAL_K)
+            if capture_s is not None:
+                row["program_capture_s"] = capture_s
             if i == 0:
                 row["host_sync_sites"] = sync_sites(caught)
             if dev.type == "cuda" and in_loop > loop["replays"]:
@@ -3934,8 +4237,8 @@ def crossbar_lines(lines):
     return out + ([("flagship", lines["flagship"])] if "flagship" in lines else [])
 
 
-PHASES = ("kernels", "sweep", "disordered", "tiled", "batched", "full", "driver", "sharded",
-          "flagship")
+PHASES = ("kernels", "sweep", "disordered", "superstep_graph", "tiled", "batched", "full",
+          "driver", "sharded", "flagship")
 OPT_IN = ("nccl", "schedules")   # run only when --only names them
 
 
@@ -3957,13 +4260,14 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    cuda_build.build(KERNELS)
-    for name in KERNELS:
+    cuda_build.build(KERNELS + PLUMBING)
+    for name in KERNELS + PLUMBING:
         cuda_build.load(name)
         for line in cuda_build.log_path(name).read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"chip_smoke: {name}: {line.strip()}")
-    print(f"chip_smoke: built and loaded {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: built and loaded {', '.join(KERNELS + PLUMBING)} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     kernels, lines, problems = [], {}, []
     if "kernels" in phases:
@@ -3978,6 +4282,7 @@ def main(argv=None) -> int:
         return line, problem
 
     for name, run in (("sweep", sweep), ("disordered", lambda: run_disordered(dev)),
+                      ("superstep_graph", lambda: run_superstep_graph(dev)),
                       ("tiled", lambda: run_tiled(dev)),
                       ("batched", lambda: run_batched(
                           dev, [int(n) for n in args.crossbar_n_yz.split(",")],

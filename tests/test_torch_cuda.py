@@ -984,3 +984,117 @@ def test_cg_device_loops_match_plain_on_card(card, caller):
             p.body()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ----------------------------------------------------------------------------
+# the superstep as one CUDA graph (ops/device_loop.py::while_loop,
+# csrc/graph_while.cu, models/step_program.py)
+# ----------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1000])
+def test_while_node_runs_a_counter_loop(card, n):
+    """A conditional while node captured into a graph runs its body n times
+    at every replay (0 passes when the flag is false at entry), with the
+    body's temporaries in the bodies' pool."""
+    from akmc_tpu_torch.ops import device_loop
+
+    runtime, driver = device_loop.cuda_versions()
+    assert runtime >= 12030 and driver >= 12030, (runtime, driver)
+    count = torch.zeros((), dtype=torch.int64, device=card)
+    limit = torch.zeros((), dtype=torch.int64, device=card)
+    live = torch.zeros((), dtype=torch.bool, device=card)
+    acc = torch.zeros(4, dtype=torch.float64, device=card)
+
+    def body():
+        twice = (acc + 1.0) * 2.0          # temporaries made and dropped in the body
+        acc.copy_(twice / 2.0)
+        count.add_(1)
+        live.copy_(count < limit)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        live.copy_(count < limit)
+        device_loop.while_loop(live, body)
+    for _ in range(2):
+        count.zero_()
+        acc.zero_()
+        limit.fill_(n)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(count) == n
+        assert acc.tolist() == [float(n)] * 4
+
+
+@pytest.mark.cuda
+def test_a_while_body_that_reads_raises(card):
+    """A body that reads a value back cannot be captured: the capture raises."""
+    from akmc_tpu_torch.ops import device_loop
+
+    live = torch.zeros((), dtype=torch.bool, device=card)
+    x = torch.ones((), device=card)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(graph):
+            device_loop.while_loop(live, lambda: live.copy_(torch.tensor(float(x) > 2.0)))
+    torch.cuda.synchronize()
+
+
+def _graph_cases():
+    """(name, params, lattice, model options) of the two small structures."""
+    from akmc_tpu_torch.models.crossbar import toy_device
+
+    p, lat = build_grid_crossbar(n_yz=6, contact_slices=2, oxide_slices=6, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    yield "crossbar-n6", p, lat, {}
+    p, lat = toy_device()
+    yield "toy-banded", p, lat, dict(use_dia_k=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["crossbar-n6", "toy-banded"])
+def test_superstep_graph_matches_per_loop_path(card, case):
+    """Supersteps as one graph replay each equal the per-loop path's to the
+    bit (state, stats, draws, K solves and iterations), with one host read a
+    superstep; k = 3 per dispatch reads once for the three."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    name, p, lat, kw = next(c for c in _graph_cases() if c[0] == case)
+    runs = []
+    for programmed in (False, True, True):
+        m = VCMModel(p, lat, device=card, step_program=programmed, **kw)
+        s = make_device_state(lat, p.background_temp, m.device)
+        stream = BufferedStream(ReferenceRNG(1))
+        stats, reads = [], []
+        for i in range(4):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    s, st = m.superstep(s, 2.0, stream)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            stats.append(st)
+            reads.append(sum("synchroniz" in str(w.message) for w in caught))
+        if programmed:
+            assert reads[1:] == [1, 1, 1], reads       # the first call also captures
+        more = []
+        for i in range(2):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    s, sl = m.superstep_multi(s, 2.0, stream, k=3)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            more += sl
+            if programmed and i:
+                assert sum("synchroniz" in str(w.message) for w in caught) == 1
+        runs.append((s, stats + more, stream.peek(1)[0], m.k_solves, m.k_iterations))
+    a, b, c = runs
+    for field in ("element", "charge", "potential_boundary", "potential_charge", "kmc_time"):
+        assert torch.equal(getattr(a[0], field), getattr(b[0], field)), field
+        assert torch.equal(getattr(b[0], field), getattr(c[0], field)), field
+    assert a[1:] == b[1:] == c[1:]
