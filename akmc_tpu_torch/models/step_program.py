@@ -27,6 +27,22 @@ graph's): ``run`` hands out copies of the state outputs, and the rate table,
 event types and rate scale as they are, for an events-only continuation
 before the next run. Which caps, chunk and options it was built for is the
 caller's key (``VCMModel._superstep_program``).
+
+``ProductionProgram`` is the same for the production supersteps,
+``akmc_tpu``'s ``_step_native`` and ``_step_b`` (``vcm.py:1048-1058``,
+``:1166-1198``): the warm start ``pb + k_extrap (pb - pb_prev2)`` (batched),
+``_fields``, the superstep's ``split(key)`` and the native or batched event
+loop as a while loop that draws inside its body from the threefry key
+(``ops/threefry.py::draw_step``, the kernel ``csrc/threefry.cu`` on a card),
+packed as ``akmc_tpu`` packs it (``vcm.py:1186-1197``)
+
+    [n_events, n_batches, event_time, done, cg_iterations, q_ovf, v_ovf,
+     c_ovf, n_cut_conflict, n_cut_mass]
+
+(native: draws used in place of batches, no cuts), then the loops'
+recordings. ``Vd``, ``mass_eps`` and ``k_extrap`` are 0-d tensors of the
+program, so one capture serves every value; the state, ``pb_prev2`` and the
+key are copied in.
 """
 
 from __future__ import annotations
@@ -39,20 +55,107 @@ import torch
 
 from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops import events
-from akmc_tpu_torch.ops.events import _pack_code, _SerialProgram
+from akmc_tpu_torch.ops import threefry
+from akmc_tpu_torch.ops.events import _BatchedProgram, _pack_code, _SerialProgram, _unpack_code
 
 DIAG = 8     # entries per superstep of the packed diagnostics
+PRODUCTION_DIAG = 10     # the production supersteps' (akmc_tpu's _step_b's)
+MAX_BATCHES = 1 << 14    # the batched loop's cap (run_event_loop_batched's default)
+MAX_EVENTS = 1 << 20     # the native loop's (run_event_loop_native's default)
 
 
-class SuperstepProgram:
+class _Program:
+    """A body that reads nothing back, captured once on a card and run as
+    one replay and one host read (eagerly on the CPU). ``KEEP``: outputs
+    handed out as the program's own tensors rather than copies."""
+
+    KEEP = ()
+
+    def _init_program(self, model) -> None:
+        self.model = model
+        self.device = model.device
+        self.graph = None
+        self.captured: Tuple[Dict[str, torch.Tensor], torch.Tensor, device_loop.Recording] = None
+        self.capture_s = 0.0     # host seconds of the warm run, capture, instantiation, first launch
+        self.runs = 0
+
+    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        raise NotImplementedError
+
+    def _capture(self) -> None:
+        """Warm the body once eagerly on a side stream (its counts dropped and
+        the fused CG's running total kept), then capture it into a CUDA graph
+        with the cyclic collector off (a dropped graph freed inside the
+        capture would invalidate it) and launch it once, uncounted."""
+        from akmc_tpu_torch.solvers import dia_cg
+
+        t0 = time.perf_counter()
+        dev = self.device
+        with dia_cg.iterations_total_kept(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), device_loop.recording(device_loop.Recording()):
+                self.body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        rec = device_loop.Recording()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph), device_loop.refuse_syncs(), \
+                    device_loop.recording(rec):
+                out, stats = self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        # one launch now, whose counts are dropped: a graph's first launch
+        # uploads it, which belongs to the capture's cost, not a dispatch's
+        with dia_cg.iterations_total_kept(dev):
+            graph.replay()
+        torch.cuda.synchronize(dev)
+        self.graph, self.captured = graph, (out, stats, rec)
+        self.capture_s = time.perf_counter() - t0
+
+    def capture(self) -> None:
+        """Capture the program on the loaded inputs (no-op on the CPU or
+        when captured)."""
+        if self.device.type == "cuda" and self.graph is None:
+            self._capture()
+
+    def run(self) -> Tuple[Dict[str, torch.Tensor], List[float]]:
+        """One run on the loaded inputs: (outputs, the packed vector as
+        read). The one host read of the dispatch; the recorded counts are
+        applied (the entries after the first ``self.n_diag``). The outputs
+        but ``KEEP`` are copies: the next run writes the program's own (the
+        graph's, or the loops' buffers)."""
+        if self.device.type == "cuda":
+            self.capture()
+            self.graph.replay()
+            out, stats, rec = self.captured
+        else:
+            rec = device_loop.Recording()
+            with device_loop.recording(rec):
+                out, stats = self.body()
+        vals = stats.tolist()
+        self.runs += 1
+        rec.apply(vals[self.n_diag:])
+        out = {name: (t if name in self.KEEP else t.clone()) for name, t in out.items()}
+        return out, vals[: self.n_diag]
+
+
+class SuperstepProgram(_Program):
     """k serial supersteps of ``model`` on one window buffer of k * ``chunk``
     draws, each step's window starting where the previous step stopped
     drawing. ``carry``: the banded K solve's carried residual, fresh in step
     1 and rebased in steps 2..k (``k_carry_residual``)."""
 
+    KEEP = ("P", "etype", "ln_S")
+
     def __init__(self, model, state, k: int, chunk: int, carry: bool):
-        self.model, self.k, self.chunk, self.carry = model, k, chunk, carry
-        dev = self.device = model.device
+        self._init_program(model)
+        self.k, self.chunk, self.carry = k, chunk, carry
+        self.n_diag = DIAG * k
+        dev = self.device
         t = model.tables
         # inputs, copied in before each run
         self.element = state.element.clone()
@@ -69,13 +172,9 @@ class SuperstepProgram:
             _pack_code(self.element, self.charge),
             (t.act_neigh, t.act_idx, t.abs2act, t.act_zero_rows), model.params.freq,
             chunk, False, model.rate_normalize, model._incremental_select(), nk,
-            rand_len=k * chunk)
+            rand_len=k * chunk, nested=True)
         self.staging = (torch.zeros(k * chunk, dtype=torch.float64, pin_memory=True)
                         if dev.type == "cuda" else None)
-        self.graph = None
-        self.captured: Tuple[Dict[str, torch.Tensor], torch.Tensor, device_loop.Recording] = None
-        self.capture_s = 0.0     # host seconds of the warm run, capture, instantiation, first launch
-        self.runs = 0
 
     # ------------------------------------------------------------------
     def load(self, state, Vd: float, window) -> None:
@@ -129,65 +228,127 @@ class SuperstepProgram:
         stats = torch.cat([torch.stack(rows).reshape(-1), *rec.pack()])
         return out, stats
 
-    def _capture(self) -> None:
-        """Warm the body once eagerly on a side stream (its counts dropped and
-        the fused CG's running total kept), then capture it into a CUDA graph
-        with the cyclic collector off (a dropped graph freed inside the
-        capture would invalidate it) and launch it once, uncounted."""
-        from akmc_tpu_torch.solvers import dia_cg
-
-        t0 = time.perf_counter()
-        dev = self.device
-        with dia_cg.iterations_total_kept(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side), device_loop.recording(device_loop.Recording()):
-                self.body()
-            torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        rec = device_loop.Recording()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph), device_loop.refuse_syncs(), \
-                    device_loop.recording(rec):
-                out, stats = self.body()
-        finally:
-            if collecting:
-                gc.enable()
-        # one launch now, whose counts are dropped: a graph's first launch
-        # uploads it, which belongs to the capture's cost, not a dispatch's
-        with dia_cg.iterations_total_kept(dev):
-            graph.replay()
-        torch.cuda.synchronize(dev)
-        self.graph, self.captured = graph, (out, stats, rec)
-        self.capture_s = time.perf_counter() - t0
-
-    def capture(self) -> None:
-        """Capture the program on the loaded inputs (no-op on the CPU or
-        when captured)."""
-        if self.device.type == "cuda" and self.graph is None:
-            self._capture()
-
     def run(self) -> Tuple[Dict[str, torch.Tensor], List[List[float]]]:
         """One run on the loaded inputs: (outputs, each step's 8 diagnostics
-        as read). The one host read of the dispatch; the recorded counts are
-        applied. On a card the state outputs are copies (the graph writes
-        its own at the next run); ``P``, ``etype`` and ``ln_S`` are the
-        program's until its next run."""
-        if self.device.type == "cuda":
-            self.capture()
-            self.graph.replay()
-            out, stats, rec = self.captured
+        as read). ``P``, ``etype`` and ``ln_S`` are the program's until its
+        next run."""
+        out, vals = super().run()
+        return out, [vals[DIAG * i: DIAG * (i + 1)] for i in range(self.k)]
+
+
+class ProductionProgram(_Program):
+    """One production superstep of ``model``: ``superstep_native`` (``batch``
+    0) or ``superstep_native_batched`` with ``batch`` candidates and
+    ``clock_f32``'s clocks, drawing from the threefry key it is given. The
+    event loop runs ``events.SERIAL_NODE_K`` events or
+    ``events.BATCHED_NODE_K`` batches per pass of its while node. ``run``
+    gives (outputs, the 10 diagnostics); ``out["key"]`` is the key moved on
+    by the superstep's split."""
+
+    def __init__(self, model, state, batch: int, clock_f32: bool):
+        self._init_program(model)
+        self.batch, self.clock_f32 = batch, clock_f32
+        self.n_diag = PRODUCTION_DIAG
+        dev = self.device
+        t = model.tables
+        f64 = dict(dtype=torch.float64, device=dev)
+        # inputs, copied in before each run
+        self.element = state.element.clone()
+        self.charge = state.charge.clone()
+        self.pb = state.potential_boundary.clone()
+        self.pb_prev2 = state.potential_boundary.clone()
+        self.T_bg = state.T_bg.clone()
+        self.Vd = torch.zeros((), **f64)
+        self.mass_eps = torch.zeros((), **f64)
+        self.k_extrap = torch.zeros((), **f64)
+        self.key_in = torch.zeros(2, dtype=torch.int64, device=dev)
+        # the loop's cap on batches or events: MAX_BATCHES / MAX_EVENTS, but
+        # 1 while the program is captured (``_capture``)
+        self.max_steps = torch.full((), MAX_BATCHES if batch else MAX_EVENTS,
+                                    dtype=torch.int64, device=dev)
+        # the key the body splits: set from ``key_in`` by the body itself, so
+        # that a run (the capture's warm run and first launch too) leaves
+        # its inputs as they were
+        self.key = threefry.key_state(device=dev)
+        shape = tuple(t.act_neigh.shape)
+        P = torch.zeros(shape, **f64)
+        etype = torch.zeros(shape, dtype=torch.int32, device=dev)
+        if batch:
+            self.loop = _BatchedProgram(
+                self.element, self.charge, P, etype, (t.act_neigh, t.act_idx, t.abs2act),
+                model.params.freq, batch, torch.float32 if clock_f32 else torch.float64,
+                model.rate_normalize, events.BATCHED_NODE_K, keyed=True,
+                nested=True)
         else:
-            rec = device_loop.Recording()
-            with device_loop.recording(rec):
-                out, stats = self.body()
-        vals = stats.tolist()
-        self.runs += 1
-        rec.apply(vals[DIAG * self.k:])
-        if self.device.type == "cuda":
-            out = {name: (t.clone() if name not in ("P", "etype", "ln_S") else t)
-                   for name, t in out.items()}
-        diag = [vals[DIAG * i: DIAG * (i + 1)] for i in range(self.k)]
-        return out, diag
+            self.loop = _SerialProgram(
+                P, etype, _pack_code(self.element, self.charge),
+                (t.act_neigh, t.act_idx, t.abs2act, t.act_zero_rows), model.params.freq,
+                0, True, model.rate_normalize, False, events.SERIAL_NODE_K,
+                keyed=True, nested=True)
+
+    def load(self, state, Vd: float, key: torch.Tensor, pb_prev2=None,
+             mass_eps: float = 1e-3, k_extrap: float = 0.0) -> None:
+        """Copy one superstep's inputs in: the state, the bias, the key
+        (``KeyDraws.key``), the warm start's ``pb_prev2`` (None: the state's
+        boundary potential, the plain warm start) and the loop's knobs."""
+        self.element.copy_(state.element)
+        self.charge.copy_(state.charge)
+        self.pb.copy_(state.potential_boundary)
+        self.pb_prev2.copy_(state.potential_boundary if pb_prev2 is None else pb_prev2)
+        self.T_bg.copy_(state.T_bg)
+        self.Vd.fill_(float(Vd))
+        self.mass_eps.fill_(float(mass_eps))
+        self.k_extrap.fill_(float(k_extrap))
+        self.key_in.copy_(key)
+
+    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The superstep on the loaded inputs: (outputs, the packed vector).
+        Reads nothing back; run it inside ``device_loop.recording``."""
+        m, loop, dev = self.model, self.loop, self.device
+        f64 = torch.float64
+        pb = self.pb
+        if self.batch:
+            pb = pb + self.k_extrap * (pb - self.pb_prev2)
+        fr = m._fields(self.element, self.charge, pb, self.T_bg, self.Vd)
+        self.key[threefry.KEY].copy_(self.key_in)
+        threefry.draw_step(self.key)          # key, sub = split(key): sub in key[4:6]
+        sub = self.key[4:6]
+        if self.batch:
+            loop.load(self.element, fr.charge, fr.P, fr.etype, fr.ln_S, self.mass_eps,
+                      self.max_steps, key=sub)
+            loop.run_nested()
+            n = self.element.shape[0]
+            element, charge = loop.element_x[:n], loop.charge_x[:n]
+            n_ev, ev_time, done = loop.n_ev, loop.ev_time, loop.done
+            counts = (loop.n_b, loop.n_cc, loop.n_cm)
+        else:
+            loop.load(self.element, fr.charge, fr.P, fr.etype, fr.ln_S, None,
+                      max_events=self.max_steps, key=sub)
+            loop.run_nested("native")
+            element, charge = _unpack_code(loop.code, self.element.dtype, self.charge.dtype)
+            n_ev, ev_time = loop.n_ev, loop.ev_time
+            done = ev_time >= loop.inv_freq
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            counts = (2 * n_ev, zero, zero)
+        diag = torch.stack([
+            n_ev.to(f64), counts[0].to(f64), ev_time.to(f64), done.to(f64),
+            torch.as_tensor(fr.cg_iterations, device=dev).to(f64),
+            fr.q_overflow.to(f64), fr.v_overflow.to(f64), fr.c_overflow.to(f64),
+            counts[1].to(f64), counts[2].to(f64)])
+        out = dict(element=element, charge=charge, potential_boundary=fr.potential_boundary,
+                   potential_charge=fr.potential_sum, event_time=ev_time,
+                   key=self.key[threefry.KEY])
+        rec = device_loop._RECORDING
+        return out, torch.cat([diag, *rec.pack()])
+
+    def _capture(self) -> None:
+        """``_Program._capture`` with the loop cut to one batch or event: the
+        warm run still runs every kernel of the body once, and neither it
+        nor the first launch runs a whole superstep."""
+        full = self.max_steps.clone()
+        self.max_steps.fill_(1)
+        try:
+            super()._capture()
+        finally:
+            self.max_steps.copy_(full)
+

@@ -21,7 +21,9 @@ committed-parity path of ``akmc_tpu/models/vcm.py::VCMModel.superstep``
 while nodes, one host read), as ``akmc_tpu`` runs them as one executable;
 ``superstep_native`` and ``superstep_native_batched`` are the production
 paths, which draw their own uniforms and, batched, fire many events per loop
-iteration. ``superstep_full`` is the full-physics superstep (``--full-physics``):
+iteration; on ``akmc_tpu``'s threefry key (``ops/threefry.py::KeyDraws``)
+each runs as one program too (``ProductionProgram``), drawing inside it.
+``superstep_full`` is the full-physics superstep (``--full-physics``):
 the fields, then the current and dissipated power on this superstep's charge,
 then the events, then the heat model over their time; ``update_cb_edge`` solves
 the conduction-band edge once per bias point.
@@ -41,14 +43,13 @@ from scipy.special import erfc
 from akmc_tpu_torch.config import KMCParameters
 from akmc_tpu_torch.device import resolve_device
 from akmc_tpu_torch.lattice import ELEM, Lattice, metal_mask
-from akmc_tpu_torch.models.step_program import SuperstepProgram
+from akmc_tpu_torch.models.step_program import ProductionProgram, SuperstepProgram
 from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops import events as events_mod
 from akmc_tpu_torch.ops.charge import update_charge_compact
 from akmc_tpu_torch.ops.device_loop import LoopGraphs
 from akmc_tpu_torch.ops.events import (
     _BLK,
-    GeneratorDraws,
     build_event_table,
     run_event_loop,
     run_event_loop_batched,
@@ -62,6 +63,7 @@ from akmc_tpu_torch.ops.pairwise import (
     pairwise_potential_table,
     pairwise_potential_tiled,
 )
+from akmc_tpu_torch.ops.threefry import KeyDraws
 from akmc_tpu_torch.solvers import cg as cg_mod
 from akmc_tpu_torch.solvers.banded import (
     BandedK,
@@ -206,9 +208,11 @@ class VCMModel:
 
         ``step_program``: ``superstep`` and ``superstep_multi`` run as one
         program per dispatch (``models/step_program.py``; on one device
-        only: under a mesh the collectives keep the loops on the host).
-        False runs the fields and each loop as their own device loops, with
-        host reads between them: the same results to the bit."""
+        only: under a mesh the collectives keep the loops on the host), and
+        so do ``superstep_native`` and ``superstep_native_batched`` on a
+        ``KeyDraws`` source. False runs the fields and each loop as their
+        own device loops, with host reads between them: the same results to
+        the bit."""
         self.params, self.lat = params, lat
         self.step_program = bool(step_program)
         self.k_carry_residual = bool(k_carry_residual)
@@ -239,9 +243,11 @@ class VCMModel:
         # the superstep programs (models/step_program.py), by k, chunk, carry and
         # caps, and what the dispatches did: program runs (one host read each),
         # steps redone on a grown cap, events-only chunks after a window ran
-        # out, batches of ``superstep_multi`` discarded and replayed
+        # out, batches of ``superstep_multi`` discarded and replayed, and the
+        # production supersteps that took the per-loop path instead
         self.step_graphs = LoopGraphs()
-        self.step_counts = dict.fromkeys(("runs", "redos", "continues", "discards"), 0)
+        self.step_counts = dict.fromkeys(
+            ("runs", "redos", "continues", "discards", "per_loop"), 0)
         # what the CG device loops did since the previous superstep ended
         # (solves, replays: one host read each, iterations run and live)
         self._cg_mark = self._cg_totals()
@@ -920,16 +926,28 @@ class VCMModel:
         )
 
     # ------------------------------------------------------------------
-    # production supersteps: uniforms from a draws source
-    # (``ops/events.py::GeneratorDraws`` on the model's device), not the
-    # reference's mt19937 stream
+    # production supersteps: uniforms from a draws source (akmc_tpu's
+    # threefry key, ``ops/threefry.py::KeyDraws``, as the driver makes it;
+    # or a ``GeneratorDraws``), not the reference's mt19937 stream
     # ------------------------------------------------------------------
     def superstep_native(self, state: DeviceState, Vd: float, draws) -> Tuple[DeviceState, dict]:
         """Production-mode superstep with the serial loop
         (``run_event_loop_native``): the exact residence-time law on the
-        caller's draws source. Not reference-stream parity."""
+        caller's draws source. Not reference-stream parity.
+
+        On a ``KeyDraws`` source (``akmc_tpu``'s threefry key) it is
+        ``akmc_tpu``'s ``superstep_native``: ``key, sub = split(key)``, the
+        loop drawing from ``sub``, the source moved on to ``key``; with
+        ``step_program`` on one device as one program (``_production``).
+        Otherwise, or on another source (a generator, a replay), the per-loop
+        path: the fields with their caps grown, then the device loop."""
+        if isinstance(draws, KeyDraws) and self._programmed():
+            return self._production(state, Vd, draws, 0, False)
+        self.step_counts["per_loop"] += 1
         t = self.tables
         fr = self._fields_grown(state, Vd)
+        if isinstance(draws, KeyDraws):
+            draws = draws.split()
         res = run_event_loop_native(
             state.element, fr.charge, fr.P, fr.etype, t.act_neigh, draws, self.params.freq,
             act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S, zero_rows=t.act_zero_rows,
@@ -956,30 +974,105 @@ class VCMModel:
         potential drifts smoothly; the converged tolerance is unchanged.
         ``k_extrap = 0.0`` is the plain warm start bit for bit.
 
+        On a ``KeyDraws`` source it is ``akmc_tpu``'s
+        ``superstep_native_batched`` draw for draw (``key, sub =
+        split(key)``, the loop on ``sub``), with ``step_program`` on one
+        device as one program (``_production``: one replay and one host read,
+        ``mass_eps`` and ``k_extrap`` tensors of the program); else the
+        per-loop path.
+
         A loop that used up its batches without one event
         raises: with ``clock_f32`` every live row's shifted rate can
         underflow f32, all clocks are then infinite, and a caller that adds
         the returned waiting time of 0 to its clock would never advance."""
+        if isinstance(draws, KeyDraws) and self._programmed():
+            return self._production(state, Vd, draws, batch, clock_f32, pb_prev2=pb_prev2,
+                                    mass_eps=mass_eps, k_extrap=k_extrap)
+        self.step_counts["per_loop"] += 1
         t = self.tables
         pb = state.potential_boundary
         pb_ws = pb + k_extrap * (pb - (pb if pb_prev2 is None else pb_prev2))
         fr = self._fields_grown(state, Vd, pb_start=pb_ws)
+        if isinstance(draws, KeyDraws):
+            draws = draws.split()
         res = run_event_loop_batched(
             state.element, fr.charge, fr.P, fr.etype, t.act_neigh, draws, self.params.freq,
             batch=batch, act_idx=t.act_idx, abs2act=t.abs2act, ln_S=fr.ln_S,
             mass_eps=mass_eps, clock_f32=clock_f32, graphs=self.loop_graphs,
         )
-        if not res.done and res.n_events == 0:
-            raise RuntimeError(
-                f"the batched event loop ran {res.n_batches} batches at Vd = {Vd} V without "
-                "an event or a terminating gap"
-                + (": with clock_f32 the rates may lie below f32's range, run with f64 clocks"
-                   if clock_f32 else ""))
+        self._check_batched(res.done, res.n_events, res.n_batches, Vd, clock_f32)
         return self._finish(
             state, fr, res, n_batches=res.n_batches, done=res.done,
             n_cut_conflict=res.n_cut_conflict, n_cut_mass=res.n_cut_mass,
         )
 
+    @staticmethod
+    def _check_batched(done, n_events, n_batches, Vd, clock_f32) -> None:
+        if not done and n_events == 0:
+            raise RuntimeError(
+                f"the batched event loop ran {n_batches} batches at Vd = {Vd} V without "
+                "an event or a terminating gap"
+                + (": with clock_f32 the rates may lie below f32's range, run with f64 clocks"
+                   if clock_f32 else ""))
+
+    def _production_program(self, state: DeviceState, batch: int,
+                            clock_f32: bool) -> ProductionProgram:
+        """The production program (``batch`` 0: native) at the current caps,
+        built once per key: kind, B, the clock's type, caps (at the serial
+        programs' places, ``_drop_stale_programs`` reads them there), the
+        nodes' steps per pass, options, the state's types and the static
+        tables' addresses."""
+        t = self.tables
+        key = ("production", batch, clock_f32, self.qmax, self.vmax, self.pair_cand_cap,
+               cg_mod.CG_NODE_K, events_mod.SERIAL_NODE_K, events_mod.BATCHED_NODE_K,
+               self.pair_f32, self.rate_normalize, state.element.dtype, state.charge.dtype,
+               tuple((x.data_ptr(), tuple(x.shape)) for x in
+                     (t.act_neigh, t.act_idx, t.abs2act, t.act_zero_rows)))
+        return self.step_graphs.get(
+            key, lambda: ProductionProgram(self, state, batch, clock_f32))
+
+    def _production(self, state: DeviceState, Vd: float, draws: KeyDraws, batch: int,
+                    clock_f32: bool, pb_prev2=None, mass_eps: float = 1e-3,
+                    k_extrap: float = 0.0) -> Tuple[DeviceState, dict]:
+        """A production superstep as one program: the key copied in, one run
+        and one read of its diagnostics; on an overflow of a cap the exceeded
+        caps double and the step is redone from the same key (the source has
+        not moved), as ``akmc_tpu`` redoes it (``vcm.py:1126-1137``)."""
+        while True:
+            prog = self._production_program(state, batch, clock_f32)
+            prog.load(state, Vd, draws.key, pb_prev2=pb_prev2, mass_eps=mass_eps,
+                      k_extrap=k_extrap)
+            out, d = prog.run()
+            self.step_counts["runs"] += 1
+            if not self._grow(d[5], d[6], d[7]):
+                break
+            self.step_counts["redos"] += 1
+            self._drop_stale_programs()
+        n_events, done = int(d[0]), bool(d[3])
+        stats = {"n_events": n_events, "event_time": d[2], "cg_iterations": int(d[4])}
+        if batch:
+            self._check_batched(done, n_events, int(d[1]), Vd, clock_f32)
+            stats.update(n_batches=int(d[1]), done=done, n_cut_conflict=int(d[8]),
+                         n_cut_mass=int(d[9]))
+        draws.key = out["key"]
+        self._count_cg_step()
+        new_state = state.replace(
+            element=out["element"], charge=out["charge"],
+            potential_boundary=out["potential_boundary"],
+            potential_charge=out["potential_charge"],
+            kmc_time=state.kmc_time + out["event_time"],
+        )
+        return new_state, stats
+
+    def _capture_production(self, state: DeviceState, Vd: float, batch: int,
+                            clock_f32: bool) -> ProductionProgram:
+        """Build, and on a card capture, the production program a run takes
+        next (``batch`` 0: native), warmed on ``state`` and a zero key.
+        Changes no state and draws from no source."""
+        prog = self._production_program(state, batch, clock_f32)
+        prog.load(state, Vd, torch.zeros(2, dtype=torch.int64, device=self.device))
+        prog.capture()
+        return prog
 
     def warmup(self, state: DeviceState, Vd: float, full_physics: bool = False,
                batched: int = 0, clock_f32: bool = False,
@@ -1000,7 +1093,10 @@ class VCMModel:
         drawn from (akmc_tpu's ``warmup`` compiles its executables, while
         loops included, instead). On a card, on the serial path, the
         superstep program of ``steps_per_dispatch`` supersteps is built and
-        captured (``_capture_program``). Returns the host seconds of each item."""
+        captured (``_capture_program``), or with ``batched`` the batched
+        production program (``_capture_production``, which then stands in for
+        the batched loop: the run's ``KeyDraws`` source takes it). Returns
+        the host seconds of each item."""
         out = {}
 
         def timed(name, fn):
@@ -1016,11 +1112,13 @@ class VCMModel:
             from akmc_tpu_torch.solvers import dia_cg
 
             timed("cuda_build", lambda: cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL,
-                                                          "graph_while"]))
+                                                          "graph_while", "threefry"]))
             if isinstance(self.kop, DiaK):
                 timed("dia_kernels", lambda: self._empty_dia_solve(state, Vd))
-        timed(f"batched_B{batched}" if batched else "serial_loop",
-              lambda: self._capture_loops(state, batched, clock_f32))
+        production = bool(batched) and self.device.type == "cuda" and self._programmed()
+        if not production:
+            timed(f"batched_B{batched}" if batched else "serial_loop",
+                  lambda: self._capture_loops(state, batched, clock_f32))
         if full_physics:
             timed("current_tables", lambda: self.current_tables)
             timed("power_band", lambda: self.power_band)
@@ -1028,7 +1126,10 @@ class VCMModel:
                 timed("local_heat", lambda: self.local_heat)
         if self.device.type == "cuda":
             timed("cg_loops", lambda: self._capture_cgs(state, Vd, full_physics))
-        if self.device.type == "cuda" and self._programmed() and not (full_physics or batched):
+        if production and not full_physics:
+            timed(f"production_program_B{batched}",
+                  lambda: self._capture_production(state, Vd, batched, clock_f32))
+        elif self.device.type == "cuda" and self._programmed() and not (full_physics or batched):
             timed("superstep_program",
                   lambda: self._capture_program(state, Vd, steps_per_dispatch))
         self._cg_mark = self._cg_totals()
@@ -1067,7 +1168,8 @@ class VCMModel:
         all-zero rate table, no batch allowed or a waiting time of inf) so
         that its program is built, and on a card captured, into
         ``loop_graphs`` at the shapes of this model's supersteps: nothing
-        fires, and the throwaway generator's draws are given back."""
+        fires. The batched loop is the one a ``KeyDraws`` source takes
+        (the driver's), on a throwaway key."""
         t, dev = self.tables, self.device
         P = torch.zeros(t.act_neigh.shape, dtype=torch.float64, device=dev)
         etype = torch.zeros(t.act_neigh.shape, dtype=torch.int32, device=dev)
@@ -1075,7 +1177,7 @@ class VCMModel:
         if batched:
             run_event_loop_batched(
                 state.element, state.charge, P, etype, t.act_neigh,
-                GeneratorDraws.seeded(0, dev), self.params.freq, batch=batched, max_batches=0,
+                KeyDraws.seeded(0, dev), self.params.freq, batch=batched, max_batches=0,
                 act_idx=t.act_idx, abs2act=t.abs2act, ln_S=ln_S, clock_f32=clock_f32,
                 graphs=self.loop_graphs)
         else:

@@ -16,11 +16,15 @@ each of its loops once. A capture that fails raises: nothing falls back to a
 host loop.
 
 Uniforms cannot be drawn inside a capture from a host ``ReplayDraws``, and a
-``torch.Generator`` needs a graph-safe registration there. ``Prefill`` draws
-the k steps' uniforms into static buffers before each replay, in the order the
-plain loop draws them, and after the last replay gives back the draws of the
-steps that were dead (``mark``/``rewind`` of the draws source), so the source
-ends where the plain loop leaves it.
+``torch.Generator``'s offset is fixed when a graph is captured. ``Prefill``
+draws the k steps' uniforms from such a source into static buffers before
+each replay, in the order the plain loop draws them, and after the last
+replay gives back the draws of the steps that were dead (``mark``/``rewind``
+of the draws source), so the source ends where the plain loop leaves it.
+``akmc_tpu``'s threefry key (``ops/threefry.py::KeyDraws``) needs none of
+that: the loop holds the key on the device and each step draws from it
+inside the graph, moving it on only when live. Draws in a graph come from
+such a device key, never from a host generator.
 
 Inside a program (``models/step_program.py``: a whole superstep as one CUDA
 graph, the counterpart of ``akmc_tpu``'s one executable per superstep) a loop
@@ -57,6 +61,7 @@ class StepProgram:
         self.body, self.device = body, device
         self.graph = None
         self.capture_s = 0.0        # host seconds of the warm body, capture and instantiation
+        self.launches: List = []    # kernel wrappers the graph launches, once each per replay
 
     def capture(self, warm: bool = True) -> None:
         if self.device.type != "cuda":
@@ -65,7 +70,7 @@ class StepProgram:
         if warm:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), _launches_into([]):    # the warm run is not counted
                 self.body()
             torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
@@ -75,17 +80,19 @@ class StepProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph), _launches_into([]) as fns:
                 self.body()
         finally:
             if collecting:
                 gc.enable()
-        self.graph = graph
+        self.graph, self.launches = graph, fns
         self.capture_s = time.perf_counter() - t0
 
     def run(self) -> None:
         if self.device.type == "cuda":
             self.graph.replay()
+            for fn in self.launches:
+                fn.launches += 1
         else:
             self.body()
 
@@ -254,12 +261,34 @@ def record(tensors: Sequence[torch.Tensor], apply: Callable[[Sequence[float]], N
     rec.entries.append((tuple(tensors), apply))
 
 
+# kernel wrappers launched inside the body being captured or run: a while
+# loop's body (counted per pass) or a ``StepProgram``'s (counted per replay)
+_PER_PASS: Optional[List] = None
+
+
 def count_launch(fn) -> None:
     """One launch of a kernel wrapper ``fn`` (``fn.launches``): now, or in a
-    program once per run of the program (not per capture or warm run)."""
+    program once per run of the program (not per capture or warm run), or
+    inside a while loop's body or a ``StepProgram``'s once per pass or
+    replay that runs it."""
+    if _PER_PASS is not None:
+        _PER_PASS.append(fn)
+        return
+
     def add(_):
         fn.launches += 1
     record((), add)
+
+
+@contextlib.contextmanager
+def _launches_into(fns: List):
+    """While open, ``count_launch`` appends to ``fns`` instead of counting."""
+    global _PER_PASS
+    prev, _PER_PASS = _PER_PASS, fns
+    try:
+        yield fns
+    finally:
+        _PER_PASS = prev
 
 
 _CONDITION_READS = 0     # > 0 while an eager while loop reads its flag
@@ -370,16 +399,45 @@ def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
     node of the graph being captured, with the body captured once into it
     (a capture that cannot take one raises; nothing falls back). Elsewhere
     (the CPU, an eager run on a card) the body runs eagerly while a read of
-    the flag is true."""
+    the flag is true. Kernels the body launches (``count_launch``) count
+    once per pass: in a program's capture the node counts its passes on the
+    device and records them, and its condition kernel counts in
+    ``while_loop.launches``."""
     global _WHILE_DEPTH
     if live.dtype != torch.bool or live.dim() != 0:
         raise ValueError("while_loop needs a 0-d bool flag")
+    captured = live.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if captured:
+        passes = torch.zeros((), dtype=torch.int64, device=live.device)
+
+        def counted():
+            body()
+            passes.add_(1)
     _WHILE_DEPTH += 1
     try:
-        if live.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            _while_node(live, body, _WHILE_DEPTH - 1)
-        else:
-            while _condition(live):
-                body()
+        with _launches_into([]) as fns:
+            if captured:
+                _while_node(live, counted, _WHILE_DEPTH - 1)
+            else:
+                while _condition(live):
+                    body()
     finally:
         _WHILE_DEPTH -= 1
+    if not captured:
+        for fn in fns:           # the launches made, counted where the loop stands
+            count_launch(fn)
+        return
+    if _RECORDING is None:       # a graph of the caller's own: its replays are not counted
+        return
+
+    def add(v):
+        # the node's condition kernel runs at entry and after every pass;
+        # the body's kernels once per pass
+        n = int(v[0])
+        while_loop.launches += n + 1
+        for fn in fns:
+            fn.launches += n
+    record((passes,), add)
+
+
+while_loop.launches = 0     # runs of the while nodes' condition kernel (csrc/graph_while.cu)

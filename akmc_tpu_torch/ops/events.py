@@ -16,7 +16,8 @@ zero-out semantics (zero_out_events_split, kmc_events.cu:247-266).
 
 Three loops share that machinery. ``run_event_loop`` draws from a buffer of
 the replicated mt19937 stream (reference-stream parity). ``run_event_loop_native``
-is the same serial law on a draws source (a device generator in production).
+is the same serial law on a draws source (``akmc_tpu``'s threefry key in
+production, ``ops/threefry.py::KeyDraws``; a device generator; a replay).
 ``run_event_loop_batched`` fires many events per iteration through the
 exponential-race formulation, the loop the crossbar-scale runs use.
 
@@ -40,8 +41,9 @@ import torch
 
 from akmc_tpu_torch.config import KB_EV, Q_C
 from akmc_tpu_torch.lattice import ELEM, EVENT
-from akmc_tpu_torch.ops import device_loop
+from akmc_tpu_torch.ops import device_loop, threefry
 from akmc_tpu_torch.ops.device_loop import GraphLoop, Prefill, program
+from akmc_tpu_torch.ops.threefry import KeyDraws
 
 _EPS_OVERFLOW = 1e-200   # exponential overflow guard (kmc_events.cu:150)
 _BLK = 256
@@ -443,6 +445,9 @@ BATCHED_K = 32
 # program on a card: a sweep's superstep fires one to a few events, and a
 # dead event costs a whole one (PERF.md §6)
 SERIAL_NODE_K = 1
+# batches per pass of the batched loop's while node inside a production
+# superstep's program on a card (PERF.md §6)
+BATCHED_NODE_K = 1
 
 
 def _steps(k: Optional[int], card_k: int, device: torch.device) -> int:
@@ -468,6 +473,33 @@ def _count(name: str, replays: int, steps: int, live: int) -> None:
     c["live_steps"] += live
 
 
+def _set(dst: torch.Tensor, value) -> None:
+    """A loop's 0-d input from a number (a fill) or a 0-d tensor (a copy:
+    inside a program the value is the program's input, read when it runs)."""
+    if isinstance(value, torch.Tensor):
+        dst.copy_(value)
+    else:
+        dst.fill_(value)
+
+
+def _run_nested(prog, name: str, live_steps: torch.Tensor) -> None:
+    """A loop program's steps as a ``device_loop.while_loop`` of k-step
+    passes inside a program; its passes and ``live_steps`` are recorded for
+    the program's read, as ``name``'s counts."""
+    passes = torch.zeros((), dtype=torch.int64, device=prog.live.device)
+
+    def body():
+        for i in range(prog.k):
+            prog._step(i)
+        passes.add_(1)
+        prog.live.copy_(prog._live())
+
+    prog.live.copy_(prog._live())
+    device_loop.while_loop(prog.live, body)
+    device_loop.record((passes, live_steps.clone()), lambda v: _count(
+        name, int(v[0]), int(v[0]) * prog.k, int(v[1])))
+
+
 def _addresses(*tables) -> tuple:
     return tuple(None if t is None else (t.data_ptr(), tuple(t.shape)) for t in tables)
 
@@ -477,17 +509,23 @@ class _SerialProgram:
     (``run_event_loop``): two draws per event from the static copy of the
     caller's buffer at a device cursor; ``native`` form
     (``run_event_loop_native``): one (2,) vector per event from static
-    buffers that ``Prefill`` fills before each replay. The tables are the
+    buffers that ``Prefill`` fills before each replay, or, ``keyed``, drawn
+    inside the step from the threefry key the loop holds (``st``,
+    ``ops/threefry.py::draw_step``: split in three, the selection and the
+    waiting-time draw from the last two subkeys, the key moved on only by a
+    live step). The tables are the
     caller's tensors, read in place; everything the loop writes is owned
     here and starts dead (``ev_time`` inf).
 
     ``rand_len``: the length of the static draw buffer when it holds several
     windows of ``buf_len`` draws (a program of k supersteps), each loop
     reading its window from ``base`` on. ``run_nested`` runs the loop as a
-    while loop inside a program (``ops/device_loop.py``)."""
+    while loop inside a program (``ops/device_loop.py``); ``nested``: the
+    program is made for that alone, and captures no replays of its own
+    unless asked for (``loop``)."""
 
     def __init__(self, P, etype, code, tables, freq, buf_len, native, has_ln_S,
-                 incremental, k, rand_len=None):
+                 incremental, k, rand_len=None, keyed=False, nested=False):
         dev = P.device
         f64 = dict(dtype=torch.float64, device=dev)
         i64 = dict(dtype=torch.int64, device=dev)
@@ -508,15 +546,19 @@ class _SerialProgram:
         self.n_it = torch.zeros((), **i64)       # live iterations (events and an empty table)
         self.flags = torch.zeros(5, **f64)
         self.live = torch.zeros((), dtype=torch.bool, device=dev)
-        self.prefill = None
-        if native:
+        self.prefill = self.st = None
+        if native and keyed:
+            self.rand = None
+            self.st = threefry.key_state(device=dev)
+            self.u = [torch.zeros(2, dtype=P.dtype, device=dev)]
+        elif native:
             self.rand = None
             self.u = [torch.zeros(2, dtype=P.dtype, device=dev) for _ in range(k)]
             self.prefill = Prefill([(u,) for u in self.u])
         else:
             self.rand = torch.zeros(max(rand_len or buf_len, 2), dtype=P.dtype, device=dev)
         self._loop = None
-        if not device_loop.in_program():
+        if not (nested or device_loop.in_program()):
             self._make_loop()
 
     def _make_loop(self) -> None:
@@ -551,7 +593,12 @@ class _SerialProgram:
     def _step(self, i):
         live = self._live()
         if self.native:
-            r_sel, r_time = self.u[i]
+            if self.st is not None:
+                u = self.u[0]
+                threefry.draw_step(self.st, live, u[0:1], u[1:2])
+                r_sel, r_time = u
+            else:
+                r_sel, r_time = self.u[i]
             e_of = lambda r: -torch.log1p(-r)  # noqa: E731
         else:
             c = (self.base + self.cnt).clamp(max=self.rand.shape[0] - 2)
@@ -578,8 +625,10 @@ class _SerialProgram:
                                       self.ev_time.to(f64)]))
 
     def load(self, element, charge, P, etype, ln_S, event_time_in, rand_buf=None,
-             max_events=0):
+             max_events=0, key=None):
         self.code.copy_(_pack_code(element, charge))
+        if key is not None:
+            self.st[threefry.KEY].copy_(key)
         self.P.copy_(P)
         self.etype.copy_(etype)
         self.R.copy_(torch.sum(self.P, dim=1))
@@ -595,23 +644,12 @@ class _SerialProgram:
             self.rand[: rand_buf.shape[0]].copy_(rand_buf)
         for c in (self.cnt, self.n_ev, self.n_it):
             c.zero_()
-        self.limit.fill_(max_events)
+        _set(self.limit, max_events)
 
-    def run_nested(self) -> None:
-        """The loop as a ``while_loop`` of k-step passes inside a program;
-        its passes and live iterations are recorded for the program's read."""
-        passes = torch.zeros((), dtype=torch.int64, device=self.code.device)
-
-        def body():
-            for i in range(self.k):
-                self._step(i)
-            passes.add_(1)
-            self.live.copy_(self._live())
-
-        self.live.copy_(self._live())
-        device_loop.while_loop(self.live, body)
-        device_loop.record((passes, self.n_it.clone()), lambda v: _count(
-            "serial", int(v[0]), int(v[0]) * self.k, int(v[1])))
+    def run_nested(self, name: str = "serial") -> None:
+        """The loop as a while loop inside a program (``_run_nested``),
+        counted as ``name``'s."""
+        _run_nested(self, name, self.n_it)
 
     def run(self, name, draws=None):
         """Replays until the loop is dead: (n_events, draws used, live
@@ -627,13 +665,14 @@ class _SerialProgram:
 
 
 def _serial_program(graphs, P, etype, element, charge, tables, freq, buf_len, native,
-                    ln_S, incremental, k):
+                    ln_S, incremental, k, keyed=False):
     code = _pack_code(element, charge)
     key = ("native" if native else "serial", tuple(P.shape), P.dtype, etype.dtype,
            tuple(code.shape), code.dtype, P.device, freq, buf_len, ln_S is not None,
-           incremental, k, _addresses(*tables))
+           incremental, k, keyed, _addresses(*tables))
     return program(graphs, key, lambda: _SerialProgram(
-        P, etype, code, tables, freq, buf_len, native, ln_S is not None, incremental, k))
+        P, etype, code, tables, freq, buf_len, native, ln_S is not None, incremental, k,
+        keyed=keyed))
 
 
 def run_event_loop(
@@ -679,7 +718,11 @@ def run_event_loop(
 
 
 # ----------------------------------------------------------------------
-# draws: where the production loops get their uniforms
+# draws: where the production loops get their uniforms. A batch asks its
+# source for ``batch(n, clock_dtype, B, dtype, device)`` (u_clk, u_slot), a
+# native event for ``event(dtype, device)`` (selection, waiting-time draw).
+# ``KeyDraws`` (ops/threefry.py) is akmc_tpu's threefry key, the driver's
+# source; the two below are a device generator and a replay of given vectors
 # ----------------------------------------------------------------------
 class GeneratorDraws:
     """Uniforms in [0, 1) from a ``torch.Generator`` that lives on the
@@ -697,6 +740,16 @@ class GeneratorDraws:
 
     def uniform(self, shape, dtype, device) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, dtype=dtype, device=device)
+
+    def batch(self, n, clock_dtype, B, dtype, device):
+        """One batch of the batched loop: u_clk (n,), then u_slot (B,)."""
+        return self.uniform((n,), clock_dtype, device), self.uniform((B,), dtype, device)
+
+    def event(self, dtype, device):
+        """One event of the native loop: one (2,) vector, (selection draw,
+        waiting-time draw)."""
+        r = self.uniform((2,), dtype, device)
+        return r[0], r[1]
 
     # the device loops draw a replay's uniforms ahead into their own buffers
     # and give back those of dead steps (ops/device_loop.py::Prefill)
@@ -746,6 +799,9 @@ class ReplayDraws:
                 f"the loop asked for {tuple(shape)} {dtype}")
         self.handed_out += 1
         return u.to(device)
+
+    batch = GeneratorDraws.batch
+    event = GeneratorDraws.event
 
     def fill(self, out: torch.Tensor) -> None:
         out.copy_(self.uniform(out.shape, out.dtype, out.device))
@@ -870,7 +926,7 @@ def run_event_loop_batched_plain(
         # 1. per-row clocks at batch-start rates (inf on zero-rate rows). With
         # a rate scale, R~ = R/S and tau~ = tau*S; gaps are rescaled by S in
         # log space at the termination test only.
-        u = draws.uniform((n,), clock_dtype, dev)
+        u, u_slot = draws.batch(n, clock_dtype, B, P.dtype, dev)
         tau = -torch.log(u) / R.to(clock_dtype)
         total = torch.sum(R)
         ok = total > 0.0
@@ -882,7 +938,7 @@ def run_event_loop_batched_plain(
         rows_P = P[rows_b]                                   # (B, NN)
         cumr = torch.cumsum(rows_P, dim=1)
         rowtot = cumr[:, -1]
-        t_slot = draws.uniform((B,), P.dtype, dev) * rowtot
+        t_slot = u_slot * rowtot
         slot_b = torch.sum(cumr < t_slot[:, None], dim=1).clamp(0, nn - 1)
 
         isel_b = rows_b if act_idx is None else act_idx[rows_b].clamp(min=0)
@@ -1039,7 +1095,7 @@ def run_event_loop_native_plain(
     ev_h = 0.0
     n_ev = 0
     while ev_h < inv_freq and n_ev < max_events:
-        r_sel, r_time = draws.uniform((2,), P.dtype, P.device)
+        r_sel, r_time = draws.event(P.dtype, P.device)
         code, total, ok = _fire_event(
             code, P, R, etype, neigh_idx, act_idx, abs2act, zero_rows, r_sel
         )
@@ -1078,13 +1134,19 @@ def run_event_loop_native(
     ends where the plain loop leaves it and the result is the plain loop's
     to the bit. A ``ReplayDraws`` that holds just the vectors the loop needs
     is enough; one that runs out or falls out of step on a live event
-    raises as in the plain loop."""
+    raises as in the plain loop. A ``KeyDraws`` is drawn from inside the
+    step instead (``ops/threefry.py::draw_step``), its key copied in and,
+    moved on by the live events, back out."""
     k = _steps(k, SERIAL_K, P.device)
     tables = (neigh_idx, act_idx, abs2act, zero_rows)
+    keyed = isinstance(draws, KeyDraws)
     prog = _serial_program(graphs, P, etype, element, charge, tables, freq, 0, True,
-                           ln_S, False, k)
-    prog.load(element, charge, P, etype, ln_S, None, max_events=max_events)
-    n_ev, _, _, ev_h = prog.run("native", draws)
+                           ln_S, False, k, keyed)
+    prog.load(element, charge, P, etype, ln_S, None, max_events=max_events,
+              key=draws.key if keyed else None)
+    n_ev, _, _, ev_h = prog.run("native", None if keyed else draws)
+    if keyed:
+        draws.key = prog.st[threefry.KEY].clone()
     element, charge, ev_time = prog.results(element, charge, P)
     return EventLoopResult(
         element=element, charge=charge, P=P, event_time=ev_time,
@@ -1096,9 +1158,14 @@ class _BatchedProgram:
     """State and k-batch body of ``run_event_loop_batched``: every tensor
     the loop writes, the static buffers of each batch's uniforms, and the
     constants of the body, all built before the capture. Starts dead
-    (``max_b`` 0)."""
+    (``max_b`` 0). The uniforms are filled before each replay (``Prefill``)
+    or, ``keyed``, drawn inside each batch from the threefry key the loop
+    holds (``st``, ``ops/threefry.py::draw_step``), which only a live batch
+    moves on. ``run_nested`` runs the loop as a while loop inside a
+    program (``ops/device_loop.py``)."""
 
-    def __init__(self, element, charge, P, etype, tables, freq, B, clock_dtype, has_ln_S, k):
+    def __init__(self, element, charge, P, etype, tables, freq, B, clock_dtype, has_ln_S, k,
+                 keyed=False, nested=False):
         dev = P.device
         f64 = dict(dtype=torch.float64, device=dev)
         i64 = dict(dtype=torch.int64, device=dev)
@@ -1118,17 +1185,41 @@ class _BatchedProgram:
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.n_ev, self.n_b, self.n_cc, self.n_cm = (torch.zeros((), **i64) for _ in range(4))
         self.flags = torch.zeros(7, **f64)
-        self.u = [torch.zeros(n, dtype=clock_dtype, device=dev) for _ in range(k)]
-        self.v = [torch.zeros(B, dtype=P.dtype, device=dev) for _ in range(k)]
+        self.live = torch.zeros((), dtype=torch.bool, device=dev)
+        self.st = threefry.key_state(device=dev) if keyed else None
+        nbuf = 1 if keyed else k
+        self.u = [torch.zeros(n, dtype=clock_dtype, device=dev) for _ in range(nbuf)]
+        self.v = [torch.zeros(B, dtype=P.dtype, device=dev) for _ in range(nbuf)]
         self.lower = torch.tril(torch.ones((B, B), dtype=torch.bool, device=dev), diagonal=-1)
         self.arange_b = torch.arange(B, device=dev)
         self.zero_gap = torch.zeros(1, dtype=clock_dtype, device=dev)
-        self.loop = GraphLoop(self._body, k, dev, self.flags, 2,
-                              Prefill(list(zip(self.u, self.v))))
+        self._loop = None
+        if not (nested or device_loop.in_program()):
+            self._make_loop()
+
+    def _make_loop(self) -> None:
+        """Capture the replays of the host-driven loop, with the loop dead
+        (no batch allowed) and a state loaded before left as it was."""
+        kept = self.max_b.clone()
+        self.max_b.zero_()
+        try:
+            self._loop = GraphLoop(self._body, self.k, self.P.device, self.flags, 2,
+                                   None if self.st is not None
+                                   else Prefill(list(zip(self.u, self.v))))
+        finally:
+            self.max_b.copy_(kept)
+
+    @property
+    def loop(self) -> GraphLoop:
+        """The replays of the host-driven loop: captured when the program is
+        made, or, for one made inside a superstep's program, on first use."""
+        if self._loop is None:
+            self._make_loop()
+        return self._loop
 
     @property
     def capture_s(self) -> float:
-        return self.loop.capture_s
+        return 0.0 if self._loop is None else self._loop.capture_s
 
     def _live(self):
         return ~self.done & (self.n_b < self.max_b)
@@ -1143,7 +1234,11 @@ class _BatchedProgram:
         inv_freq = 1.0 / self.freq
         live = self._live()
 
-        u = self.u[i]
+        if self.st is not None:
+            u, u_slot = self.u[0], self.v[0]
+            threefry.draw_step(self.st, live, u, u_slot)
+        else:
+            u, u_slot = self.u[i], self.v[i]
         tau = -torch.log(u) / R.to(self.clock_dtype)
         total = torch.sum(R)
         ok = total > 0.0
@@ -1152,7 +1247,7 @@ class _BatchedProgram:
         rows_P = P[rows_b]
         cumr = torch.cumsum(rows_P, dim=1)
         rowtot = cumr[:, -1]
-        t_slot = self.v[i] * rowtot
+        t_slot = u_slot * rowtot
         slot_b = torch.sum(cumr < t_slot[:, None], dim=1).clamp(0, nn - 1)
 
         isel_b = rows_b if act_idx is None else act_idx[rows_b].clamp(min=0)
@@ -1255,7 +1350,9 @@ class _BatchedProgram:
             self._live().to(f64), self.done.to(f64), self.n_b.to(f64), self.n_ev.to(f64),
             self.n_cc.to(f64), self.n_cm.to(f64), self.ev_time]))
 
-    def load(self, element, charge, P, etype, ln_S, mass_eps, max_batches):
+    def load(self, element, charge, P, etype, ln_S, mass_eps, max_batches, key=None):
+        """The loop's inputs copied in (``mass_eps`` and ``max_batches``
+        numbers or 0-d tensors; ``key`` the threefry key of a keyed loop)."""
         self.element_x[: self.n_sites].copy_(element)
         self.charge_x[: self.n_sites].copy_(charge)
         self.element_x[self.n_sites:] = 0
@@ -1265,12 +1362,18 @@ class _BatchedProgram:
         self.R.copy_(torch.sum(self.P, dim=1))
         if self.ln_S is not None:
             self.ln_S.copy_(torch.as_tensor(ln_S, dtype=torch.float64))
-        self.mass_eps.fill_(mass_eps)
-        self.max_b.fill_(max_batches)
+        _set(self.mass_eps, mass_eps)
+        _set(self.max_b, max_batches)
+        if key is not None:
+            self.st[threefry.KEY].copy_(key)
         self.ev_time.zero_()
         self.done.zero_()
         for c in (self.n_ev, self.n_b, self.n_cc, self.n_cm):
             c.zero_()
+
+    def run_nested(self) -> None:
+        """The loop as a while loop inside a program (``_run_nested``)."""
+        _run_nested(self, "batched", self.n_b)
 
     def run(self, draws):
         """Replays until the loop is dead: (done, batches, events, conflict
@@ -1278,6 +1381,17 @@ class _BatchedProgram:
         (_, done, n_b, n_ev, n_cc, n_cm, ev_h), replays, steps = self.loop.run(draws)
         _count("batched", replays, steps, int(n_b))
         return bool(done), int(n_b), int(n_ev), int(n_cc), int(n_cm), ev_h
+
+
+def _batched_program(graphs, element, charge, P, etype, tables, freq, batch, clock_f32, ln_S,
+                     k, keyed):
+    clock_dtype = torch.float32 if clock_f32 else P.dtype
+    key = ("batched", tuple(P.shape), P.dtype, etype.dtype, element.shape[0], element.dtype,
+           charge.dtype, P.device, freq, batch, clock_dtype, ln_S is not None, k, keyed,
+           _addresses(*tables))
+    return program(graphs, key, lambda: _BatchedProgram(
+        element, charge, P, etype, tables, freq, batch, clock_dtype, ln_S is not None, k,
+        keyed=keyed))
 
 
 def run_event_loop_batched(
@@ -1310,17 +1424,19 @@ def run_event_loop_batched(
     leaves it, and the result equals the plain loop's to the bit. A
     ``ReplayDraws`` that holds just the vectors the loop needs is enough; one
     that runs out or falls out of step on a live batch raises as in the
-    plain loop. ``graphs``: the caller's ``LoopGraphs``."""
+    plain loop. A ``KeyDraws`` is drawn from inside each batch instead
+    (``ops/threefry.py::draw_step``, as ``akmc_tpu`` draws from its key),
+    its key copied in and, moved on by the live batches, back out.
+    ``graphs``: the caller's ``LoopGraphs``."""
     k = _steps(k, BATCHED_K, P.device)
-    clock_dtype = torch.float32 if clock_f32 else P.dtype
-    tables = (neigh_idx, act_idx, abs2act)
-    key = ("batched", tuple(P.shape), P.dtype, etype.dtype, element.shape[0], element.dtype,
-           charge.dtype, P.device, freq, batch, clock_dtype, ln_S is not None, k,
-           _addresses(*tables))
-    prog = program(graphs, key, lambda: _BatchedProgram(
-        element, charge, P, etype, tables, freq, batch, clock_dtype, ln_S is not None, k))
-    prog.load(element, charge, P, etype, ln_S, mass_eps, max_batches)
-    done, n_b, n_ev, n_cc, n_cm, ev_h = prog.run(draws)
+    prog = _batched_program(graphs, element, charge, P, etype, (neigh_idx, act_idx, abs2act),
+                            freq, batch, clock_f32, ln_S, k, isinstance(draws, KeyDraws))
+    keyed = prog.st is not None
+    prog.load(element, charge, P, etype, ln_S, mass_eps, max_batches,
+              key=draws.key if keyed else None)
+    done, n_b, n_ev, n_cc, n_cm, ev_h = prog.run(None if keyed else draws)
+    if keyed:
+        draws.key = prog.st[threefry.KEY].clone()
     P.copy_(prog.P)
     n_sites = element.shape[0]
     return BatchedLoopResult(

@@ -52,7 +52,7 @@ from akmc_tpu_torch.lattice import (
     translate_cell,
 )
 from akmc_tpu_torch.models.vcm import VCMModel
-from akmc_tpu_torch.ops.events import GeneratorDraws
+from akmc_tpu_torch.ops.threefry import KeyDraws
 from akmc_tpu_torch.parallel.mesh import check_replicas
 from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
 from akmc_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
@@ -140,17 +140,18 @@ def run(
     tiled pairwise plane in f32 (large structures only).
 
     ``batched_events`` B > 0 runs the production event path
-    (``superstep_native_batched``: B-candidate exponential-race batches from
-    a device generator seeded with the deck's ``rnd_seed_kmc``; not
-    reference-stream parity), with ``batched_mass_eps`` the killed-mass
+    (``superstep_native_batched``: B-candidate exponential-race batches drawn
+    from ``akmc_tpu``'s threefry key ``PRNGKey(rnd_seed_kmc)``, held on the
+    device (``ops/threefry.py::KeyDraws``; every rank holds the same key);
+    ``akmc_tpu``'s draws, not reference-stream parity), with ``batched_mass_eps`` the killed-mass
     staleness bound, ``batched_clock_f32`` f32 race clocks and
     ``batched_k_extrap`` the K-solve warm-start extrapolation coefficient.
     ``module_timing`` runs each physics module apart so that the per-module
     timing lines carry measured values. ``checkpoint_every`` N saves
     ``checkpoint.npz`` in the workdir every N supersteps; ``resume_from``
     continues such a file (appending to the workdir's logs), bit-identically
-    for the serial loop; the batched generator is not in a checkpoint and is
-    seeded from ``rnd_seed_kmc`` again, and the bias points skipped count as
+    for the serial loop; the batched key is not in a checkpoint and is made
+    from ``rnd_seed_kmc`` again, as ``akmc_tpu`` makes it, and the bias points skipped count as
     visited (akmc_tpu forgets them, and a resumed hysteresis sweep then writes
     a second visit into the first visit's folder).
 
@@ -327,7 +328,7 @@ def _run(
                    "buffers" if mesh.staged else "") + ")\n"
             )
         kmc_stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
-        batch_draws = (GeneratorDraws.seeded(p.rnd_seed_kmc, model.device)
+        batch_draws = (KeyDraws.seeded(p.rnd_seed_kmc, model.device)
                        if batched_events else None)
         batched_pb_prev2 = None   # the previous superstep's K solution (extrapolated warm start)
         m_warm = None             # the power solve's warm start across supersteps
@@ -475,7 +476,7 @@ def _run(
                     stats_list = [stats]
                 elif batched_events:
                     # production throughput mode: the multi-event batched
-                    # loop on its own generator (not reference-stream parity;
+                    # loop on akmc_tpu's threefry key (not reference-stream parity;
                     # waiting-time staleness bounded by batched_mass_eps per batch)
                     pb_before = state.potential_boundary
                     state, stats = model.superstep_native_batched(
@@ -628,8 +629,8 @@ def main(argv=None):
     ap.add_argument("--batched-events", type=int, default=0, metavar="B",
                     help="production throughput mode: the multi-event batched "
                          "residence-time loop with B-candidate exponential-race "
-                         "batches (device generator seeded with rnd_seed_kmc; "
-                         "not reference-stream parity)")
+                         "batches (threefry key PRNGKey(rnd_seed_kmc) on the "
+                         "device, akmc_tpu's draws; not reference-stream parity)")
     ap.add_argument("--clock-f32", action="store_true",
                     help="batched loop: draw and transform the per-row race "
                          "clocks in f32 (exact in law up to ~1e-6 relative gap "
@@ -652,7 +653,7 @@ def main(argv=None):
     ap.add_argument("--resume-from", default=None,
                     help="resume from a checkpoint.npz: bit-identical for the "
                          "serial event loop. A checkpoint does not hold the "
-                         "--batched-events generator, which starts again from "
+                         "--batched-events key, which starts again from "
                          "rnd_seed_kmc, so a resumed batched run replays the "
                          "uniforms the run began with. Bias points skipped on "
                          "resume count as visited, so a repeated bias value "

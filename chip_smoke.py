@@ -307,7 +307,7 @@ DECK = os.path.join(HERE, "decks", "iv_sweep_5nm.txt")
 GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24.json")
 WORKDIR = os.path.join(HERE, "build", "chip_smoke", "iv_sweep_n24")
 N_YZ = 24
-KERNELS = ("dia_matvec", "dia_cg")
+KERNELS = ("dia_matvec", "dia_cg", "threefry")
 PLUMBING = ("graph_while",)      # built with the kernels: the superstep graph's while nodes
 MATVEC_RTOL = 1e-12
 CG_BIASES = (1.0, 8.0)           # the deck's first and highest bias
@@ -1764,6 +1764,491 @@ def run_superstep_graph(dev):
     return line, None
 
 
+# ---------------------------------------------------------------------------
+# the production supersteps as one CUDA graph each, drawing from the
+# threefry key on the card (models/step_program.py::ProductionProgram,
+# csrc/threefry.cu)
+# ---------------------------------------------------------------------------
+PG_N_YZ = 64                  # 409,600 slots, as the batched phase's crossbar
+PG_STEPS = 4                  # batched supersteps a run, the first cold
+PG_NODE_KS = (1, 4, 16)       # batches per pass of the while node, read in turn
+PG_PROFILED = 2               # supersteps in the idle-share window
+PG_SEED = 31                  # the runs' key: PRNGKey(PG_SEED)
+PG_MASS_EPS = 1e-3
+PG_BATCH = 64
+# the n_yz = 24 sweep's batched run, held to its golden (akmc_tpu's driver on
+# the CPU, --batched-events 16 --dia-pallas): akmc_tpu's two-stage top-k takes
+# at most as many candidates as the table has 256-row blocks, 31 there
+BATCHED_GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24_batched.json")
+BATCHED_SWEEP_DIR = os.path.join(HERE, "build", "chip_smoke", "iv_sweep_n24_batched")
+BATCHED_SWEEP_B = 16
+# Its KMC times: within GOLDEN_KMC_RTOL at the supersteps whose K-CG stopped
+# at the golden's count. Where the card's stops one iteration away (3 of 23
+# on the H100), the superstep's one batch races on rates that far from the
+# golden's, and its terminating gap moved by 5.54e-4 (ROADMAP §3.4; akmc_tpu's
+# own f64-XLA-against---dia-pallas spread on this sweep is 2.24e-4, with
+# counts 161 / 162 and 312 / 311 apart). The bound there is that reading,
+# rounded up; events, supersteps and final elements are exact.
+BATCHED_KMC_RTOL_OTHER_STOP = 1e-3
+# clocks a batch draws, timed (f64; 610,304 in f32 too), and the shape whose
+# readings the kernels line gives: the flagship's rate table and B
+THREEFRY_ROWS = (409_600, 610_304, 4_622_500)
+THREEFRY_MAIN = (610_304, 64)
+WHILE_PASSES = 10_000
+
+
+def _production_counts() -> dict:
+    from akmc_tpu_torch.ops import device_loop, threefry
+
+    return {"threefry_launches": threefry.draw_step.launches,
+            "while_condition_launches": device_loop.while_loop.launches}
+
+
+def _reset_production_counts() -> None:
+    from akmc_tpu_torch.ops import device_loop, threefry
+
+    threefry.draw_step.launches = 0
+    device_loop.while_loop.launches = 0
+
+
+def check_threefry(dev) -> dict:
+    """``csrc/threefry.cu`` against its twin (``draw_step_plain``) at the
+    main path's shapes: live, live, dead and live steps and the superstep's
+    split, every bit of the draws, subkeys and key; then timed by CUDA
+    events beside the twin on the card, ``torch.rand`` of the same shapes
+    (a yardstick: it computes no threefry) and the byte bound."""
+    from akmc_tpu_torch.ops import threefry
+
+    def case(n, B, dtype):
+        st_c = threefry.key_state(threefry.prng_key(PG_SEED + n, dev))
+        st_h = st_c.cpu()
+        u_c = torch.zeros(n, dtype=dtype, device=dev)
+        v_c = torch.zeros(B, dtype=torch.float64, device=dev)
+        u_h, v_h = u_c.cpu(), v_c.cpu()
+        for live in (True, True, False, True, None):
+            lc = None if live is None else torch.full((), live, dtype=torch.bool, device=dev)
+            lh = None if live is None else torch.tensor(live)
+            threefry.draw_step(st_c, lc, *(() if live is None else (u_c, v_c)))
+            threefry.draw_step_plain(st_h, lh, *((None, None) if live is None else (u_h, v_h)))
+        torch.cuda.synchronize()
+        for a, b in ((st_c, st_h), (u_c, u_h), (v_c, v_h)):
+            if not torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8)):
+                fail(f"threefry kernel differs from its twin at n = {n}, B = {B}, {dtype}")
+        err = max([0.0] + [float((a.cpu().double() - b.double()).abs().max())
+                           for a, b in ((u_c, u_h), (v_c, v_h)) if a.numel()])
+        live = torch.ones((), dtype=torch.bool, device=dev)
+        st_p = st_c.clone()
+        n_bytes = n * u_c.element_size() + B * 8 + 2 * threefry.STATE_LEN * 8
+        step = functools.partial(threefry.draw_step, st_c, live, u_c, v_c)
+        return {
+            "n": n, "B": B, "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            # the device's time of a launch: 100 launches replayed as one
+            # graph (one after another from the host, the launches' host
+            # path, about 15 us, is what CUDA events read: "stream_ms")
+            "ms": graph_launch_ms(step),
+            "profiler_ms": device_ms(step),
+            "stream_ms": cuda_time_ms(step, reps=200),
+            "plain_ms": graph_launch_ms(
+                lambda: threefry.draw_step_plain(st_p, live, u_c, v_c), n=10),
+            "library_ms": graph_launch_ms(lambda: (torch.rand(n, dtype=dtype, device=dev),
+                                                   torch.rand(B, dtype=torch.float64, device=dev))),
+            "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+
+    shapes = [case(n, PG_BATCH, torch.float64) for n in THREEFRY_ROWS]
+    shapes.append(case(THREEFRY_MAIN[0], PG_BATCH, torch.float32))
+    for n, B in ((1, 1), (0, 0), (100, 300)):       # the native event, the split, B > n
+        case(n, B, torch.float64)
+    main = next(c for c in shapes if (c["n"], c["B"], c["dtype"]) == (*THREEFRY_MAIN, "float64"))
+    print("chip_smoke: threefry kernel against its twin: " + json.dumps(shapes))
+    return {
+        "name": "threefry draw_step",
+        "route": "cuda",
+        "source": "akmc_tpu_torch/csrc/threefry.cu",
+        "replaces": "akmc_tpu/ops/events.py:589 (jax.random.split and uniform in the batched "
+                    "loop, :834 in the native loop): XLA's threefry, no pallas_call",
+        "launches": None,                      # filled in from the production_graph phase
+        "max_abs_err": max(c["max_abs_err"] for c in shapes),
+        "bitwise_equal_to_twin": True,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+        "library": "torch.rand of the same shapes (Philox, not threefry: a yardstick)",
+        "time_source": "CUDA events over a graph of 100 launches (the twin: 10)",
+        "shape": {"n": main["n"], "B": main["B"], "dtype": main["dtype"],
+                  "bytes": main["bytes"]},
+        "shapes": shapes,
+    }
+
+
+def graph_launch_ms(fn, n: int = 100) -> float:
+    """Device ms of one call of ``fn``: ``n`` calls captured into one CUDA
+    graph, its replays timed by CUDA events (no host path between them)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_time_ms(graph.replay, reps=5, warmup=1) / n
+
+
+def check_graph_while(dev) -> dict:
+    """``csrc/graph_while.cu``'s while node against its plain version (the
+    same body as a host loop that reads the flag each pass): a counter run to
+    WHILE_PASSES, equal counts, timed per pass (CUDA events over the replay;
+    the host loop on the host clock)."""
+    from akmc_tpu_torch.ops import device_loop
+
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    limit = torch.full((), WHILE_PASSES, dtype=torch.int64, device=dev)
+    live = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        count.add_(1)
+        live.copy_(count < limit)
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        live.copy_(count < limit)
+        device_loop.while_loop(live, body)
+
+    def node():
+        count.zero_()
+        graph.replay()
+
+    def host():
+        count.zero_()
+        live.copy_(count < limit)
+        while bool(live):
+            body()
+
+    node_ms = cuda_time_ms(node, reps=5, warmup=1)
+    got_node = int(count)
+    t0 = time.perf_counter()
+    host()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if got_node != int(count) or got_node != WHILE_PASSES:
+        fail(f"while node ran {got_node} passes, the host loop {int(count)}")
+    # per pass: the flag (1 B) and the counter and limit (16 B) read, the
+    # counter and the flag written (9 B)
+    n_bytes = 26 * WHILE_PASSES
+    return {
+        "name": "graph_while (conditional while node)",
+        "route": "cuda",
+        "source": "akmc_tpu_torch/csrc/graph_while.cu",
+        "replaces": "none: graph plumbing for akmc_tpu's lax.while_loop "
+                    "(akmc_tpu/ops/events.py:795), no pallas_call",
+        "launches": None,                      # filled in from the production_graph phase
+        "max_abs_err": float(abs(got_node - int(count))),
+        "ms": node_ms / WHILE_PASSES, "plain_ms": host_ms / WHILE_PASSES,
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3 / WHILE_PASSES, "bound_by": "bytes",
+        "library_ms": None,
+        "time_source": f"CUDA events over a replay of {WHILE_PASSES} passes (per pass); "
+                       "the host loop on the host clock",
+        "shape": {"passes": WHILE_PASSES, "body": "counter add, flag compare"},
+    }
+
+
+def _pg_run(model, state0, steps=PG_STEPS, kind="batched"):
+    """``steps`` production supersteps from ``state0`` on PRNGKey(PG_SEED),
+    each timed (host clock, the card drained) with its host reads counted:
+    (states, stats, ms, reads, the key left behind)."""
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.ops.threefry import KeyDraws
+
+    draws = KeyDraws.seeded(PG_SEED, model.device)
+    state, pb_prev2 = state0, None
+    states, stats, ms, reads, passes = [], [], [], [], []
+    for _ in range(steps):
+        ev.reset_loop_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_syncs(model.device) as caught:
+            pb = state.potential_boundary
+            if kind == "batched":
+                state, st = model.superstep_native_batched(
+                    state, CROSSBAR_VD, draws, batch=PG_BATCH, mass_eps=PG_MASS_EPS,
+                    pb_prev2=pb_prev2)
+            else:
+                state, st = model.superstep_native(state, CROSSBAR_VD, draws)
+            pb_prev2 = pb
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(n_syncs(caught))
+        stats.append(st)
+        states.append({f: getattr(state, f).clone() for f in STATE_FIELDS})
+        passes.append(dict(ev.LOOP_COUNTS["batched" if kind == "batched" else "native"]))
+    return states, stats, ms, reads, draws.key.tolist(), passes
+
+
+def _program_replay_ms(model, state0, steps) -> list:
+    """The batched supersteps of ``_pg_run`` once more, each graph replay
+    bracketed by CUDA events: the card's time of each program run (none on
+    the CPU, where no graph runs)."""
+    from akmc_tpu_torch.models import step_program
+
+    times, run = [], step_program._Program.run
+
+    class Bracketed:
+        def __init__(self, graph):
+            self.graph = graph
+            self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def replay(self):
+            self.events[0].record()
+            self.graph.replay()
+            self.events[1].record()
+
+    def timed(prog):
+        if prog.graph is None:
+            return run(prog)
+        graph = prog.graph
+        prog.graph = Bracketed(graph)
+        try:
+            return run(prog)
+        finally:
+            a, b = prog.graph.events
+            prog.graph = graph
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+
+    step_program._Program.run = timed
+    try:
+        _pg_run(model, state0, steps)
+    finally:
+        step_program._Program.run = run
+    return times
+
+
+def _pg_same(label, a, b) -> None:
+    if a[1] != b[1] or a[4] != b[4]:
+        fail(f"production_graph {label}: stats or key differ: {a[1]} / {b[1]}")
+    for i, (sa, sb) in enumerate(zip(a[0], b[0])):
+        for f in STATE_FIELDS:
+            if not same_bits(sa[f], sb[f]):
+                fail(f"production_graph {label}: superstep {i} differs in {f}")
+
+
+@contextlib.contextmanager
+def _per_loop(model, on: bool):
+    """The model's production supersteps on the per-loop path while ``on``."""
+    saved = model.step_program
+    model.step_program = not on
+    try:
+        yield
+    finally:
+        model.step_program = saved
+
+
+def production_turns(dev, model, state0, where, kind="batched", steps=PG_STEPS):
+    """The per-loop path and the program in turns (loops, program, program,
+    loops) from one key: every superstep bit-equal (state, stats, key);
+    the program's host reads (one a superstep), launches and ms. Returns
+    (readings, the first run)."""
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.solvers import dia_cg
+
+    runs = {False: [], True: []}
+    launches = None
+    for programmed in (False, True, True, False):
+        with _per_loop(model, not programmed):
+            counts0 = dict(model.step_counts)
+            if programmed:
+                _reset_production_counts()
+                since = reset_launches(dev, model)
+            r = _pg_run(model, state0, steps, kind)
+            steps_done = {k: model.step_counts[k] - counts0[k] for k in counts0}
+            if programmed:
+                launches = {**_production_counts(),
+                            "dia_launches": mv.dia_combined_matvec.launches,
+                            "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+                            "k_solves": model.k_solves - since[0]}
+                if steps_done["runs"] != steps + steps_done["redos"] or steps_done["per_loop"]:
+                    fail(f"{where} {kind}: the program path ran {steps_done}")
+                if dev.type == "cuda" and not steps_done["redos"] and any(n != 1 for n in r[3]):
+                    fail(f"{where} {kind}: the program read the host {r[3]} times")
+            elif steps_done["per_loop"] != steps:
+                fail(f"{where} {kind}: the per-loop path ran {steps_done}")
+        runs[programmed].append(r)
+    ref = runs[False][0]
+    for label, r in (("program 1", runs[True][0]), ("program 2", runs[True][1]),
+                     ("loops 2", runs[False][1])):
+        _pg_same(f"{where} {kind}: {label} against loops 1", ref, r)
+    # one launch of the threefry kernel for the superstep's split and one per
+    # batch or event (k = 1 a pass; each pass is a live step), the while
+    # node's condition once per pass and once at entry, per loop
+    live = sum(x.get("n_batches", x["n_events"]) for x in ref[1])
+    if dev.type == "cuda" and (launches["dia_launches"] != launches["k_solves"]
+                               or launches["dia_cg_launches"] != launches["k_solves"]):
+        fail(f"{where} {kind}: DIA launches {launches} for the program's K solves")
+    if dev.type == "cuda" and (launches["threefry_launches"] < steps + live
+                               or launches["while_condition_launches"] < 1):
+        fail(f"{where} {kind}: the program launched {launches} for {live} batches or events")
+    best = {pr: min(runs[pr], key=lambda x: sum(x[2])) for pr in (False, True)}
+    return ref, {
+        "supersteps": steps, "bitwise_equal": True,
+        "events": [x["n_events"] for x in ref[1]],
+        "batches": [x.get("n_batches") for x in ref[1]],
+        "cg_iterations": [x["cg_iterations"] for x in ref[1]],
+        "ms_loops": best[False][2], "ms_program": best[True][2],
+        "ms_per_superstep_loops": [sum(x[2]) / steps for x in runs[False]],
+        "ms_per_superstep_program": [sum(x[2]) / steps for x in runs[True]],
+        "cold_ms": {"loops": best[False][2][0], "program": best[True][2][0]},
+        "warm_ms_mean": {"loops": sum(best[False][2][1:]) / max(1, steps - 1),
+                         "program": sum(best[True][2][1:]) / max(1, steps - 1)},
+        "host_reads_loops": best[False][3], "host_reads_program": best[True][3],
+        "passes_program": [x["replays"] for x in best[True][5]],
+        "replays_loops": [x["replays"] for x in best[False][5]],
+        "launches": launches,
+    }
+
+
+def batched_sweep(dev) -> dict:
+    """The n_yz = 24 sweep through the driver with --batched-events (the
+    production programs, the key on the card) against its golden: events,
+    supersteps and final elements exactly, KMC times within GOLDEN_KMC_RTOL;
+    each K solve launched the DIA kernels once."""
+    from akmc_tpu_torch.runtime import golden
+
+    _reset_production_counts()
+    summary, rows, counts = drive(DECK, BATCHED_SWEEP_DIR, synthesize_crossbar=N_YZ,
+                                  dia_pallas=True, batched_events=BATCHED_SWEEP_B)
+    counts.update(_production_counts())
+    check_launches("batched sweep", summary, rows, counts)
+    if torch.cuda.is_available() and \
+            counts["threefry_launches"] < len(rows) + sum(r["n_batches"] for r in rows):
+        fail(f"the batched sweep launched the threefry kernel {counts['threefry_launches']} "
+             f"times in {len(rows)} supersteps")
+    got = golden.summarize(BATCHED_SWEEP_DIR)
+    with open(BATCHED_GOLDEN) as f:
+        gold = json.load(f)
+    bad = golden.compare(gold, got, BATCHED_KMC_RTOL_OTHER_STOP)
+    rel_same = [abs(h["kmc_time"] - g["kmc_time"]) / abs(g["kmc_time"])
+                for g, h in zip(gold["supersteps"], got["supersteps"])
+                if g["cg_iterations"] == h["cg_iterations"]]
+    if max(rel_same, default=0.0) > GOLDEN_KMC_RTOL:
+        bad.append(f"KMC time {max(rel_same):.3e} from the golden at a superstep with the "
+                   f"golden's CG count (rtol {GOLDEN_KMC_RTOL})")
+    dist = golden.distance(gold, got)
+    with open(BATCHED_SWEEP_DIR + ".record.json", "w") as f:
+        json.dump(got, f)
+    line = {"batched_events": BATCHED_SWEEP_B, "supersteps": len(rows),
+            "events": sum(r["n_events"] for r in rows),
+            "batches": sum(r["n_batches"] for r in rows),
+            "kmc_time_max_rel_vs_golden": dist["kmc_time_max_rel"],
+            "kmc_time_max_rel_vs_golden_same_stop": max(rel_same, default=0.0),
+            "cg_iterations_differ_from_golden": dist["cg_iterations_differ"],
+            "golden_kmc_rtol_same_stop": GOLDEN_KMC_RTOL,
+            "golden_kmc_rtol_other_stop": BATCHED_KMC_RTOL_OTHER_STOP,
+            "superstep_s": [r["superstep_s"] for r in rows],
+            "driver_total_s": summary["total_time_s"],
+            "host_syncs_per_superstep": counts["host_syncs"] / len(rows),
+            **{k: counts[k] for k in ("dia_launches", "dia_cg_launches", "threefry_launches",
+                                      "while_condition_launches", "peak_mem_gb")}}
+    print("chip_smoke: production_graph batched sweep: " + json.dumps(line))
+    if bad:
+        fail("the batched sweep disagrees with its golden: " + "; ".join(bad[:10]))
+    return line
+
+
+def run_production_graph(dev):
+    """(production_graph line, None): the batched and native production
+    supersteps of the n_yz = 64 crossbar (409,600 slots, 15 V) as one CUDA
+    graph each against the per-loop path, the batched node at each k of
+    PG_NODE_KS, the idle share profiled and unprofiled, and the n_yz = 24
+    batched sweep against its golden. Every check fails the script."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.state import make_device_state
+
+    sweep = batched_sweep(dev)
+    p, lat, model, desc, build = crossbar_model(dev, PG_N_YZ)
+    state0 = make_device_state(lat, p.background_temp, dev)
+    t0 = time.perf_counter()
+    warm = model.warmup(state0, CROSSBAR_VD, batched=PG_BATCH)
+    capture_s = time.perf_counter() - t0
+    with _per_loop(model, True):
+        t0 = time.perf_counter()
+        warm_loops = model.warmup(state0, CROSSBAR_VD, batched=PG_BATCH)
+        capture_loops_s = time.perf_counter() - t0
+    line = {"slots": lat.N, "Vd": CROSSBAR_VD, "model": desc, **build,
+            "rate_table_rows": int(model.tables.act_neigh.shape[0]),
+            "warmup_program": warm, "warmup_program_s": capture_s,
+            "warmup_loops": warm_loops, "warmup_loops_s": capture_loops_s,
+            "B": PG_BATCH, "mass_eps": PG_MASS_EPS, "node_k": ev.BATCHED_NODE_K}
+    ref, line["batched"] = production_turns(dev, model, state0, "production_graph")
+    print("chip_smoke: production_graph batched: " + json.dumps(line["batched"]))
+    # the batched while node at each other k, in the table's order, the same
+    # supersteps (k = BATCHED_NODE_K is the turns' program)
+    saved = ev.BATCHED_NODE_K
+    line["node_k_readings"] = {f"k{saved}": {
+        "ms": line["batched"]["ms_program"],
+        "ms_per_superstep": sum(line["batched"]["ms_program"]) / PG_STEPS,
+        "warm_ms_mean": line["batched"]["warm_ms_mean"]["program"],
+        "passes": line["batched"]["passes_program"],
+        "program_capture_s": model._production_program(state0, PG_BATCH, False).capture_s}}
+    try:
+        for k in PG_NODE_KS:
+            if k == saved:
+                continue
+            ev.BATCHED_NODE_K = k
+            t0 = time.perf_counter()
+            prog = model._capture_production(state0, CROSSBAR_VD, PG_BATCH, False)
+            cap = time.perf_counter() - t0
+            r = _pg_run(model, state0)
+            _pg_same(f"node k = {k}", ref, r)
+            line["node_k_readings"][f"k{k}"] = {
+                "ms": r[2], "ms_per_superstep": sum(r[2]) / PG_STEPS,
+                "warm_ms_mean": sum(r[2][1:]) / (PG_STEPS - 1),
+                "passes": [x["replays"] for x in r[5]], "capture_s": cap,
+                "program_capture_s": prog.capture_s}
+    finally:
+        ev.BATCHED_NODE_K = saved
+    print("chip_smoke: production_graph node k: " + json.dumps(line["node_k_readings"]))
+    # one native superstep each way, from the first batched superstep's state
+    state1 = ref[0][0]
+    state1 = state0.replace(**{f: state1[f] for f in STATE_FIELDS})
+    with _per_loop(model, True):
+        model.warmup(state1, CROSSBAR_VD)
+    t0 = time.perf_counter()
+    model._capture_production(state1, CROSSBAR_VD, 0, False)
+    line["native_capture_s"] = time.perf_counter() - t0
+    _, line["native"] = production_turns(dev, model, state1, "production_graph",
+                                         kind="native", steps=1)
+    print("chip_smoke: production_graph native: " + json.dumps(line["native"]))
+    line["program_capture_s_all"] = model.step_graphs.capture_s()
+    line["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the device's idle share over the first PG_PROFILED supersteps, against
+    # their unprofiled wall (the best run's): the per-loop path under the
+    # profiler; the program by CUDA events around each replay (the graph's
+    # time on the card), since torch.profiler's trace of its replays in this
+    # phase ended in an illegal memory access on the H100 (PERF.md §7)
+    line["profiled"] = {"supersteps": PG_PROFILED}
+    with _per_loop(model, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            _pg_run(model, state0, PG_PROFILED)
+            torch.cuda.synchronize()
+    share = busy_share(trace)
+    wall = sum(line["batched"]["ms_loops"][:PG_PROFILED])
+    share["unprofiled_ms"] = wall
+    if share.get("busy_ms") is not None:
+        share["idle_share_vs_unprofiled"] = 1.0 - share["busy_ms"] / wall
+    line["profiled"]["loops"] = share
+    replay_ms = _program_replay_ms(model, state0, PG_PROFILED)
+    wall = sum(line["batched"]["ms_program"][:PG_PROFILED])
+    line["profiled"]["program"] = {
+        "source": "CUDA events around each replay", "graph_ms": replay_ms,
+        "busy_ms": sum(replay_ms), "unprofiled_ms": wall,
+        "idle_share_vs_unprofiled": 1.0 - sum(replay_ms) / wall}
+    print("chip_smoke: production_graph idle share: " + json.dumps(line["profiled"]))
+    line["batched_sweep"] = sweep
+    return line, None
+
+
 def run_tiled(dev):
     """(tiled line, what is wrong with it or None)."""
     from akmc_tpu_torch.models.vcm import VCMModel
@@ -2235,9 +2720,10 @@ class CrossbarSteps:
     """Supersteps of one crossbar model at CROSSBAR_VD, from ``state`` on,
     each checked as it ends: an event fired, the species sums kept,
     ``kmc_time`` finite and not falling; a batched one ends done and (on the
-    card) reads the device at most once per batch from its loop. ``steps``
-    holds a row per superstep. Serial supersteps draw from ``stream``,
-    batched ones from ``draws``."""
+    card) reads the device at most once per replay of its loop, or, run as
+    one program (a ``KeyDraws`` source), once a superstep. ``steps`` holds a
+    row per superstep. Serial supersteps draw from ``stream``, batched ones
+    from ``draws``."""
 
     def __init__(self, dev, model, state, stream, draws, where="crossbar"):
         self.dev, self.model, self.state = dev, model, state
@@ -2253,6 +2739,7 @@ class CrossbarSteps:
         name = f"{self.where} superstep {i} ({kind})"
         pb_before = self.state.potential_boundary
         capture_s = None
+        runs0 = dict(model.step_counts)
         if kind == "serial" and dev.type == "cuda" and model._programmed():
             # the superstep's program is captured before its timed run: the
             # warm run that precedes a capture reads the host per pass
@@ -2289,20 +2776,31 @@ class CrossbarSteps:
                "loop_dead_steps": loop["steps"] - loop["live_steps"]}
         if kind not in ("serial", "timed"):
             nb = stats["n_batches"]
-            k = ev.BATCHED_K if dev.type == "cuda" else 1
+            programs = {c: model.step_counts[c] - runs0[c] for c in ("runs", "redos")}
             row.update(batches=nb, events_per_batch=stats["n_events"] / nb,
                        cut_conflict=stats["n_cut_conflict"], cut_mass=stats["n_cut_mass"],
-                       host_syncs_in_fields=syncs - in_loop,
-                       host_syncs_in_loop_per_batch=in_loop / nb, fields_s=model.fields_s,
-                       loop_ms_per_batch=1e3 * (wall - model.fields_s) / nb,
-                       loop_k=k, done=stats["done"], **kw)
+                       done=stats["done"], **kw)
             if not stats["done"]:
                 fail(f"{name} did not end done: {stats['n_events']} events in {nb} batches")
-            # no card, no count: the check is the card's. The device loop
-            # reads the host once per replay of k batches
-            if dev.type == "cuda" and in_loop > math.ceil(nb / k) + 1:
-                fail(f"{name}: the batched loop read the device {in_loop} times in {nb} "
-                     f"batches (k = {k}), at {sync_sites(caught)}")
+            if programs["runs"]:
+                # one program: fields and loop in one replay, one read (and
+                # one more per redo)
+                row.update(program_runs=programs["runs"], redos=programs["redos"],
+                           fields_s=None, ms_per_batch=1e3 * wall / nb,
+                           loop_k=ev.BATCHED_NODE_K)
+                if dev.type == "cuda" and syncs != programs["runs"]:
+                    fail(f"{name}: the program read the device {syncs} times in "
+                         f"{programs['runs']} runs, at {sync_sites(caught)}")
+            else:
+                k = ev.BATCHED_K if dev.type == "cuda" else 1
+                row.update(host_syncs_in_fields=syncs - in_loop,
+                           host_syncs_in_loop_per_batch=in_loop / nb, fields_s=model.fields_s,
+                           loop_ms_per_batch=1e3 * (wall - model.fields_s) / nb, loop_k=k)
+                # no card, no count: the check is the card's. The device loop
+                # reads the host once per replay of k batches
+                if dev.type == "cuda" and in_loop > math.ceil(nb / k) + 1:
+                    fail(f"{name}: the batched loop read the device {in_loop} times in {nb} "
+                         f"batches (k = {k}), at {sync_sites(caught)}")
         else:
             row["host_syncs_per_event"] = syncs / max(1, stats["n_events"])
             row["loop_k"] = (1 if dev.type != "cuda" else ev.SERIAL_NODE_K
@@ -2584,14 +3082,19 @@ def crossbar_launches(dev, model, steps, since, where="crossbar") -> dict:
 
 
 def batched_summary(rows) -> dict:
+    """Events, batches and times of batched supersteps; the fields and the
+    loop apart where they ran apart (the per-loop path), not in a program."""
     ev, nb = sum(r["events"] for r in rows), sum(r["batches"] for r in rows)
     wall = sum(r["wall_s"] for r in rows)
-    loop = wall - sum(r["fields_s"] for r in rows)
-    return {"supersteps": len(rows), "events": ev, "batches": nb, "events_per_batch": ev / nb,
-            "wall_s_mean": wall / len(rows), "fields_s_mean": (wall - loop) / len(rows),
-            "loop_ms_per_batch": 1e3 * loop / nb, "loop_ms_per_event": 1e3 * loop / ev,
-            "superstep_ms_per_event": 1e3 * wall / ev,
-            "cg_iterations": [r["cg_iterations"] for r in rows]}
+    out = {"supersteps": len(rows), "events": ev, "batches": nb, "events_per_batch": ev / nb,
+           "wall_s_mean": wall / len(rows), "superstep_ms_per_event": 1e3 * wall / ev,
+           "superstep_ms_per_batch": 1e3 * wall / nb,
+           "cg_iterations": [r["cg_iterations"] for r in rows]}
+    if all(r["fields_s"] is not None for r in rows):
+        loop = wall - sum(r["fields_s"] for r in rows)
+        out.update(fields_s_mean=(wall - loop) / len(rows), loop_ms_per_batch=1e3 * loop / nb,
+                   loop_ms_per_event=1e3 * loop / ev)
+    return out
 
 
 def incremental_against_fresh(dev, model, state) -> dict:
@@ -4157,6 +4660,7 @@ def run_flagship(dev):
     its own."""
     from akmc_tpu_torch.lattice import ELEM
     from akmc_tpu_torch.ops.events import GeneratorDraws, run_event_loop_batched
+    from akmc_tpu_torch.ops.threefry import KeyDraws
     from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
     from akmc_tpu_torch.state import make_device_state
 
@@ -4174,14 +4678,42 @@ def run_flagship(dev):
     at_shape = crossbar_kernels(dev, model, state, FLAGSHIP_N_YZ)
 
     since = reset_launches(dev, model)
+    # the batched supersteps draw from the threefry key on the card: one
+    # program each (models/step_program.py::ProductionProgram)
     run = CrossbarSteps(dev, model, state, BufferedStream(ReferenceRNG(p.rnd_seed_kmc)),
-                        GeneratorDraws.seeded(7, dev), where="flagship")
+                        KeyDraws.seeded(7, dev), where="flagship")
     run.step("serial")
     after_serial = run.state
+    _reset_production_counts()
+    first_batched = None
     for _ in range(FLAGSHIP_STEPS):
         run.step("batched", mass_eps=FLAGSHIP_MASS_EPS, clock_f32=FLAGSHIP_CLOCK_F32)
+        first_batched = first_batched or (run.state, run.steps[-1])
+    production_launches = _production_counts()
+    if dev.type == "cuda" and production_launches["threefry_launches"] < sum(
+            1 + r["batches"] for r in run.steps if r["kind"] == "batched"):
+        fail(f"the flagship's batched programs launched {production_launches}")
     launches = crossbar_launches(dev, model, run.steps, since, where="flagship")
     peak = torch.cuda.max_memory_allocated() / 1e9
+    # the first batched superstep once more on the per-loop path (device
+    # loops drawing in their steps, the same key): bit-equal to the program
+    with _per_loop(model, True):
+        (per_loop, st), per_loop_s, _ = synced_s(lambda: model.superstep_native_batched(
+            after_serial, CROSSBAR_VD, KeyDraws.seeded(7, dev), batch=64,
+            mass_eps=FLAGSHIP_MASS_EPS, clock_f32=FLAGSHIP_CLOCK_F32,
+            pb_prev2=state.potential_boundary))
+    prog_state, prog_row = first_batched
+    if (st["n_events"], st["n_batches"]) != (prog_row["events"], prog_row["batches"]) or \
+            not all(same_bits(getattr(per_loop, f), getattr(prog_state, f))
+                    for f in STATE_FIELDS):
+        bad = [f for f in STATE_FIELDS
+               if not same_bits(getattr(per_loop, f), getattr(prog_state, f))]
+        fail(f"flagship: the per-loop batched superstep differs from the program's in {bad} "
+             f"({st['n_events']} events in {st['n_batches']} batches against "
+             f"{prog_row['events']} in {prog_row['batches']})")
+    program_vs_per_loop = {"bitwise_equal": True, "per_loop_wall_s": per_loop_s,
+                           "program_wall_s": prog_row["wall_s"],
+                           "events": st["n_events"], "batches": st["n_batches"]}
 
     # the three loops against their plain loops, then a batched superstep
     # with each, on the last state; one batched loop replayed on the CPU,
@@ -4223,6 +4755,9 @@ def run_flagship(dev):
         "rate_scale": scale, "kernels_at_this_shape": at_shape, "loops": loops,
         "superstep_turns": turns, "peak_mem_gb_with_loop_turns": peak_loops,
         "loop_graphs_capture_s": model.loop_graphs.capture_s(),
+        "production_launches": production_launches,
+        "program_vs_per_loop": program_vs_per_loop,
+        "program_capture_s": model.step_graphs.capture_s(),
     }
     print("chip_smoke: flagship " + json.dumps({k: line[k] for k in (
         "slots", "build_s", "model_s", "warmup_s", "peak_mem_gb")}))
@@ -4237,8 +4772,8 @@ def crossbar_lines(lines):
     return out + ([("flagship", lines["flagship"])] if "flagship" in lines else [])
 
 
-PHASES = ("kernels", "sweep", "disordered", "superstep_graph", "tiled", "batched", "full",
-          "driver", "sharded", "flagship")
+PHASES = ("kernels", "sweep", "disordered", "superstep_graph", "production_graph", "tiled",
+          "batched", "full", "driver", "sharded", "flagship")
 OPT_IN = ("nccl", "schedules")   # run only when --only names them
 
 
@@ -4272,7 +4807,8 @@ def main(argv=None) -> int:
     kernels, lines, problems = [], {}, []
     if "kernels" in phases:
         dia, meta, p, lat = crossbar_dia(N_YZ)
-        kernels = [check_dia_kernel(dev, dia, meta), check_dia_cg(dev, dia, meta, p, lat)]
+        kernels = [check_dia_kernel(dev, dia, meta), check_dia_cg(dev, dia, meta, p, lat),
+                   check_threefry(dev), check_graph_while(dev)]
     sweep_rows, sweep_held = [], {}
 
     def sweep():
@@ -4283,6 +4819,7 @@ def main(argv=None) -> int:
 
     for name, run in (("sweep", sweep), ("disordered", lambda: run_disordered(dev)),
                       ("superstep_graph", lambda: run_superstep_graph(dev)),
+                      ("production_graph", lambda: run_production_graph(dev)),
                       ("tiled", lambda: run_tiled(dev)),
                       ("batched", lambda: run_batched(
                           dev, [int(n) for n in args.crossbar_n_yz.split(",")],
@@ -4300,6 +4837,16 @@ def main(argv=None) -> int:
             lines[name]["phase_s"] = time.perf_counter() - t0
             if problem:
                 problems.append(problem)
+    # the threefry kernel and the while nodes: launches on the production
+    # programs' paths (the crossbar's supersteps, the batched sweep, the flagship)
+    for kern, key in zip(kernels[2:], ("threefry_launches", "while_condition_launches")):
+        if "production_graph" in lines:
+            pg = lines["production_graph"]
+            kern["launches"] = pg["batched"]["launches"][key]
+            kern["launches_native_path"] = pg["native"]["launches"][key]
+            kern["launches_batched_sweep"] = pg["batched_sweep"][key]
+        if "flagship" in lines:
+            kern["launches_flagship_path"] = lines["flagship"]["production_launches"][key]
     # launches on each path that runs the kernels, counted over that path alone
     for kern, key in zip(kernels, ("dia_launches", "dia_cg_launches")):
         # top-level keys: the n_yz=24 sweep's shapes and launches

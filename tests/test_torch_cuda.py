@@ -1098,3 +1098,62 @@ def test_superstep_graph_matches_per_loop_path(card, case):
         assert torch.equal(getattr(a[0], field), getattr(b[0], field)), field
         assert torch.equal(getattr(b[0], field), getattr(c[0], field)), field
     assert a[1:] == b[1:] == c[1:]
+
+
+# ----------------------------------------------------------------------------
+# the production supersteps as one CUDA graph each, drawing from the threefry
+# key on the card (models/step_program.py::ProductionProgram, csrc/threefry.cu)
+# ----------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [0, 8], ids=["native", "batched"])
+@pytest.mark.parametrize("case", ["crossbar-n6", "toy-banded"])
+def test_production_graph_matches_per_loop_path(card, case, batch):
+    """``superstep_native`` / ``superstep_native_batched`` on a ``KeyDraws``
+    source as one graph replay each equal the per-loop path (device loops
+    drawing in their steps) to the bit: state, stats and the key; one host read a superstep after the capture; the threefry
+    kernel launched once a superstep plus once a batch or event pass, and
+    the while node's condition once more per loop."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import device_loop, threefry
+    from akmc_tpu_torch.state import make_device_state
+
+    name, p, lat, kw = next(c for c in _graph_cases() if c[0] == case)
+    runs = []
+    for programmed in (False, True, True):
+        m = VCMModel(p, lat, device=card, step_program=programmed, **kw)
+        s = make_device_state(lat, p.background_temp, m.device)
+        draws = threefry.KeyDraws.seeded(5, card)
+        stats, reads, pb_prev2 = [], [], None
+        launches0 = threefry.draw_step.launches, device_loop.while_loop.launches
+        for Vd in (2.0, 2.0, 3.0, 3.0):
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    pb = s.potential_boundary
+                    if batch:
+                        s, st = m.superstep_native_batched(s, Vd, draws, batch=batch,
+                                                           pb_prev2=pb_prev2, k_extrap=0.5)
+                    else:
+                        s, st = m.superstep_native(s, Vd, draws)
+                    pb_prev2 = pb
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            stats.append(st)
+            reads.append(sum("synchroniz" in str(w.message) for w in caught))
+        if programmed:
+            assert reads[1:] == [1, 1, 1], reads          # the first call also captures
+            assert m.step_counts["runs"] == 4 and m.step_counts["redos"] == 0
+            steps = sum(x.get("n_batches", x["n_events"]) for x in stats)
+            # per superstep: the split, then one launch per batch or event
+            # (k = 1 a pass) and one for the pass that finds the loop dead
+            assert threefry.draw_step.launches - launches0[0] >= 4 + steps
+            assert device_loop.while_loop.launches > launches0[1]
+        runs.append((s, stats, draws.key.tolist()))
+    ref = runs[0]
+    for r in runs[1:]:
+        for field in ("element", "charge", "potential_boundary", "potential_charge",
+                      "kmc_time"):
+            assert torch.equal(getattr(ref[0], field), getattr(r[0], field)), field
+        assert r[1:] == ref[1:]

@@ -312,14 +312,21 @@ def test_supersteps_through_the_device_loop_equal_plain(tables, incremental):
 
 
 def test_warmup_builds_the_loop_the_run_takes(tables):
-    """``warmup`` builds the batched program that the supersteps then reuse,
-    and gives back every draw of its throwaway generator."""
+    """``warmup`` builds the batched program that the per-loop supersteps on
+    the driver's source (a threefry key) then reuse, drawing on a throwaway
+    key of its own."""
+    from akmc_tpu_torch.ops.threefry import KeyDraws
+
     p, model, state, _ = tables["shifted"]
     model.loop_graphs = LoopGraphs()
     items = model.warmup(state, 15.0, batched=8)
     assert set(items) == {"batched_B8"}
     assert len(model.loop_graphs.programs) == 1
-    model.superstep_native_batched(state, 15.0, ev.GeneratorDraws.seeded(2, "cpu"), batch=8)
+    model.step_program = False
+    try:
+        model.superstep_native_batched(state, 15.0, KeyDraws.seeded(2, "cpu"), batch=8)
+    finally:
+        model.step_program = True
     assert len(model.loop_graphs.programs) == 1
     assert set(model.warmup(state, 15.0)) == {"serial_loop"}
     assert len(model.loop_graphs.programs) == 2
