@@ -60,6 +60,7 @@ from akmc_tpu_torch.ops.events import _BatchedProgram, _pack_code, _SerialProgra
 
 DIAG = 8     # entries per superstep of the packed diagnostics
 PRODUCTION_DIAG = 10     # the production supersteps' (akmc_tpu's _step_b's)
+FULL_DIAG = 12     # the full-physics supersteps' (akmc_tpu's _pack_diag_full)
 MAX_BATCHES = 1 << 14    # the batched loop's cap (run_event_loop_batched's default)
 MAX_EVENTS = 1 << 20     # the native loop's (run_event_loop_native's default)
 
@@ -150,11 +151,12 @@ class SuperstepProgram(_Program):
     1 and rebased in steps 2..k (``k_carry_residual``)."""
 
     KEEP = ("P", "etype", "ln_S")
+    ROW = DIAG      # diagnostics a superstep
 
     def __init__(self, model, state, k: int, chunk: int, carry: bool):
         self._init_program(model)
         self.k, self.chunk, self.carry = k, chunk, carry
-        self.n_diag = DIAG * k
+        self.n_diag = self.ROW * k
         dev = self.device
         t = model.tables
         # inputs, copied in before each run
@@ -229,11 +231,12 @@ class SuperstepProgram(_Program):
         return out, stats
 
     def run(self) -> Tuple[Dict[str, torch.Tensor], List[List[float]]]:
-        """One run on the loaded inputs: (outputs, each step's 8 diagnostics
-        as read). ``P``, ``etype`` and ``ln_S`` are the program's until its
-        next run."""
+        """One run on the loaded inputs: (outputs, each step's ``ROW``
+        diagnostics as read). ``P``, ``etype`` and ``ln_S`` are the program's
+        until its next run."""
         out, vals = super().run()
-        return out, [vals[DIAG * i: DIAG * (i + 1)] for i in range(self.k)]
+        r = self.ROW
+        return out, [vals[r * i: r * (i + 1)] for i in range(self.k)]
 
 
 class ProductionProgram(_Program):
@@ -352,3 +355,86 @@ class ProductionProgram(_Program):
         finally:
             self.max_steps.copy_(full)
 
+
+
+class FullProgram(SuperstepProgram):
+    """k full-physics supersteps of ``model``, ``akmc_tpu``'s ``_step_full``
+    (``vcm.py:1557-1596``; k > 1: ``superstep_full_multi``'s ``lax.scan``, a
+    running cursor into one buffer of k windows of ``chunk`` draws). Each
+    step runs, in the reference's order, ``_fields``, the current and the
+    dissipated power on this step's charge (``VCMModel._power``: the W-block
+    build with its energy loops as while loops, the power CG as a while
+    loop), the serial event loop as a while loop, and the heat model over the
+    step's event time (``VCMModel._heat``: the local model's transient steps
+    a while loop, its steady solve under a ``device_loop.cond``), and packs
+    ``_pack_diag_full``'s entries
+
+        [n_events, draws_used, event_time, done, cg_iterations, q_ovf,
+         v_ovf | pw_ovf, I_macro, T_bg, power_cg_iterations, P_tot, c_ovf]
+
+    followed, after the k steps, by the loops' recordings. ``Vd`` and
+    ``rtol_scale`` are 0-d tensors of the program, so one capture serves
+    every bias and both of the driver's power tolerances; the state, the
+    power solve's warm start ``m`` and the window are copied in. ``run``
+    gives (outputs, each step's 12 diagnostics): the state after k steps,
+    the last step's ``site_power``, ``m``, and the last step's rate table,
+    event types and rate scale (the program's until its next run) for an
+    events-only continuation."""
+
+    ROW = FULL_DIAG
+
+    def __init__(self, model, state, k: int, chunk: int):
+        super().__init__(model, state, k, chunk, False)
+        dev = self.device
+        self.cb_edge = state.cb_edge.clone()
+        self.temperature = state.temperature.clone()
+        self.m_prev = torch.zeros(model.n_atom + 2, dtype=torch.float64, device=dev)
+        self.rtol_scale = torch.ones((), dtype=torch.float64, device=dev)
+        if model.params.solve_heating_local and dev.type == "cuda":
+            model._build_heat_program(state)
+
+    def load(self, state, Vd: float, window, m_prev: torch.Tensor, rtol_scale) -> None:
+        """Copy one dispatch's inputs in: ``SuperstepProgram.load``'s, the CB
+        edge, the site temperatures, the power solve's warm start and its
+        tolerance multiplier."""
+        super().load(state, Vd, window)
+        self.cb_edge.copy_(state.cb_edge)
+        self.temperature.copy_(state.temperature)
+        self.m_prev.copy_(m_prev)
+        self.rtol_scale.fill_(float(rtol_scale))
+
+    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The k steps on the loaded inputs: (outputs, the packed vector).
+        Reads nothing back; run it inside ``device_loop.recording``."""
+        m, loop, dev = self.model, self.loop, self.device
+        inv_freq = 1.0 / m.params.freq
+        f64 = torch.float64
+        element, charge, pb, kmc = self.element, self.charge, self.pb, self.kmc_time
+        T_bg, temp, m_prev = self.T_bg, self.temperature, self.m_prev
+        cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        rows: List[torch.Tensor] = []
+        for _ in range(self.k):
+            fr = m._fields(element, charge, pb, T_bg, self.Vd)
+            I_macro, site_power, m_prev, pow_iters, pw_ovf = m._power(
+                element, fr.charge, self.cb_edge, m_prev, self.Vd, self.rtol_scale)
+            loop.load(element, fr.charge, fr.P, fr.etype, fr.ln_S, None)
+            loop.base.copy_(cursor)
+            loop.run_nested()
+            element, charge, ev_time = loop.results(element, fr.charge, fr.P)
+            draws = loop.cnt.clone()
+            cursor = cursor + draws
+            kmc = kmc + ev_time
+            T_bg, temp = m._heat(T_bg, temp, site_power, element, ev_time)
+            rows.append(torch.stack([
+                loop.n_ev.to(f64), draws.to(f64), ev_time, (ev_time >= inv_freq).to(f64),
+                torch.as_tensor(fr.cg_iterations, device=dev).to(f64),
+                fr.q_overflow.to(f64), (fr.v_overflow | pw_ovf).to(f64), I_macro,
+                T_bg.to(f64), torch.as_tensor(pow_iters, device=dev).to(f64),
+                torch.sum(site_power), fr.c_overflow.to(f64)]))
+            pb = fr.potential_boundary
+        out = dict(element=element, charge=charge, potential_boundary=pb,
+                   potential_charge=fr.potential_sum, kmc_time=kmc, event_time=ev_time,
+                   temperature=temp, T_bg=T_bg, power=site_power, m=m_prev,
+                   P=fr.P, etype=fr.etype, ln_S=fr.ln_S)
+        rec = device_loop._RECORDING
+        return out, torch.cat([torch.stack(rows).reshape(-1), *rec.pack()])

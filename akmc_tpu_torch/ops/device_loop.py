@@ -116,7 +116,15 @@ class LoopGraphs:
 
 
 def program(graphs, key: Hashable, make: Callable[[], object]):
-    """The cached program of ``key``, or with no cache a new one."""
+    """The cached program of ``key``, or with no cache a new one. A program
+    owns tensors that outlive the call, so none is made inside a while
+    body under capture: its tensors would lie in the bodies' shared pool
+    (``body_pool``), where later bodies write. Build it before the capture."""
+    made = graphs.programs.get(key) if graphs is not None else None
+    if made is None and _WHILE_DEPTH and torch.cuda.is_available() \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a loop program would be made inside a captured while body; "
+                           "build it before the capture")
     return make() if graphs is None else graphs.get(key, make)
 
 
@@ -255,7 +263,7 @@ def record(tensors: Sequence[torch.Tensor], apply: Callable[[Sequence[float]], N
     if rec is None:
         apply([v for t in tensors for v in t.reshape(-1).tolist()])
         return
-    if _WHILE_DEPTH:
+    if _LOOP_DEPTH:
         raise RuntimeError("a count inside a while loop's body would be made once per "
                            "capture, not once per pass: record it after the loop")
     rec.entries.append((tuple(tensors), apply))
@@ -292,7 +300,8 @@ def _launches_into(fns: List):
 
 
 _CONDITION_READS = 0     # > 0 while an eager while loop reads its flag
-_WHILE_DEPTH = 0         # while loops open around the code that runs
+_WHILE_DEPTH = 0         # while loops (and conds) open around the code that runs
+_LOOP_DEPTH = 0          # of which while loops that may pass more than once
 
 
 def condition_read() -> bool:
@@ -336,20 +345,22 @@ def cuda_versions() -> tuple:
     return rt.value, drv.value
 
 
-# per device: the streams the while bodies are captured on (one per
-# nesting depth) and the private pool their allocations go to
+# per device and nesting depth: the stream the while bodies are captured on
+# and the private pool their allocations go to
 _BODY_STREAMS: Dict[tuple, torch.cuda.Stream] = {}
-_BODY_POOLS: Dict[int, tuple] = {}
+_BODY_POOLS: Dict[tuple, tuple] = {}
 
 
-def body_pool(device: torch.device):
-    """The private memory pool of while bodies captured on ``device``. A
-    body's temporaries are made and dropped in each pass in the same order,
-    and the graphs that hold bodies replay one after the other on one
-    stream, so they share it."""
-    pool = _BODY_POOLS.get(device.index)
+def body_pool(device: torch.device, depth: int = 0):
+    """The private memory pool of the while bodies captured on ``device`` at
+    nesting ``depth``. A body's temporaries are made and dropped in each pass
+    in the same order, and the graphs that hold bodies of one depth replay
+    one after the other on one stream, so they share it. Each depth has its
+    own: ending a nested body's allocation to a pool ends the first one
+    registered for that pool, which would be the enclosing body's."""
+    pool = _BODY_POOLS.get((device.index, depth))
     if pool is None:
-        pool = _BODY_POOLS[device.index] = torch.cuda.graph_pool_handle()
+        pool = _BODY_POOLS[(device.index, depth)] = torch.cuda.graph_pool_handle()
     return pool
 
 
@@ -380,7 +391,7 @@ def _while_node(live: torch.Tensor, body: Callable[[], None], depth: int) -> Non
         raise RuntimeError(
             "could not open a CUDA graph while node "
             + ("(the stream is not capturing)" if err == -1 else f"(CUDA error {err})"))
-    pool = body_pool(dev)
+    pool = body_pool(dev, depth)
     with torch.cuda.stream(side):
         torch._C._cuda_beginAllocateCurrentStreamToPool(dev.index, pool)
         try:
@@ -393,7 +404,7 @@ def _while_node(live: torch.Tensor, body: Callable[[], None], depth: int) -> Non
         raise RuntimeError(f"could not close a CUDA graph while node (CUDA error {err})")
 
 
-def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
+def while_loop(live: torch.Tensor, body: Callable[[], None], _once: bool = False) -> None:
     """``while live: body()`` for a 0-d bool device flag that ``body`` sets
     again as its last step. In a CUDA stream capture: a conditional while
     node of the graph being captured, with the body captured once into it
@@ -403,7 +414,7 @@ def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
     once per pass: in a program's capture the node counts its passes on the
     device and records them, and its condition kernel counts in
     ``while_loop.launches``."""
-    global _WHILE_DEPTH
+    global _WHILE_DEPTH, _LOOP_DEPTH
     if live.dtype != torch.bool or live.dim() != 0:
         raise ValueError("while_loop needs a 0-d bool flag")
     captured = live.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
@@ -413,7 +424,9 @@ def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
         def counted():
             body()
             passes.add_(1)
+    loops = 0 if _once else 1
     _WHILE_DEPTH += 1
+    _LOOP_DEPTH += loops
     try:
         with _launches_into([]) as fns:
             if captured:
@@ -423,6 +436,7 @@ def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
                     body()
     finally:
         _WHILE_DEPTH -= 1
+        _LOOP_DEPTH -= loops
     if not captured:
         for fn in fns:           # the launches made, counted where the loop stands
             count_launch(fn)
@@ -441,3 +455,47 @@ def while_loop(live: torch.Tensor, body: Callable[[], None]) -> None:
 
 
 while_loop.launches = 0     # runs of the while nodes' condition kernel (csrc/graph_while.cu)
+
+
+# values a cond's body may record (``cond``)
+COND_SLOTS = 8
+
+
+def cond(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """``if pred: body()`` for a 0-d bool device flag: the counterpart of
+    ``lax.cond``'s branch that is not always taken. Outside a program it
+    reads ``pred`` and runs ``body`` or not. Inside one it is a
+    ``while_loop`` whose body clears its own flag (on a card a conditional
+    while node that passes at most once). What ``body`` records is copied
+    into ``COND_SLOTS`` values allocated outside the node, and handed to
+    its ``apply`` only after a read that shows the branch ran. ``body``
+    must leave its results in tensors made before the call."""
+    if _RECORDING is None:
+        if _condition(pred):
+            body()
+        return
+    live = pred.clone()
+    taken = pred.to(torch.float64)
+    slots = torch.zeros(COND_SLOTS, dtype=torch.float64, device=pred.device)
+    sub = Recording()
+    used = [0]
+
+    def once():
+        with recording(sub):
+            body()
+        vals = sub.pack()
+        if vals:
+            flat = torch.cat(vals)
+            if flat.numel() > COND_SLOTS:
+                raise RuntimeError(f"a cond's body recorded {flat.numel()} values, more "
+                                   f"than its {COND_SLOTS} slots")
+            slots[: flat.numel()].copy_(flat)
+            used[0] = flat.numel()
+        live.fill_(False)
+
+    while_loop(live, once, _once=True)
+
+    def apply(v):
+        if v[0]:
+            sub.apply(v[1:])
+    record((taken, slots[: used[0]]), apply)

@@ -171,7 +171,7 @@ def _wkb_single(dist_m, dE_abs, m_e, V0, f32: bool = False):
         E1_np = np.float32(EV_TO_J * V0)
     else:
         E1_np = np.float64(EV_TO_J * V0)
-    E1 = torch.tensor(E1_np, dtype=dist_m.dtype, device=dist_m.device)
+    E1 = torch.full((), float(E1_np), dtype=dist_m.dtype, device=dist_m.device)
     E2 = E1 - dE_abs
     if f32:
         # a^1.5 - b^1.5 = (a - b)(a + sqrt(ab) + b)/(sqrt(a) + sqrt(b)) with
@@ -189,20 +189,33 @@ def _wkb_single(dist_m, dE_abs, m_e, V0, f32: bool = False):
     return torch.exp(torch.where(E2 > 0, expo_trap, expo_tri))
 
 
-# elements of one (steps, rows, cols) plane of the energy integral
+# elements of one (steps, rows, cols) plane of the energy integral, and the
+# most steps of one pass of its loop (each pass adds them one at a time)
 _PLANE_ELEMENTS = 1 << 24
+WKB_PASS_STEPS = 4
 
 
-def _wkb_contact_trap(dist_m, dE_abs, m_e, V0, n_steps: int, mask=None, f32: bool = False):
+def _wkb_contact_trap(dist_m, dE_abs, m_e, V0, n_steps, mask=None, f32: bool = False):
     """Energy-integrated transmission for contact<->trap pairs (create_X
     contact_to_trap branch, current_solver_gpu.cu:2229-2256): the sum over
     s = 0 .. n_steps-1 of the single-barrier term at E1 = q*V0 + s*dE_step,
     masked to s*dE_step < |dE| (the reference's per-pair energy window).
 
-    ``mask`` (bool, optional): pairs whose integral is never read; their
-    exponents are kept in range and their result is 0. The steps are
-    evaluated several at a time as one (steps, rows, cols) plane and added
-    in ascending s, one step at a time (Kahan-compensated under ``f32``)."""
+    ``n_steps``: an int, or a 0-d device tensor (``_ct_loop_bound``), the
+    shared bound akmc_tpu's ``fori_loop`` runs to. ``mask`` (bool,
+    optional): pairs whose integral is never read; their exponents are kept
+    in range and their result is 0. The steps run as a loop of passes, each
+    evaluating ``WKB_PASS_STEPS`` steps (fewer where the plane would pass
+    ``_PLANE_ELEMENTS``) as one (steps, rows, cols) plane and adding them in
+    ascending s, one step at a time
+    (Kahan-compensated under ``f32``). A step at or past the bound leaves
+    the sums as they were: in f64 it adds an exact zero, under ``f32`` it is
+    skipped, since a zero term would still fold the compensation into the
+    sum. Inside a program (``device_loop.in_program``)
+    the passes are a ``device_loop.while_loop`` to the device bound; outside
+    one the bound is read once and the passes run on the host."""
+    from akmc_tpu_torch.ops import device_loop
+
     prefac = _prefac(m_e)
     dE_step = EV_TO_J * 0.01
     if mask is not None:
@@ -218,10 +231,15 @@ def _wkb_contact_trap(dist_m, dE_abs, m_e, V0, n_steps: int, mask=None, f32: boo
     acc = torch.zeros_like(dist_m)
     comp = torch.zeros_like(dist_m)
     dev = dist_m.device
-    per = max(1, _PLANE_ELEMENTS // max(1, dist_m.numel()))
+    per = min(WKB_PASS_STEPS, max(1, _PLANE_ELEMENTS // max(1, dist_m.numel())))
     bshape = (-1,) + (1,) * dist_m.dim()
-    for s0 in range(0, int(n_steps), per):
-        iv = torch.arange(s0, min(int(n_steps), s0 + per), dtype=F64, device=dev) * dE_step
+    steps = torch.arange(per, dtype=torch.int64, device=dev)
+    s0 = torch.zeros((), dtype=torch.int64, device=dev)
+    bound = torch.as_tensor(n_steps, dtype=torch.int64, device=dev)
+
+    def one_pass():
+        s = s0 + steps
+        iv = s.to(F64) * dE_step
         E1 = EV_TO_J * V0 + iv
         if f32:
             # akmc_tpu compares the f64 step energy rounded to f32
@@ -237,28 +255,45 @@ def _wkb_contact_trap(dist_m, dE_abs, m_e, V0, n_steps: int, mask=None, f32: boo
             expo_trap = q_trap * (E1**1.5 - torch.where(E2 > 0, E2, 0.0) ** 1.5)
         expo_tri = q_tri * E1**1.5
         term = torch.exp(torch.where(E2 > 0, expo_trap, expo_tri))
-        term = torch.where(iv < dE_abs, term, 0.0)
-        for k in range(term.shape[0]):
-            if not f32:
-                acc = acc + term[k]
-                continue
-            # Kahan: comp carries the low-order residue
-            y = term[k] - comp
-            t = acc + y
-            comp = (t - acc) - y
-            acc = t
+        on = s < bound
+        if not f32:
+            # a step past the bound adds an exact zero to a sum >= +0
+            term = torch.where((iv < dE_abs) & on.reshape(bshape), term, 0.0)
+            for k in range(per):
+                acc.add_(term[k])
+        else:
+            term = torch.where(iv < dE_abs, term, 0.0)
+            for k in range(per):
+                # Kahan: comp carries the low-order residue
+                y = term[k] - comp
+                t = acc + y
+                torch.where(on[k], (t - acc) - y, comp, out=comp)
+                torch.where(on[k], t, acc, out=acc)
+        s0.add_(per)
+
+    if device_loop.in_program():
+        live = s0 < bound
+
+        def body():
+            one_pass()
+            live.copy_(s0 < bound)
+        device_loop.while_loop(live, body)
+    else:
+        for _ in range(-(-int(bound) // per)):
+            one_pass()
     return acc if mask is None else torch.where(mask, acc, 0.0)
 
 
-def _ct_loop_bound(dE_abs, ok, ne_max: int) -> int:
-    """The energy loop's step count for one block: the largest window among
-    its eligible pairs, ceil(max |dE| / dE_step) + 1, capped at ``ne_max``
-    (one host read)."""
+def _ct_loop_bound(dE_abs, ok, ne_max: int) -> torch.Tensor:
+    """The energy loop's step count for one block as a 0-d int64 device
+    tensor: the largest window among its eligible pairs, ceil(max |dE| /
+    dE_step) + 1, capped at ``ne_max``."""
     dE_step = EV_TO_J * 0.01
     max_dE = torch.max(torch.where(ok, dE_abs, 0.0))
     # akmc_tpu's compiled division by the constant dE_step is a multiplication
     # by its reciprocal
-    return min(int(torch.ceil(max_dE * (1.0 / dE_step)).item()) + 1, int(ne_max))
+    n = torch.ceil(max_dE * (1.0 / dE_step)).to(torch.int64) + 1
+    return torch.clamp(n, max=int(ne_max))
 
 
 # ---------------------------------------------------------------------------
@@ -343,9 +378,10 @@ def _gathered(shard, pieces) -> list:
 
 class WkbStats(NamedTuple):
     """What one build of the W blocks did: the energy-loop step count of each
-    integrated block (the shared bound akmc_tpu's loop runs to)."""
+    integrated block (the shared bound akmc_tpu's loop runs to), as 0-d
+    int64 device tensors."""
 
-    ct_bounds: Tuple[int, ...]
+    ct_bounds: Tuple[torch.Tensor, ...]
 
 
 def _pair_dist_m(pos_a, pos_b, lattice, pbc):
@@ -401,7 +437,7 @@ def build_power_system(
     metal_i = ct.atom_is_metal
     cvac = (atom_element == int(ELEM.VACANCY)) & (atom_charge == 0)
     pair_high = (metal_i[sa, None] & metal_i[j]) | (cvac[sa, None] & cvac[j])
-    hi = torch.tensor(high_G, dtype=F64, device=dev)
+    hi = torch.full((), high_G, dtype=F64, device=dev)
     G_nbr = torch.where(valid, torch.where(pair_high, hi, low_G), 0.0)
 
     is_vac = atom_element == int(ELEM.VACANCY)
@@ -548,8 +584,8 @@ def _cvac_fold(pos_v, cvac_v, vac_idx, lattice, pbc, nn_dist, dtype, dG, rows=sl
         _, dist_ang = _pair_dist_m(chunk_pos, pos_v, lattice, pbc)
         same = chunk_idx[:, None] == vac_idx[None, :]
         adj = (dist_ang < nn_dist) & ~same & chunk_cvac[:, None] & cvac_v[None, :]
-        return torch.where(adj, torch.tensor(dG, dtype=dtype, device=pos_v.device),
-                           torch.tensor(0, dtype=dtype, device=pos_v.device))
+        return torch.where(adj, torch.full((), dG, dtype=dtype, device=pos_v.device),
+                           torch.zeros((), dtype=dtype, device=pos_v.device))
 
     pos_r, cvac_r, idx_r = pos_v[rows], cvac_v[rows], vac_idx[rows]
     B = _WKB_ROW_BLOCK
@@ -589,6 +625,11 @@ def _power_gather_op(v, diag, G_nbr, vac_idx, W_tt, W_ct, W_cc, inj, ext, *, ct,
     return torch.cat([torch.stack([y0, y1]), y_at[:-1]])
 
 
+def _rails_rhs(Vd: torch.Tensor, loop_G: float) -> torch.Tensor:
+    """(-loop_G Vd, loop_G Vd): the right-hand side on the two rail nodes."""
+    return torch.stack([-loop_G * Vd, loop_G * Vd])
+
+
 def _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs):
     """The power CG with the multiply + sum dot: the device loop, or under
     ``shard`` the host loop."""
@@ -601,7 +642,7 @@ def _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs):
 def solve_power(
     ct: CurrentTables,
     ps: PowerSystem,
-    Vd: float,
+    Vd,                              # [V] a float or a 0-d f64 device tensor
     high_G: float,
     loop_G: float,
     G0: float,
@@ -616,12 +657,15 @@ def solve_power(
     nn_dist: float = 0.0,
     lattice=None,
     pbc: bool = False,
-    rtol_scale: float = 1.0,         # multiplier on the relative tolerance: the
-    #                                  low-bias I-V points are a sub-nA cancellation
-    #                                  of large virtual potentials, so callers
-    #                                  tighten the solve there
+    rtol_scale=1.0,                  # multiplier on the relative tolerance (float or 0-d
+    #                                  tensor): the low-bias I-V points are a sub-nA
+    #                                  cancellation of large virtual potentials, so
+    #                                  callers tighten the solve there
     shard: Optional[PowerShard] = None,   # the system and the band are this rank's rows
     graphs=None,                     # the caller's LoopGraphs for the CG's device loop
+    grounded: Optional[int] = None,  # the grounded atom's slot in the band's frame
+    #                                  (static: ``VCMModel.power_band`` keeps it); None
+    #                                  reads it from the band
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Solve X m = b; returns (I_macro [A] (0-d), atom_power (N_atom,) [W],
     m (N_atom+2) unscaled, CG iterations).
@@ -637,14 +681,22 @@ def solve_power(
     ``shard`` the CG vectors stay whole on every rank and every rank
     computes the same iterates: each product with a sharded block is the
     rank's rows, gathered (``PowerShard``); the CG is the host loop there
-    (gloo collectives cannot be captured into a graph)."""
+    (gloo collectives cannot be captured into a graph).
+
+    ``Vd`` and ``rtol_scale`` enter as 0-d device tensors (a float is made
+    one), so that one captured program serves every bias and tolerance; the
+    direction of the forward current is a device select on ``Vd >= 0``.
+    With a ``grounded`` slot given, nothing is read back to the host."""
     n_atom = ct.atom_ind.shape[0]
     dev = m_prev.device
     inj = ct.inj_tie.to(F64)
     ext = ct.ext_tie.to(F64)
     vi = ps.vac_idx.clamp(min=0)
     vv = ps.vac_idx >= 0
-    rtol = rtol_coeff * n_atom * rtol_scale
+    Vd = torch.as_tensor(Vd, dtype=F64, device=dev)
+    rtol = rtol_coeff * n_atom * torch.as_tensor(rtol_scale, dtype=F64, device=dev)
+    d01 = torch.stack([torch.full((), ps.diag0, dtype=F64, device=dev),
+                       torch.full((), ps.diag1, dtype=F64, device=dev)])
 
     if band is not None:
         bk, meta = band, band_meta
@@ -653,9 +705,8 @@ def solve_power(
         diag_p = ps.diag[perm]
         inj_p, ext_p = inj[perm], ext[perm]
         inj_pm, ext_pm = ct.inj_tie[perm], ct.ext_tie[perm]
-        g_p = int(invp[n_atom - 1])                # the grounded atom's slot (static)
-        gmask = torch.ones(n_atom, dtype=torch.bool, device=dev)
-        gmask[g_p] = False
+        g_p = int(invp[n_atom - 1]) if grounded is None else grounded
+        gmask = torch.arange(n_atom, device=dev) != g_p
         vi_p = invp[vi]
         cidx_p = torch.where(ct.contact_idx >= 0, invp[ct.contact_idx.clamp(min=0)], -1)
 
@@ -677,9 +728,7 @@ def solve_power(
              block0),
         )
 
-        b = torch.zeros(n_atom + 2, dtype=F64, device=dev)
-        b[0], b[1] = -loop_G * Vd, loop_G * Vd
-        d01 = torch.tensor([ps.diag0, ps.diag1], dtype=F64, device=dev)
+        b = torch.cat([_rails_rhs(Vd, loop_G), torch.zeros(n_atom, dtype=F64, device=dev)])
         inv_diag = torch.cat([1.0 / d01, torch.where(gmask, 1.0 / torch.where(gmask, diag_p, 1.0), 1.0)])
         x0 = torch.cat([m_prev[:2], torch.where(gmask, m_prev[2:][perm], 0.0)])
         res = _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs)
@@ -696,9 +745,7 @@ def solve_power(
              loop_G, ps.diag0, ps.diag1),
         )
 
-        b = torch.zeros(n_atom + 1, dtype=F64, device=dev)
-        b[0], b[1] = -loop_G * Vd, loop_G * Vd
-        d01 = torch.tensor([ps.diag0, ps.diag1], dtype=F64, device=dev)
+        b = torch.cat([_rails_rhs(Vd, loop_G), torch.zeros(n_atom - 1, dtype=F64, device=dev)])
         inv_diag = 1.0 / torch.cat([d01, ps.diag[:-1]])
         x0 = m_prev[: n_atom + 1]
         res = _power_cg(A, b, x0, inv_diag, rtol, max_iterations, shard, graphs)
@@ -711,11 +758,12 @@ def solve_power(
 
     # forward-current power: pdisp_i = sum_j ineg_ij (m_j - m_i)
     # (set_ineg + row_reduce + write_to_diag + gemv, 2520-2559)
-    forward_neg = float(np.sign(Vd)) >= 0
+    # (sign(Vd) >= 0 is Vd >= 0, for -0.0 and NaN too)
+    forward_neg = Vd >= 0
 
     def ineg_contrib(x_off, mi, mj):
         ical = -x_off * (mi - mj)      # X_ij = -coef
-        fwd = (ical < 0) if forward_neg else (ical > 0)
+        fwd = torch.where(forward_neg, ical < 0, ical > 0)
         return torch.where(fwd, -ical, 0.0)
 
     sa = _mine(shard, "atom", n_atom)

@@ -138,9 +138,13 @@ def _source(lh, site_power, element, background_temp, nn_dist_m, k_th_interface,
     p_vac = 1.0 / ((nn_dist_m * k_th_interface) * (T_1 - T0))
     p_non = 1.0 / ((nn_dist_m * k_th_vacancies) * (T_1 - T0))
     is_vac = element == int(ELEM.VACANCY)
-    coef = torch.where(is_vac, torch.tensor(p_vac, dtype=site_power.dtype, device=site_power.device),
-                       p_non)
+    coef = torch.where(is_vac, torch.full((), p_vac, dtype=site_power.dtype,
+                                          device=site_power.device), p_non)
     return torch.where(lh.if_mask, site_power * coef, 0.0), T_1 - T0
+
+
+# explicit steps per pass of the transient model's while loop (in a program)
+HEAT_PASS_STEPS = 8
 
 
 def update_temperature_local_ref(
@@ -148,7 +152,7 @@ def update_temperature_local_ref(
     temperature: torch.Tensor,
     site_power: torch.Tensor,
     element: torch.Tensor,
-    step_time: float,              # [s] this superstep's event time (host value)
+    step_time,                     # [s] this superstep's event time: a 0-d f64 tensor
     delta_t: float,
     tau: float,
     background_temp: float,
@@ -164,24 +168,61 @@ def update_temperature_local_ref(
       * otherwise                      -> ``int(step_time/delta_t) + 1``
         transient explicit steps of duration ``delta_t`` each (at most 1,001).
 
-    The choice is made on the host from ``step_time``; ``graphs``: the
-    caller's ``LoopGraphs`` for the steady solve's CG."""
-    if step_time > 1e3 * delta_t:
+    Outside a program the choice and the step count are made on the host,
+    from one read of ``step_time`` (a float is taken as it is). Inside one
+    (``device_loop.in_program``) they stay on the device, as akmc_tpu's
+    ``lax.cond`` keeps them: the transient steps are a while loop of
+    ``HEAT_PASS_STEPS`` guarded steps a pass (no pass when steady), the
+    steady solve runs under a ``device_loop.cond`` on the same flag, and
+    ``torch.where`` picks the branch. Both forms give the same bits.
+    ``graphs``: the caller's ``LoopGraphs`` for the steady solve's CG."""
+    from akmc_tpu_torch.ops import device_loop
+
+    def steady():
         return update_temperature_local_steady(
             lh, temperature, site_power, element, background_temp,
             nn_dist_m, k_th_interface, k_th_vacancies, graphs=graphs,
         )
-    src, scale = _source(lh, site_power, element, background_temp, nn_dist_m,
-                         k_th_interface, k_th_vacancies)
+
+    def step(t):
+        return t + dt_eff * (_lap(lh, t) + src * scale)
+
+    dt_eff = min(delta_t * tau, 0.2)   # explicit-step stability
     # akmc_tpu's compiled division by the constant delta_t is a multiplication
     # by its reciprocal, which decides the step count where step_time is a
     # multiple of delta_t
-    n_steps = int(np.floor(step_time * (1.0 / delta_t))) + 1
-    dt_eff = min(delta_t * tau, 0.2)   # explicit-step stability
-    t = temperature
-    for _ in range(n_steps):
-        t = t + dt_eff * (_lap(lh, t) + src * scale)
-    return torch.where(lh.if_mask, t, temperature)
+    if not device_loop.in_program():
+        step_time = float(step_time)
+        if step_time > 1e3 * delta_t:
+            return steady()
+        src, scale = _source(lh, site_power, element, background_temp, nn_dist_m,
+                             k_th_interface, k_th_vacancies)
+        n_steps = int(np.floor(step_time * (1.0 / delta_t))) + 1
+        t = temperature
+        for _ in range(n_steps):
+            t = step(t)
+        return torch.where(lh.if_mask, t, temperature)
+
+    is_steady = step_time > 1e3 * delta_t
+    src, scale = _source(lh, site_power, element, background_temp, nn_dist_m,
+                         k_th_interface, k_th_vacancies)
+    n_steps = torch.where(is_steady, 0,
+                          torch.floor(step_time * (1.0 / delta_t)).to(torch.int64) + 1)
+    t = temperature.clone()
+    i = torch.zeros((), dtype=torch.int64, device=t.device)
+    live = i < n_steps
+
+    def transient_pass():
+        for _ in range(HEAT_PASS_STEPS):
+            on = i < n_steps
+            torch.where(on, step(t), t, out=t)
+            i.add_(on.to(torch.int64))
+        live.copy_(i < n_steps)
+    device_loop.while_loop(live, transient_pass)
+
+    t_steady = temperature.clone()
+    device_loop.cond(is_steady, lambda: t_steady.copy_(steady()))
+    return torch.where(is_steady, t_steady, torch.where(lh.if_mask, t, temperature))
 
 
 def update_temperature_local(

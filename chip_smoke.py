@@ -150,16 +150,18 @@ line is printed):
            full depth).
 
 7. full    the full physics (``--full-physics``: CB edge, WKB tunnel blocks,
-           power CG, heat models). The whole n_yz=24 sweep through the driver,
+           power CG, heat models). Each superstep is one program
+           (``models/step_program.py::FullProgram``: one CUDA graph, its loops
+           while nodes, one host read). The whole n_yz=24 sweep through the driver,
            held to ``akmc_tpu_torch/golden/iv_sweep_5nm_n24_full.json``
            (``tools/full_physics_golden.py``): events, superstep count and final
            elements exactly, KMC times within GOLDEN_KMC_RTOL, each superstep's
            P_tot within FULL_POWER_RTOL and I_macro within FULL_CURRENT_ATOL,
            one 'Current [uA]' line per superstep, DIA launches equal to the
            model's K solves, power-CG counts equal to the golden's at every
-           superstep; the sweep once more with the CGs' host loops, equal
-           row for row but for time (host reads and superstep times before
-           and after). Then three supersteps with ``--wkb-f32`` (the f64
+           superstep; the sweep once more on the per-loop path
+           (``step_program=False``) and once with the CGs' host loops, each
+           equal row for row but for time (host reads and superstep times). Then three supersteps with ``--wkb-f32`` (the f64
            run's events; P_tot within akmc_tpu's f32-against-f64 spread,
            I_macro within FULL_CURRENT_ATOL); one power solve at 8 V and
            rtol_scale 1, 1e-2, 1e-4 on the sweep's first state and on the
@@ -168,7 +170,8 @@ line is printed):
            band (k = 8, 16, 32) and with the gather operator and the steady
            heat CG, each device loop against its host loop as in the
            disordered phase; three full-physics supersteps of the stand-in through the
-           driver; four supersteps each with ``solve_heating_global = 1`` and
+           driver, through the program and on the per-loop path, equal row for
+           row, an energy loop past one step; four supersteps each with ``solve_heating_global = 1`` and
            ``solve_heating_local = 1`` (deck copies from
            ``runtime/synth_deck.py::write_heating_deck``): events and elements
            exact, T_bg and each site's temperature within ``heat_close``. The
@@ -176,7 +179,18 @@ line is printed):
            card read more, the reading rounded up (their constants say which).
            Per superstep: the CB-edge solves, the WKB build in ms and its
            energy-loop bounds, the power solve in ms and per iteration, host
-           reads, peak memory.
+           reads, peak memory. Then the program against the per-loop path in
+           turns (loops, program, program, loops), every superstep bit-equal
+           (state, stats, the warm start, the stream): FP_SUPERSTEPS on the
+           sweep's crossbar and FP_STANDIN_SUPERSTEPS on the stand-in (and at
+           each WKB energy-loop k of FP_WKB_KS), ms a superstep, host reads,
+           capture s, while passes, the card's idle share by CUDA events around
+           the replays; the stand-in with the global and with the local heat
+           model (delta_t between two supersteps' event times: one steady, one
+           transient); FP_SPD supersteps a dispatch against one at a time (one
+           read a dispatch), and a batch discarded on a vmax below the
+           vacancies; one superstep of the stand-in at 124,412 sites (W-block
+           bytes, energy bounds, peak memory).
 
 8. driver  the deck modes and options of the driver, on the sizes above
            (``runtime/synth_deck.py`` writes the deck copies), against
@@ -290,6 +304,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -882,16 +897,23 @@ def cg_readings(dev, op, ks, rtol, k, blocks, regs, solve_ms):
 @contextlib.contextmanager
 def count_syncs(dev):
     """A list that receives one warning per host synchronisation made inside
-    the block (CUDA only; on a CPU device it stays empty)."""
+    the block (CUDA only; on a CPU device it stays empty). While it is open
+    the list is also ``SYNC_LOGS[-1]``, so that code inside the block can
+    count the reads of a part of it."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         if dev.type == "cuda":
             torch.cuda.set_sync_debug_mode("warn")
+        SYNC_LOGS.append(caught)
         try:
             yield caught
         finally:
+            SYNC_LOGS.pop()
             if dev.type == "cuda":
                 torch.cuda.set_sync_debug_mode(0)
+
+
+SYNC_LOGS: list = []     # the lists of the ``count_syncs`` blocks open, innermost last
 
 
 def n_syncs(caught) -> int:
@@ -1987,6 +2009,12 @@ def _program_replay_ms(model, state0, steps) -> list:
     """The batched supersteps of ``_pg_run`` once more, each graph replay
     bracketed by CUDA events: the card's time of each program run (none on
     the CPU, where no graph runs)."""
+    return program_replay_ms(lambda: _pg_run(model, state0, steps))[1]
+
+
+def program_replay_ms(fn) -> tuple:
+    """``fn()`` with every program replay bracketed by CUDA events: (its
+    result, the card's ms of each replay)."""
     from akmc_tpu_torch.models import step_program
 
     times, run = [], step_program._Program.run
@@ -2016,10 +2044,9 @@ def _program_replay_ms(model, state0, steps) -> list:
 
     step_program._Program.run = timed
     try:
-        _pg_run(model, state0, steps)
+        return fn(), times
     finally:
         step_program._Program.run = run
-    return times
 
 
 def _pg_same(label, a, b) -> None:
@@ -3273,16 +3300,20 @@ def _rel(a: float, b: float) -> float:
 @contextlib.contextmanager
 def full_physics_probe():
     """Per-superstep readings of the driver's model, taken from outside it:
-    after each ``superstep_full`` its ``power_timing`` (the W-block build and
-    the power solve, in host seconds ending in a device read; the energy-loop
-    bounds; the power CG's iterations) and ``fields_s``; after each
-    ``update_cb_edge`` its CG iterations and host time."""
+    after each ``superstep_full`` its ``power_timing`` (on the per-loop path
+    the W-block build and the power solve, in host seconds ending in a device
+    read; on both paths the energy-loop bounds and the power CG's
+    iterations), ``fields_s`` (per-loop path), its host time and its host
+    reads (inside a ``count_syncs`` block); after each ``update_cb_edge`` its
+    CG iterations and host time. The third list receives the model."""
     from akmc_tpu_torch.models.vcm import VCMModel
 
-    steps, cb = [], []
+    steps, cb, models = [], [], []
     full, cb_edge = VCMModel.superstep_full, VCMModel.update_cb_edge
 
     def probed_full(self, *args, **kwargs):
+        log = SYNC_LOGS[-1] if SYNC_LOGS else []
+        n0 = n_syncs(log)
         t0 = time.perf_counter()
         out = full(self, *args, **kwargs)        # ends with a read of its stats
         wall = time.perf_counter() - t0
@@ -3292,7 +3323,10 @@ def full_physics_probe():
             marks[-1].synchronize()
             timing["wkb_build_device_ms"] = marks[0].elapsed_time(marks[1])
             timing["power_solve_device_ms"] = marks[1].elapsed_time(marks[2])
-        steps.append({**timing, "fields_s": self.fields_s, "superstep_s": wall})
+        steps.append({**timing, "fields_s": self.fields_s if not self._programmed() else None,
+                      "superstep_s": wall, "host_reads": n_syncs(log) - n0})
+        if not models:
+            models.append(self)
         return out
 
     def probed_cb(self, state, Vd):
@@ -3304,38 +3338,45 @@ def full_physics_probe():
 
     VCMModel.superstep_full, VCMModel.update_cb_edge = probed_full, probed_cb
     try:
-        yield steps, cb
+        yield steps, cb, models
     finally:
         VCMModel.superstep_full, VCMModel.update_cb_edge = full, cb_edge
 
 
 def _summarize_steps(steps: list) -> dict:
-    """The probe's per-superstep readings, as lists and their sums."""
+    """The probe's per-superstep readings, as lists and their sums (the
+    build/solve split and the fields' time on the per-loop path only: a
+    program times none of its parts)."""
     def col(k):
         return [r[k] for r in steps]
 
-    wkb, solve = col("wkb_build_s"), col("power_solve_s")
-    its = col("iterations")
-    device = {}
-    if steps and "wkb_build_device_ms" in steps[0]:
-        device = {"wkb_build_device_ms": col("wkb_build_device_ms"),
-                  "power_solve_device_ms": col("power_solve_device_ms")}
+    out = {"ct_loop_bounds": col("ct_loop_bounds"), "power_cg_iterations": col("iterations"),
+           "superstep_ms": [1e3 * v for v in col("superstep_s")],
+           "host_reads": col("host_reads"),
+           "host_reads_per_superstep": sum(col("host_reads")) / max(1, len(steps))}
+    if steps and "wkb_build_s" not in steps[0]:
+        return out
+    wkb, solve, its = col("wkb_build_s"), col("power_solve_s"), col("iterations")
+    if "wkb_build_device_ms" in steps[0]:
+        out.update(wkb_build_device_ms=col("wkb_build_device_ms"),
+                   power_solve_device_ms=col("power_solve_device_ms"))
     return {
-        **device,
-        "wkb_build_ms": [1e3 * v for v in wkb], "ct_loop_bounds": col("ct_loop_bounds"),
-        "power_solve_ms": [1e3 * v for v in solve], "power_cg_iterations": its,
+        **out,
+        "wkb_build_ms": [1e3 * v for v in wkb], "power_solve_ms": [1e3 * v for v in solve],
         "power_ms_per_iteration": [1e3 * v / k for v, k in zip(solve, its)],
         "fields_ms": [1e3 * v for v in col("fields_s")],
-        "superstep_ms": [1e3 * v for v in col("superstep_s")],
         "wkb_build_s_total": sum(wkb), "power_solve_s_total": sum(solve),
     }
 
 
-def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0, **model_kw):
+def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0, lists_on=None,
+               **model_kw):
     """The port's model and first state for ``deck`` on the N_YZ crossbar, or
     with ``synth_dir`` on the disordered stand-in's files there, built as the
     driver builds them; no static pair table unless ``pair_table_budget``
-    says so (power solves alone need none). ``model_kw`` goes to the model."""
+    says so (power solves alone need none); ``lists_on``: the device that
+    builds the neighbor lists (None: the host's k-d tree). ``model_kw`` goes
+    to the model."""
     from akmc_tpu_torch.config import KMCParameters
     from akmc_tpu_torch.lattice import build_lattice
     from akmc_tpu_torch.models.crossbar import mask_null_slots, synthesize_deck_structure
@@ -3351,7 +3392,7 @@ def full_model(deck: str, dev, synth_dir=None, pair_table_budget=0.0, **model_kw
         p, element, x, y, z = synthesize_deck_structure(p, N_YZ)
     element = make_substoichiometric(element, p.initial_vacancy_concentration,
                                      ReferenceRNG(p.rnd_seed))
-    lat = build_lattice(element, x, y, z, p)
+    lat = build_lattice(element, x, y, z, p, device=lists_on)
     if not synth_dir:
         mask_null_slots(lat)
     model = VCMModel(p, lat, device=dev, rate_normalize=True,
@@ -3542,6 +3583,334 @@ def full_cg_loops(dev, model, state) -> dict:
     return out
 
 
+# the full-physics superstep as one CUDA graph (models/step_program.py::FullProgram)
+FP_SUPERSTEPS = 8               # crossbar supersteps a run in turns: the deck's first biases, two each
+FP_STANDIN_SUPERSTEPS = 3       # the stand-in's, as its golden part
+FP_WKB_KS = (1, 4, 16)          # energy steps per pass of the WKB integral's while node
+FP_SPD = 4                      # supersteps per dispatch against one at a time
+FP_SPD_CHUNK = 2048             # the rand window of both (superstep_full_multi's default)
+FP_LARGE_N_YZ = LARGE_BANDED_N_YZ   # the stand-in at 124,412 sites: one superstep
+FP_LARGE_VD = 8.0
+FULL_STATE = STATE_FIELDS + ("power", "temperature", "T_bg")
+
+
+def _fp_run(model, p, state0, biases, steps_fn=None):
+    """Full-physics supersteps of ``model`` from ``state0`` at ``biases`` on a
+    fresh mt19937 stream, stepped as the driver steps them (the CB edge
+    solved at each new bias, outside the timing; the warm start threaded;
+    the power tolerance by the driver's "auto" rule), each timed (host
+    clock, the card drained) with its host reads counted: (states, stats,
+    ms, reads, loop passes, the stream's next draw, the last warm start).
+    ``steps_fn(model, state, Vd, stream, m, rscale)``: one dispatch (default
+    ``superstep_full``), returning (state, stats list, m)."""
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.solvers import cg
+
+    if steps_fn is None:
+        def steps_fn(m_, state, Vd, stream, m, rscale):
+            state, st, m = m_.superstep_full(state, Vd, stream, m_prev=m, rtol_scale=rscale)
+            return state, [st], m
+    dev = model.device
+    stream = BufferedStream(ReferenceRNG(p.rnd_seed_kmc))
+    state, m, last_I, bias = state0, None, None, None
+    states, stats, ms, reads, passes = [], [], [], [], []
+    for Vd in biases:
+        if Vd != bias:
+            state, bias = model.update_cb_edge(state, Vd), Vd
+        rscale = 1e-2 if last_I is not None and abs(last_I) < 1e-9 else 1.0
+        ev.reset_loop_counts()
+        cg.reset_cg_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_syncs(dev) as caught:
+            state, st, m = steps_fn(model, state, Vd, stream, m, rscale)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(n_syncs(caught))
+        stats.extend(st)
+        last_I = st[-1]["I_macro"]
+        states.append({f: getattr(state, f).clone() for f in FULL_STATE})
+        passes.append({"event_loop": ev.LOOP_COUNTS["serial"]["replays"],
+                       "cg": sum(c["replays"] for c in cg.CG_COUNTS.values())})
+    return states, stats, ms, reads, passes, stream.peek(1)[0], m
+
+
+def _fp_same(label, a, b) -> None:
+    """Fails unless two runs' supersteps are equal to the bit: stats, the
+    stream, the warm start and every state field after each dispatch."""
+    if a[1] != b[1] or a[5] != b[5]:
+        fail(f"full program {label}: stats or stream differ: {a[1][:2]} / {b[1][:2]}")
+    if not same_bits(a[6], b[6]):
+        fail(f"full program {label}: the power solve's warm start differs")
+    for i, (sa, sb) in enumerate(zip(a[0], b[0])):
+        for f in FULL_STATE:
+            if not same_bits(sa[f], sb[f]):
+                fail(f"full program {label}: dispatch {i} differs in {f}")
+
+
+def full_turns(dev, model, p, lat, biases, where, wkb_ks=()) -> dict:
+    """The per-loop path and the program in turns (loops, program, program,
+    loops) from one state and stream, every superstep bit-equal: ms a
+    superstep (cold: the first at a bias, warm: the rest), host reads a
+    superstep, capture s, while passes, the nodes' k, and the card's idle
+    share of the program's wall by CUDA events around its replays; with
+    ``wkb_ks`` the program at each energy-loop k (a capture each)."""
+    from akmc_tpu_torch.ops import events as ev
+    from akmc_tpu_torch.solvers import cg, current, heat
+    from akmc_tpu_torch.state import make_device_state
+
+    state0 = model.update_cb_edge(make_device_state(lat, p.background_temp, dev), biases[0])
+    t0 = time.perf_counter()
+    prog = model._capture_full(state0, biases[0], 1)
+    capture_s = time.perf_counter() - t0
+    runs = {False: [], True: []}
+    steps = None
+    for programmed in (False, True, True, False):
+        with _per_loop(model, not programmed):
+            counts0 = dict(model.step_counts)
+            r = _fp_run(model, p, state0, biases)
+            done = {k: model.step_counts[k] - counts0[k] for k in counts0}
+            if programmed:
+                steps = done
+                if done["per_loop"] or done["runs"] != len(biases) + done["redos"]:
+                    fail(f"full program {where}: the program path ran {done}")
+            elif done["per_loop"] != len(biases):
+                fail(f"full program {where}: the per-loop path ran {done}")
+        runs[programmed].append(r)
+    ref = runs[False][0]
+    for label, r in (("program 1", runs[True][0]), ("program 2", runs[True][1]),
+                     ("loops 2", runs[False][1])):
+        _fp_same(f"{where}: {label} against loops 1", ref, r)
+    best = {pr: min(runs[pr], key=lambda x: sum(x[2])) for pr in (False, True)}
+    if dev.type == "cuda" and not (steps["redos"] or steps["continues"]) and any(
+            n != 1 for n in best[True][3]):
+        fail(f"full program {where}: the program read the host {best[True][3]} times")
+    first = [i for i, Vd in enumerate(biases) if i == 0 or biases[i - 1] != Vd]
+    rest = [i for i in range(len(biases)) if i not in first]
+
+    def mean(xs, idx):
+        return sum(xs[i] for i in idx) / max(1, len(idx))
+
+    _, replay_ms = program_replay_ms(lambda: _fp_run(model, p, state0, biases))
+    out = {
+        "supersteps": len(biases), "biases": biases, "bitwise_equal": True,
+        "events": [x["n_events"] for x in ref[1]],
+        "event_time": [x["event_time"] for x in ref[1]],
+        "cg_iterations": [x["cg_iterations"] for x in ref[1]],
+        "power_cg_iterations": [x["power_cg_iterations"] for x in ref[1]],
+        "I_macro": [x["I_macro"] for x in ref[1]], "T_bg": [x["T_bg"] for x in ref[1]],
+        "temperature_moved": int((ref[0][-1]["temperature"] != p.background_temp).sum()),
+        "ct_loop_bounds_last": model.power_timing.get("ct_loop_bounds"),
+        "capture_s": capture_s, "program_capture_s": prog.capture_s,
+        "ms_per_superstep_loops": [sum(x[2]) / len(biases) for x in runs[False]],
+        "ms_per_superstep_program": [sum(x[2]) / len(biases) for x in runs[True]],
+        "superstep_ms_loops": best[False][2], "superstep_ms_program": best[True][2],
+        "first_at_bias_ms_mean": {"loops": mean(best[False][2], first),
+                                  "program": mean(best[True][2], first)},
+        "rest_ms_mean": {"loops": mean(best[False][2], rest),
+                         "program": mean(best[True][2], rest)},
+        "host_reads_per_superstep_loops": sum(best[False][3]) / len(biases),
+        "host_reads_per_superstep_program": sum(best[True][3]) / len(biases),
+        "while_passes_program": best[True][4], "replays_loops": best[False][4],
+        "redos": steps["redos"], "continues": steps["continues"],
+        "node_k": {"cg": cg.CG_NODE_K, "event_loop": ev.SERIAL_NODE_K,
+                   "wkb_energy_steps": current.WKB_PASS_STEPS,
+                   "heat_transient_steps": heat.HEAT_PASS_STEPS},
+        "program_replay_device_ms": replay_ms,
+        "idle_share_program_vs_its_wall": (
+            1.0 - sum(replay_ms) / sum(best[True][2]) if replay_ms else None),
+        "per_loop_idle_share": "not measured: its host-driven loops leave no replays to "
+                               "bracket",
+    }
+    if wkb_ks:
+        out["wkb_k_readings"] = {}
+        saved = current.WKB_PASS_STEPS
+        try:
+            for k in wkb_ks:
+                current.WKB_PASS_STEPS = k
+                t0 = time.perf_counter()
+                model._capture_full(state0, biases[0], 1)
+                cap = time.perf_counter() - t0
+                r = _fp_run(model, p, state0, biases)
+                _fp_same(f"{where}: WKB k = {k}", ref, r)
+                out["wkb_k_readings"][k] = {"ms_per_superstep": sum(r[2]) / len(biases),
+                                            "superstep_ms": r[2], "capture_s": cap}
+                _drop_programs(model)
+        finally:
+            current.WKB_PASS_STEPS = saved
+    _drop_programs(model)
+    print(f"chip_smoke: full program {where}: " + json.dumps(out))
+    return out
+
+
+def _drop_programs(model) -> None:
+    """Free the model's superstep programs (a full-physics program holds its
+    W blocks in its graph's pool)."""
+    model.step_graphs.programs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def full_spd(dev, model, p, lat) -> dict:
+    """``superstep_full_multi`` of FP_SPD supersteps per dispatch against one
+    at a time (both on windows of FP_SPD_CHUNK draws) on the sweep's
+    crossbar, bit-equal, one read a dispatch; then the same from a vmax of
+    half the crossbar's vacancies: the first batch overflows it and is
+    discarded and replayed step by step (each step redone at the grown cap),
+    bit-equal to one at a time from the same cap (a fresh model for each of
+    the two runs)."""
+    from akmc_tpu_torch.lattice import ELEM
+    from akmc_tpu_torch.state import make_device_state
+
+    biases = list(p.V_switch[:2])
+    state0 = model.update_cb_edge(make_device_state(lat, p.background_temp, dev), biases[0])
+    model._capture_full(state0, biases[0], FP_SPD)
+
+    def one_at_a_time(m_, state, Vd, stream, m, rscale):
+        sts = []
+        for _ in range(FP_SPD):
+            state, st, m = m_.superstep_full(state, Vd, stream, m_prev=m, rtol_scale=rscale,
+                                             rand_chunk=FP_SPD_CHUNK)
+            sts.append(st)
+        return state, sts, m
+
+    def batched(m_, state, Vd, stream, m, rscale):
+        return m_.superstep_full_multi(state, Vd, stream, FP_SPD, m_prev=m, rtol_scale=rscale,
+                                       rand_chunk=FP_SPD_CHUNK)
+
+    small = max(1, int((lat.element0 == int(ELEM.VACANCY)).sum()) // 2)
+
+    def small_cap():
+        m_, _ = full_model(DECK, dev, pair_table_budget=8e9, vmax=small)
+        return m_
+
+    out = {"k": FP_SPD, "rand_chunk": FP_SPD_CHUNK, "bitwise_equal": True}
+    turns = (("k1", one_at_a_time), ("spd", batched), ("spd", batched), ("k1", one_at_a_time))
+    for label, make in (("spd", lambda: model), ("discard", small_cap)):
+        runs = {}
+        # the discard needs a fresh model a run (its cap grows): one run each way
+        for name, fn in turns if label == "spd" else turns[:2]:
+            m_ = make()
+            counts0 = dict(m_.step_counts)
+            r = _fp_run(m_, p, state0, biases, fn)
+            runs.setdefault(name, []).append(
+                (r, {k: m_.step_counts[k] - counts0[k] for k in counts0}))
+            if m_ is not model:
+                del m_
+                torch.cuda.empty_cache()
+        ref = runs["k1"][0][0]
+        for name, rs in runs.items():
+            for r, _ in rs:
+                _fp_same(f"steps per dispatch, {label}, {name}", ref, r)
+        n = len(biases) * FP_SPD
+        best = {name: min(rs, key=lambda x: sum(x[0][2])) for name, rs in runs.items()}
+        steps = best["spd"][1]
+        if dev.type == "cuda" and label == "spd" and not steps["discards"] and sum(
+                best["spd"][0][3]) != len(biases):
+            fail(f"full program: {FP_SPD} supersteps a dispatch read the host "
+                 f"{best['spd'][0][3]} times in {len(biases)} dispatches")
+        if label == "discard" and not (steps["discards"] and steps["redos"]):
+            fail(f"full program: a vmax of {small} discarded no batch: {steps}")
+        out[label] = {
+            "supersteps": n,
+            "ms_per_superstep_k1": [sum(r[2]) / n for r, _ in runs["k1"]],
+            "ms_per_superstep_spd": [sum(r[2]) / n for r, _ in runs["spd"]],
+            "host_reads_per_dispatch_spd": best["spd"][0][3],
+            "host_reads_per_superstep_k1": sum(best["k1"][0][3]) / n,
+            "discards": steps["discards"], "continues": steps["continues"],
+            "redos": steps["redos"], **({"vmax_from": small} if label == "discard" else {})}
+    _drop_programs(model)
+    print("chip_smoke: full program, steps per dispatch: " + json.dumps(out))
+    return out
+
+
+def standin_heating(dev, synth, synth_dir, event_times) -> dict:
+    """The stand-in's first supersteps with the global heat model and with
+    the local one (the heating deck copies' constants), each through both
+    paths in turns, bit-equal. The local model's delta_t puts 1e3 * delta_t
+    between the shortest and the longest of ``event_times`` (the same
+    supersteps without heat, ``full_turns``'s: the local model moves no
+    rate), so that one superstep is steady and one transient."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.runtime.synth_deck import HEAT_CONSTANTS
+
+    lo, hi = min(event_times), max(event_times)
+    if not 0 < lo < hi:
+        fail(f"full program: the stand-in's event times {event_times} leave no delta_t "
+             "between a steady and a transient superstep")
+    delta_t = math.sqrt(lo * hi) / 1e3
+    base, state = full_model(synth, dev, synth_dir=synth_dir)
+    p0, lat = base.params, base.lat
+    del base
+    out = {}
+    for kind in ("global", "local"):
+        p = p0.replace(solve_heating_global=kind == "global", solve_heating_local=kind == "local",
+                       **{k: float(v) for k, v in HEAT_CONSTANTS.items()},
+                       A=p0.lattice[1] * p0.lattice[2] * 1e-20)
+        if kind == "local":
+            p = p.replace(delta_t=delta_t)
+        model = VCMModel(p, lat, device=dev, rate_normalize=True, pair_table_budget=0.0)
+        biases = list(p.V_switch[:1]) * FP_STANDIN_SUPERSTEPS
+        r = full_turns(dev, model, p, lat, biases, f"stand-in, heat {kind}")
+        if kind == "local":
+            steady = [t > 1e3 * delta_t for t in event_times]
+            r.update(delta_t=delta_t, steady_supersteps=steady)
+        out[kind] = r
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def full_large(dev) -> dict:
+    """One full-physics superstep of the disordered stand-in at 124,412
+    sites (``LARGE_BANDED_N_YZ``, 8 V, tunnelling live) through the program
+    and through the per-loop path, bit-equal: the W blocks' bytes, the energy
+    bounds, ms and host reads of each, the capture and the peak memory."""
+    from akmc_tpu_torch.runtime import synth_deck
+    from akmc_tpu_torch.state import make_device_state
+
+    wd = SYNTH_DIR + f"_full_n{FP_LARGE_N_YZ}"
+    shutil.rmtree(wd, ignore_errors=True)
+    deck = synth_deck.write_synth_deck(DECK, wd, FP_LARGE_N_YZ)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state = full_model(deck, dev, synth_dir=wd, lists_on=dev)
+    p, lat = model.params, model.lat
+    state0 = model.update_cb_edge(state, FP_LARGE_VD)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model._capture_full(state0, FP_LARGE_VD, 1)
+    capture_s = time.perf_counter() - t0
+    runs = {}
+    for programmed in (True, False):
+        with _per_loop(model, not programmed):
+            runs[programmed] = _fp_run(model, p, state0, [FP_LARGE_VD])
+            timing = dict(model.power_timing)
+    _fp_same("124,412 sites: program against loops", runs[False], runs[True])
+    out = {
+        "n_yz": FP_LARGE_N_YZ, "sites": lat.N, "atoms": model.n_atom, "Vd": FP_LARGE_VD,
+        "model": model.describe(), "vmax": model.vmax,
+        "contacts": int(model.current_tables.contact_idx.shape[0]),
+        "w_block_bytes": dict(model.power_bytes),
+        "ct_loop_bounds": timing.get("ct_loop_bounds"),
+        "stats": runs[True][1], "bitwise_equal": True, "build_s": build_s,
+        "capture_s": capture_s,
+        "ms_program": runs[True][2], "ms_loops": runs[False][2],
+        "host_reads_program": runs[True][3], "host_reads_loops": runs[False][3],
+        "wkb_build_ms_loops": 1e3 * timing.get("wkb_build_s", float("nan")),
+        "power_solve_ms_loops": 1e3 * timing.get("power_solve_s", float("nan")),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    if not any(b > 1 for b in out["ct_loop_bounds"] or []):
+        fail(f"full program at {lat.N} sites: no energy loop ran past one step: {out}")
+    _drop_programs(model)
+    del model, state, state0
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: full program at {lat.N} sites: " + json.dumps(out))
+    return out
+
+
 def run_full(dev):
     """(full line, what is wrong with it or None)."""
     from akmc_tpu_torch.runtime import golden, synth_deck
@@ -3552,11 +3921,19 @@ def run_full(dev):
     parts = gold["parts"]
     problems = []
 
-    # the whole sweep through the driver, held to the golden
-    with full_physics_probe() as (steps, cb):
+    # the whole sweep through the driver, held to the golden: each superstep
+    # one program run (FullProgram, one CUDA graph), the driver's default
+    from akmc_tpu_torch.ops import device_loop
+
+    _reset_production_counts()
+    with full_physics_probe() as (steps, cb, models):
         summary, rows, counts = drive(DECK, FULL_DIR, synthesize_crossbar=N_YZ,
                                       committed_parity=False, dia_pallas=True)
+    while_launches = device_loop.while_loop.launches
     check_launches("full", summary, rows, counts)
+    step_counts = dict(models[0].step_counts)
+    if step_counts["per_loop"] or step_counts["runs"] != len(rows) + step_counts["redos"]:
+        problems.append(f"the full sweep did not run one program a superstep: {step_counts}")
     got = golden.summarize(FULL_DIR)
     dist = golden.distance(gold, got)
     bad = golden.compare(gold, got, GOLDEN_KMC_RTOL, power_rtol=FULL_POWER_RTOL)
@@ -3592,7 +3969,8 @@ def run_full(dev):
         "driver_snapshot_s": summary["snapshot_s"],
         "host_syncs": counts["host_syncs"], "host_syncs_per_superstep":
         counts["host_syncs"] / len(rows), "peak_mem_gb": counts["peak_mem_gb"],
-        "wall_s": counts["wall_s"],
+        "wall_s": counts["wall_s"], "step_counts": step_counts,
+        "while_condition_launches": while_launches,
     }
     print(f"chip_smoke: full sweep: {len(rows)} supersteps, P_tot {dist['P_tot_max_rel']:.3e} "
           f"and I_macro {dist['I_macro_max_rel']:.3e} from the golden (relative)")
@@ -3600,11 +3978,29 @@ def run_full(dev):
     if moved or len(dist["power_cg_iterations"]) != len(rows):
         problems.append(f"the power CG's counts differ from the golden's at supersteps {moved}")
 
-    # the same sweep with the host loops of its CGs (power, CB edge): every
-    # row but its time equal; host reads and superstep times before and after
-    with full_physics_probe() as (steps_p, _), cg_as(plain=True):
+    # the same sweep on the per-loop path (each loop on its own, host reads
+    # between them): every row but its time equal
+    with full_physics_probe() as (steps_l, _, _):
+        _, rows_l, counts_l = drive(DECK, FULL_DIR + "_per_loop", synthesize_crossbar=N_YZ,
+                                    committed_parity=False, dia_pallas=True, step_program=False)
+    if _rows_but_time(FULL_DIR + "_per_loop") != _rows_but_time(FULL_DIR):
+        problems.append("the full sweep on the per-loop path differs from the program's: "
+                        + _first_difference(_rows_but_time(FULL_DIR),
+                                            _rows_but_time(FULL_DIR + "_per_loop")))
+    loop_steps = _summarize_steps(steps_l)
+    line["per_loop_sweep"] = {
+        "rows_equal_but_time": True, "driver_supersteps_s": sum(r["superstep_s"] for r in rows_l),
+        "host_syncs_per_superstep": counts_l["host_syncs"] / len(rows_l),
+        **{k: loop_steps[k] for k in ("superstep_ms", "host_reads", "host_reads_per_superstep",
+                                      "wkb_build_ms", "power_solve_ms", "fields_ms")},
+        **{k: loop_steps.get(k) for k in ("wkb_build_device_ms", "power_solve_device_ms")}}
+
+    # the same sweep with the host loops of its CGs (power, CB edge) on the
+    # per-loop path (a host loop cannot be captured): every row but its time
+    # equal; host reads and superstep times before and after
+    with full_physics_probe() as (steps_p, _, _), cg_as(plain=True):
         _, rows_p, counts_p = drive(DECK, FULL_DIR + "_plain_cg", synthesize_crossbar=N_YZ,
-                                    committed_parity=False, dia_pallas=True)
+                                    committed_parity=False, dia_pallas=True, step_program=False)
     if _rows_but_time(FULL_DIR + "_plain_cg") != _rows_but_time(FULL_DIR):
         problems.append("the full sweep with the host-loop CGs differs from the device loops': "
                         + _first_difference(_rows_but_time(FULL_DIR),
@@ -3615,6 +4011,7 @@ def run_full(dev):
         "host_syncs_per_superstep": counts_p["host_syncs"] / len(rows_p),
         "driver_supersteps_s": sum(r["superstep_s"] for r in rows_p),
         "superstep_ms": plain_steps["superstep_ms"],
+        "host_reads_per_superstep": plain_steps["host_reads_per_superstep"],
         "power_solve_ms": plain_steps["power_solve_ms"],
         "power_ms_per_iteration": plain_steps["power_ms_per_iteration"],
     }
@@ -3662,11 +4059,21 @@ def run_full(dev):
     for key in ("tolerances_crossbar", "tolerances_disordered"):
         problems += line[key].pop("problems")
 
-    # three supersteps of the stand-in through the driver, tunneling live
+    # three supersteps of the stand-in through the driver, tunneling live:
+    # through the program, then on the per-loop path (every row but its time equal)
     ref = parts["synth_sweep"]
-    with full_physics_probe() as (steps_s, cb_s):
+    with full_physics_probe() as (steps_s, cb_s, _):
         _, rows_s, counts_s = drive(synth, synth_dir + "_out", committed_parity=False,
                                     max_supersteps=len(ref["supersteps"]))
+    with full_physics_probe() as (steps_sl, _, _):
+        _, rows_sl, _ = drive(synth, synth_dir + "_out_per_loop", committed_parity=False,
+                              max_supersteps=len(ref["supersteps"]), step_program=False)
+    if _rows_but_time(synth_dir + "_out_per_loop") != _rows_but_time(synth_dir + "_out"):
+        problems.append("the stand-in's supersteps on the per-loop path differ from the "
+                        "program's")
+    bounds_s = [b for r in steps_s for b in r["ct_loop_bounds"]]
+    if not any(b > 1 for b in bounds_s):
+        problems.append(f"no energy loop of the stand-in ran past one step: {bounds_s}")
     got_s = golden.summarize(synth_dir + "_out")
     spread_s = gold["spread"]["synth_sweep_band_vs_gather"]
     bad_s = golden.compare(ref, got_s, SYNTH_KMC_RTOL, current_rtol=spread_s["I_macro_max_rel"],
@@ -3687,6 +4094,7 @@ def run_full(dev):
         "cb_edge_solves": cb_s, **_summarize_steps(steps_s),
         "host_syncs_per_superstep": counts_s["host_syncs"] / len(rows_s),
         "peak_mem_gb": counts_s["peak_mem_gb"],
+        "per_loop": {"rows_equal_but_time": True, **_summarize_steps(steps_sl)},
     }
 
     # the two heat models, four supersteps each
@@ -3694,6 +4102,28 @@ def run_full(dev):
         h = heating_part(dev, kind, parts["heating_" + kind])
         problems += h.pop("problems")
         line["heating_" + kind] = h
+
+    # the program against the per-loop path in turns: the sweep's crossbar,
+    # the stand-in (with the WKB integral's k per pass), the stand-in's heat
+    # models, k supersteps a dispatch, the stand-in at 124,412 sites
+    prog = line["program"] = {}
+    model, state = full_model(DECK, dev, pair_table_budget=8e9)
+    p = model.params
+    biases = [Vd for Vd in p.V_switch[: FP_SUPERSTEPS // 2] for _ in range(2)]
+    prog["sweep_crossbar"] = full_turns(dev, model, p, model.lat, biases, "crossbar")
+    prog["steps_per_dispatch"] = full_spd(dev, model, p, model.lat)
+    del model, state
+    torch.cuda.empty_cache()
+    model, _ = full_model(synth, dev, synth_dir=synth_dir)
+    p = model.params
+    prog["standin"] = full_turns(dev, model, p, model.lat,
+                                 list(p.V_switch[:1]) * FP_STANDIN_SUPERSTEPS, "stand-in",
+                                 wkb_ks=FP_WKB_KS)
+    del model
+    torch.cuda.empty_cache()
+    prog["standin_heating"] = standin_heating(dev, synth, synth_dir,
+                                              prog["standin"]["event_time"])
+    prog["large_standin"] = full_large(dev)
     return line, "; ".join(problems) or None
 
 
@@ -4847,6 +5277,9 @@ def main(argv=None) -> int:
             kern["launches_batched_sweep"] = pg["batched_sweep"][key]
         if "flagship" in lines:
             kern["launches_flagship_path"] = lines["flagship"]["production_launches"][key]
+        if "full" in lines and key == "while_condition_launches":
+            # the full-physics sweep through its programs' while nodes
+            kern["launches_full_path"] = lines["full"]["while_condition_launches"]
     # launches on each path that runs the kernels, counted over that path alone
     for kern, key in zip(kernels, ("dia_launches", "dia_cg_launches")):
         # top-level keys: the n_yz=24 sweep's shapes and launches

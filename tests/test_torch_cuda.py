@@ -1157,3 +1157,74 @@ def test_production_graph_matches_per_loop_path(card, case, batch):
                       "kmc_time"):
             assert torch.equal(getattr(ref[0], field), getattr(r[0], field)), field
         assert r[1:] == ref[1:]
+
+
+# ----------------------------------------------------------------------------
+# the full-physics superstep as one CUDA graph (models/step_program.py::FullProgram)
+# ----------------------------------------------------------------------------
+def _full_case(case):
+    """(params, lattice, model options, heating model) of a full-physics case."""
+    name, p, lat, kw = next(c for c in _graph_cases() if c[0] == case.split(":")[0])
+    heating = case.split(":")[1]
+    p = p.replace(
+        solve_current=True, solve_heating_global=heating == "global",
+        solve_heating_local=heating.startswith("local"), dissipation_constant=1e-13,
+        t_ox=5e-9, A=(12 * 2.0e-10) ** 2, c_p=1.92,
+        delta_t=1e-3 if heating == "local-transient" else 1e-13, L_char=3.5e-10,
+        k_th_non_vacancy=0.5, k_th_vacancies=5.0,
+        num_atoms_contact=p.num_atoms_first_layer * p.num_layers_contact)
+    return p, lat, dict(kw, ne_max=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["crossbar-n6:global", "toy-banded:global",
+                                  "toy-banded:local-steady", "toy-banded:local-transient"])
+def test_full_graph_matches_per_loop_path(card, case):
+    """``superstep_full`` as one graph replay each (captured under
+    ``refuse_syncs``) equals the per-loop path to the bit: state, stats, the
+    power solve's warm start and the stream; one host read a superstep after
+    the capture, and one for a ``superstep_full_multi`` batch of 2."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.state import make_device_state
+
+    p, lat, kw = _full_case(case)
+
+    def reads_of(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    runs = []
+    for programmed in (False, True, True):
+        m = VCMModel(p, lat, device=card, step_program=programmed, **kw)
+        s = m.update_cb_edge(make_device_state(lat, p.background_temp, m.device), 5.0)
+        stream = BufferedStream(ReferenceRNG(1))
+        stats, reads, mw = [], [], None
+        for i in range(3):
+            (s, st, mw), n = reads_of(lambda: m.superstep_full(
+                s, 5.0, stream, m_prev=mw, rtol_scale=1e-2 if i % 2 else 1.0))
+            stats.append(st)
+            reads.append(n)
+        for i in range(2):
+            (s, more, mw), n = reads_of(lambda: m.superstep_full_multi(s, 5.0, stream, 2,
+                                                                        m_prev=mw))
+            stats += more
+            reads.append(n)
+        if programmed:
+            assert m.step_counts["per_loop"] == 0 and m.step_counts["discards"] == 0
+            assert reads[1:3] == [1, 1] and reads[4] == 1, reads   # first calls capture
+        runs.append((s, stats, mw, stream.peek(1)[0]))
+    ref = runs[0]
+    for r in runs[1:]:
+        for field in ("element", "charge", "potential_boundary", "potential_charge",
+                      "kmc_time", "power", "temperature", "T_bg"):
+            assert torch.equal(getattr(ref[0], field), getattr(r[0], field)), field
+        assert torch.equal(ref[2], r[2])
+        assert r[1] == ref[1] and r[3] == ref[3]

@@ -50,13 +50,22 @@ def test_superstep_full_matches_akmc_tpu(heating):
     to 1e-8 (the CGs differ in the order of their sums only; the K-CG may
     stop an iteration apart, which moves the event time by ~2e-7); the heat
     model's rise over 300 K to 1e-6 (T_bg, or the temperature vector, which
-    must move)."""
+    must move). The port runs them through its program (one read a
+    superstep) and through the per-loop path (``step_program=False``): the
+    two give the same bits."""
     p, jm, tm, js, ts = _models(heating)
-    jstream, tstream = BufferedStream(ReferenceRNG(1)), TStream(TRNG(1))
-    mj = mt = None
+    lm = TModel(tm.params, tm.lat, device="cpu", vmax=64, ne_max=512, step_program=False)
+    ls = ts
+    jstream, tstream, lstream = (BufferedStream(ReferenceRNG(1)), TStream(TRNG(1)),
+                                 TStream(TRNG(1)))
+    mj = mt = ml = None
     for _ in range(3):
         js, sj, mj = jm.superstep_full(js, VD, jstream, m_prev=mj)
         ts, st, mt = tm.superstep_full(ts, VD, tstream, m_prev=mt)
+        ls, sl, ml = lm.superstep_full(ls, VD, lstream, m_prev=ml)
+        assert sl == st and torch.equal(ml, mt)
+        for name in ("element", "charge", "kmc_time", "power", "temperature", "T_bg"):
+            assert torch.equal(getattr(ls, name), getattr(ts, name)), name
         for key in ("n_events", "power_cg_iterations"):
             assert st[key] == sj[key], key
         np.testing.assert_allclose(st["event_time"], sj["event_time"], rtol=1e-6)
@@ -64,6 +73,7 @@ def test_superstep_full_matches_akmc_tpu(heating):
         np.testing.assert_allclose(st["P_tot"], sj["P_tot"], rtol=1e-8)
         np.testing.assert_allclose(st["T_bg"] - 300.0, sj["T_bg"] - 300.0, rtol=1e-6)
         assert float(ts.T_bg) == st["T_bg"]
+    assert tm.step_counts["runs"] == 3 and lm.step_counts["per_loop"] == 3
     np.testing.assert_array_equal(ts.element.numpy(), np.asarray(js.element))
     np.testing.assert_allclose(ts.power.numpy(), np.asarray(js.power), rtol=1e-6,
                                atol=1e-8 * np.abs(np.asarray(js.power)).max())
@@ -122,13 +132,24 @@ def test_drivers_full_physics_n6(tmp_path):
     [uS] lines at the same places with values within CURRENT_RTOL_N6, events,
     superstep count and final elements exact, KMC times to 1e-10, P_tot to
     1e-8 and the power-CG counts equal."""
+    _drivers_full_physics_n6(tmp_path, 1)
+
+
+def test_drivers_full_physics_n6_steps_per_dispatch(tmp_path):
+    """The same with --steps-per-dispatch 2 (superstep_full_multi in both
+    drivers; the port's batches run as one program each)."""
+    _drivers_full_physics_n6(tmp_path, 2)
+
+
+def _drivers_full_physics_n6(tmp_path, spd):
     from akmc_tpu.runtime import driver as jdriver
 
     jdir, tdir = tmp_path / "jax", tmp_path / "torch"
     jdriver.run(DECK, workdir=str(jdir), synthesize_crossbar=6, committed_parity=False,
-                log=False)
+                log=False, steps_per_dispatch=spd)
     summary = tdriver.run(DECK, workdir=str(tdir), synthesize_crossbar=6,
-                          committed_parity=False, device="cpu", log=False)
+                          committed_parity=False, device="cpu", log=False,
+                          steps_per_dispatch=spd)
     lj, lt = _log_lines(jdir), _log_lines(tdir)
     value = re.compile(r"^(Current \[uA\]|Conductance \[uS\]): (\S+)$")
     assert len(lj) == len(lt)
