@@ -43,6 +43,15 @@ packed as ``akmc_tpu`` packs it (``vcm.py:1186-1197``)
 recordings. ``Vd``, ``mass_eps`` and ``k_extrap`` are 0-d tensors of the
 program, so one capture serves every value; the state, ``pb_prev2`` and the
 key are copied in.
+
+The deck modes and the per-bias CB edge run as programs too, the
+counterparts of ``akmc_tpu``'s ``_fields_jit``, ``_events_only_jit`` and
+``_cb_jit`` (``vcm.py:457-460``, ``:1477-1498``): ``FieldsProgram`` (``_fields``
+with the K-CG a while loop; ``[cg_iterations, q_ovf, v_ovf, c_ovf]``),
+``EventsOnlyProgram`` (the rate table on the state's stale charge and summed
+potential, then the serial loop on one window; ``[n_events, draws_used,
+event_time, done]``) and ``CbEdgeProgram`` (``solve_cb_edge`` with its CG a
+while loop; ``[cg_iterations]``), each followed by the loops' recordings.
 """
 
 from __future__ import annotations
@@ -61,6 +70,8 @@ from akmc_tpu_torch.ops.events import _BatchedProgram, _pack_code, _SerialProgra
 DIAG = 8     # entries per superstep of the packed diagnostics
 PRODUCTION_DIAG = 10     # the production supersteps' (akmc_tpu's _step_b's)
 FULL_DIAG = 12     # the full-physics supersteps' (akmc_tpu's _pack_diag_full)
+FIELDS_DIAG = 4    # the fields-only call's: [cg_iterations, q_ovf, v_ovf, c_ovf]
+EVENTS_DIAG = 4    # the events-only call's: [n_events, draws_used, event_time, done]
 MAX_BATCHES = 1 << 14    # the batched loop's cap (run_event_loop_batched's default)
 MAX_EVENTS = 1 << 20     # the native loop's (run_event_loop_native's default)
 
@@ -79,6 +90,7 @@ class _Program:
         self.captured: Tuple[Dict[str, torch.Tensor], torch.Tensor, device_loop.Recording] = None
         self.capture_s = 0.0     # host seconds of the warm run, capture, instantiation, first launch
         self.runs = 0
+        self.bound: List[tuple] = []     # what the graph binds from outside its pools
 
     def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         raise NotImplementedError
@@ -103,12 +115,13 @@ class _Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph), device_loop.refuse_syncs(), \
-                    device_loop.recording(rec):
+            with device_loop.tracing_bindings(dev) as bound, torch.cuda.graph(graph), \
+                    device_loop.refuse_syncs(), device_loop.recording(rec):
                 out, stats = self.body()
         finally:
             if collecting:
                 gc.enable()
+        self.bound = bound
         # one launch now, whose counts are dropped: a graph's first launch
         # uploads it, which belongs to the capture's cost, not a dispatch's
         with dia_cg.iterations_total_kept(dev):
@@ -438,3 +451,110 @@ class FullProgram(SuperstepProgram):
                    P=fr.P, etype=fr.etype, ln_S=fr.ln_S)
         rec = device_loop._RECORDING
         return out, torch.cat([torch.stack(rows).reshape(-1), *rec.pack()])
+
+
+class FieldsProgram(_Program):
+    """The fields of one state at one bias, ``akmc_tpu``'s ``_fields_jit``
+    (``fields_only``, ``perturb_structure = 0``): ``VCMModel._fields`` with
+    the K-CG a while loop (on the DIA operator the fused kernel's one
+    cooperative launch and the matvec's, both recorded by the capture),
+    packed as ``[cg_iterations, q_ovf, v_ovf, c_ovf]`` and the loops'
+    recordings. ``Vd`` is a 0-d tensor of the program; the state is copied
+    in. ``run`` gives the charge, the boundary and the summed potential."""
+
+    def __init__(self, model, state):
+        self._init_program(model)
+        self.n_diag = FIELDS_DIAG
+        self.element = state.element.clone()
+        self.charge = state.charge.clone()
+        self.pb = state.potential_boundary.clone()
+        self.T_bg = state.T_bg.clone()
+        self.Vd = torch.zeros((), dtype=torch.float64, device=self.device)
+
+    def load(self, state, Vd: float) -> None:
+        self.element.copy_(state.element)
+        self.charge.copy_(state.charge)
+        self.pb.copy_(state.potential_boundary)
+        self.T_bg.copy_(state.T_bg)
+        self.Vd.fill_(float(Vd))
+
+    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The fields on the loaded inputs: (outputs, the packed vector).
+        Reads nothing back; run it inside ``device_loop.recording``."""
+        f64 = torch.float64
+        fr = self.model._fields(self.element, self.charge, self.pb, self.T_bg, self.Vd)
+        diag = torch.stack([torch.as_tensor(fr.cg_iterations, device=self.device).to(f64),
+                            fr.q_overflow.to(f64), fr.v_overflow.to(f64),
+                            fr.c_overflow.to(f64)])
+        out = dict(charge=fr.charge, potential_boundary=fr.potential_boundary,
+                   potential_sum=fr.potential_sum)
+        return out, torch.cat([diag, *device_loop._RECORDING.pack()])
+
+
+class EventsOnlyProgram(SuperstepProgram):
+    """The event step on a state's stale charge and summed potential,
+    ``akmc_tpu``'s ``_events_only_jit`` (``superstep_events_only``,
+    ``solve_potential = 0``): the rate table (``VCMModel._build_rates``), then
+    the serial loop as a while loop on one window of ``chunk`` draws, packed
+    as ``[n_events, draws_used, event_time, done]`` and the loops'
+    recordings. ``run`` gives the new element and charge, the event time,
+    and the mutated rate table, event types and rate scale (the program's
+    until its next run) for an events-only continuation."""
+
+    ROW = EVENTS_DIAG
+
+    def __init__(self, model, state, chunk: int):
+        super().__init__(model, state, 1, chunk, False)
+        self.pc = state.potential_charge.clone()
+
+    def load(self, state, window) -> None:
+        """Copy the state and the window of draws in (no bias: nothing is solved)."""
+        super().load(state, 0.0, window)
+        self.pc.copy_(state.potential_charge)
+
+    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        m, loop = self.model, self.loop
+        f64 = torch.float64
+        P, etype, ln_S = m._build_rates(self.element, self.charge, self.pc, self.T_bg)
+        loop.load(self.element, self.charge, P, etype, ln_S, None)
+        loop.base.zero_()
+        loop.run_nested()
+        element, charge, ev_time = loop.results(self.element, self.charge, P)
+        diag = torch.stack([loop.n_ev.to(f64), loop.cnt.to(f64), ev_time,
+                            (ev_time >= 1.0 / m.params.freq).to(f64)])
+        out = dict(element=element, charge=charge, event_time=ev_time, P=P, etype=etype,
+                   ln_S=ln_S)
+        return out, torch.cat([diag, *device_loop._RECORDING.pack()])
+
+
+class CbEdgeProgram(_Program):
+    """The conduction-band edge at one bias, ``akmc_tpu``'s ``_cb_jit``
+    (``update_cb_edge``, once per bias point): ``solve_cb_edge``'s system
+    and its ``symscaled_cg`` as a while loop, packed as ``[cg_iterations]``
+    and the loop's recordings. ``Vd`` is a 0-d tensor of the program; the
+    element, charge and previous edge are copied in."""
+
+    def __init__(self, model, state):
+        self._init_program(model)
+        self.n_diag = 1
+        self.element = state.element.clone()
+        self.charge = state.charge.clone()
+        self.cb_prev = state.cb_edge.clone()
+        self.Vd = torch.zeros((), dtype=torch.float64, device=self.device)
+
+    def load(self, state, Vd: float) -> None:
+        self.element.copy_(state.element)
+        self.charge.copy_(state.charge)
+        self.cb_prev.copy_(state.cb_edge)
+        self.Vd.fill_(float(Vd))
+
+    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        from akmc_tpu_torch.solvers.poisson import solve_cb_edge
+
+        m = self.model
+        p, t = m.params, m.tables
+        cb, res = solve_cb_edge(self.element, self.charge, self.cb_prev, t.k_neigh_idx,
+                                t.metal_or_edge, self.Vd, p.high_G * 100000, p.low_G,
+                                p.num_atoms_first_layer, graphs=m.cg_graphs)
+        it = torch.as_tensor(res.iterations, device=self.device).to(torch.float64).reshape(1)
+        return {"cb_edge": cb}, torch.cat([it, *device_loop._RECORDING.pack()])

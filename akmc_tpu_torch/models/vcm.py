@@ -26,7 +26,9 @@ each runs as one program too (``ProductionProgram``), drawing inside it.
 ``superstep_full`` is the full-physics superstep (``--full-physics``):
 the fields, then the current and dissipated power on this superstep's charge,
 then the events, then the heat model over their time; ``update_cb_edge`` solves
-the conduction-band edge once per bias point.
+the conduction-band edge once per bias point. The deck modes (``fields_only``,
+``superstep_events_only``) and ``update_cb_edge`` run as one program a call
+too, as ``akmc_tpu`` runs ``_fields_jit``, ``_events_only_jit`` and ``_cb_jit``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,14 @@ from scipy.special import erfc
 from akmc_tpu_torch.config import KMCParameters
 from akmc_tpu_torch.device import resolve_device
 from akmc_tpu_torch.lattice import ELEM, Lattice, metal_mask
-from akmc_tpu_torch.models.step_program import FullProgram, ProductionProgram, SuperstepProgram
+from akmc_tpu_torch.models.step_program import (
+    CbEdgeProgram,
+    EventsOnlyProgram,
+    FieldsProgram,
+    FullProgram,
+    ProductionProgram,
+    SuperstepProgram,
+)
 from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops import events as events_mod
 from akmc_tpu_torch.ops.charge import update_charge_compact
@@ -211,7 +220,8 @@ class VCMModel:
         program per dispatch (``models/step_program.py``; on one device
         only: under a mesh the collectives keep the loops on the host), and
         so do ``superstep_native`` and ``superstep_native_batched`` on a
-        ``KeyDraws`` source. False runs the fields and each loop as their
+        ``KeyDraws`` source, the full-physics supersteps, the deck modes and
+        ``update_cb_edge``. False runs the fields and each loop as their
         own device loops, with host reads between them: the same results to
         the bit."""
         self.params, self.lat = params, lat
@@ -226,6 +236,9 @@ class VCMModel:
         self._power_band = self._power_band_meta = self._power_grounded = None
         self._local_heat: Optional[LocalHeat] = None
         self.cb_iterations = 0      # CG iterations of the last ``update_cb_edge``
+        # ``update_cb_edge`` calls as a program run (one host read each) and on
+        # the per-loop path: counted apart from the supersteps' ``step_counts``
+        self.cb_counts = dict.fromkeys(("runs", "per_loop"), 0)
         self.power_timing = {}      # host seconds of the last power solve's parts
         self.power_bytes = {}       # bytes this rank held of the last power system's blocks
         self.device = dev = resolve_device(device)
@@ -245,7 +258,7 @@ class VCMModel:
         # caps, and what the dispatches did: program runs (one host read each),
         # steps redone on a grown cap, events-only chunks after a window ran
         # out, batches of ``superstep_multi`` discarded and replayed, and the
-        # production supersteps that took the per-loop path instead
+        # supersteps and deck-mode calls that took the per-loop path instead
         self.step_graphs = LoopGraphs()
         self.step_counts = dict.fromkeys(
             ("runs", "redos", "continues", "discards", "per_loop"), 0)
@@ -829,15 +842,34 @@ class VCMModel:
     def fields_only(self, state: DeviceState, Vd: float) -> Tuple[DeviceState, dict]:
         """Charges and both potentials without the event step
         (``perturb_structure = 0``, kmc_main.cpp:484), caps grown: the
-        state's charge, boundary and summed potentials replaced."""
-        fr = self._fields_grown(state, Vd)
-        new_state = state.replace(
-            charge=fr.charge,
-            potential_boundary=fr.potential_boundary,
-            potential_charge=fr.potential_sum,
-        )
+        state's charge, boundary and summed potentials replaced.
+
+        As ``akmc_tpu`` runs it (``_fields_jit``): one program
+        (``FieldsProgram``; on a card one CUDA graph) and one read of its
+        four diagnostics; on an overflow of a cap the exceeded caps double
+        and the fields are redone from the same inputs. Without
+        ``step_program`` (or under a mesh): ``_fields_grown``, the per-loop
+        path (``step_counts["per_loop"]``); the same bits."""
+        if not self._programmed():
+            self.step_counts["per_loop"] += 1
+            fr = self._fields_grown(state, Vd)
+            charge, pb, pc, iters = (fr.charge, fr.potential_boundary, fr.potential_sum,
+                                     fr.cg_iterations)
+        else:
+            while True:
+                prog = self._deck_program("fields", state)
+                prog.load(state, Vd)
+                out, d = prog.run()
+                self.step_counts["runs"] += 1
+                if not self._grow(d[1], d[2], d[3]):
+                    break
+                self.step_counts["redos"] += 1
+                self._drop_stale_programs()
+            charge, pb, pc, iters = (out["charge"], out["potential_boundary"],
+                                     out["potential_sum"], int(d[0]))
+        new_state = state.replace(charge=charge, potential_boundary=pb, potential_charge=pc)
         self._count_cg_step()
-        return new_state, {"cg_iterations": fr.cg_iterations}
+        return new_state, {"cg_iterations": iters}
 
     def superstep_events_only(
         self, state: DeviceState, stream, rand_chunk: int = RAND_CHUNK
@@ -846,16 +878,70 @@ class VCMModel:
         potential (``solve_potential = 0``: the reference's event step reads
         whatever ``site_potential_charge`` holds, kmc_main.cpp:491): the rate
         table, then the serial loop to its end over rand chunks; ``stream``
-        advances by exactly the draws used."""
-        P, etype, ln_S = self._build_rates(
-            state.element, state.charge, state.potential_charge, state.T_bg)
-        res = self._events_to_the_end(state.element, state.charge, P, etype, ln_S,
-                                      stream, rand_chunk)
-        new_state = state.replace(element=res.element, charge=res.charge,
-                                  kmc_time=state.kmc_time + res.event_time)
+        advances by exactly the draws used.
+
+        As ``akmc_tpu`` runs it (``_events_only_jit``): one program
+        (``EventsOnlyProgram``; on a card one CUDA graph) on a window of
+        ``rand_chunk`` draws and one read of its four diagnostics; a window
+        that runs out goes on in events-only chunks (``_continue``), as
+        ``akmc_tpu`` goes on chunk by chunk. Without ``step_program`` (or
+        under a mesh): the per-loop path (``step_counts["per_loop"]``); the
+        same bits."""
+        if not self._programmed():
+            self.step_counts["per_loop"] += 1
+            P, etype, ln_S = self._build_rates(
+                state.element, state.charge, state.potential_charge, state.T_bg)
+            res = self._events_to_the_end(state.element, state.charge, P, etype, ln_S,
+                                          stream, rand_chunk)
+            element, charge, n_events = res.element, res.charge, res.n_events
+            ev_time, ev_h = res.event_time, res.event_time_h
+        else:
+            prog = self._deck_program("events_only", state, rand_chunk)
+            prog.load(state, stream.peek(rand_chunk))
+            out, (d,) = prog.run()
+            self.step_counts["runs"] += 1
+            stream.advance(int(d[1]))
+            n_events, ev_time, ev_h = int(d[0]), out["event_time"], d[2]
+            element, charge = out["element"], out["charge"]
+            if not d[3]:
+                element, charge, n_events, ev_time, ev_h = self._continue(
+                    out, element, charge, n_events, ev_time, stream, rand_chunk)
+        new_state = state.replace(element=element, charge=charge,
+                                  kmc_time=state.kmc_time + ev_time)
         self._count_cg_step()
-        return new_state, {"n_events": res.n_events, "event_time": res.event_time_h,
-                           "cg_iterations": 0}
+        return new_state, {"n_events": n_events, "event_time": ev_h, "cg_iterations": 0}
+
+    def _deck_program(self, kind: str, state: DeviceState, chunk: int = 0):
+        """The program of a deck mode or of the CB edge at the current caps
+        (``kind`` "fields": ``FieldsProgram``; "events_only":
+        ``EventsOnlyProgram`` on windows of ``chunk`` draws; "cb_edge":
+        ``CbEdgeProgram``), built once per key:
+        kind, chunk, caps (at the serial programs' places, which
+        ``_drop_stale_programs`` reads), the loops' steps per pass, the
+        options its body reads, the state's types and the static tables'
+        addresses."""
+        t = self.tables
+        key = (kind, 1, chunk, self.qmax, self.vmax, self.pair_cand_cap,
+               cg_mod.CG_NODE_K, events_mod.SERIAL_NODE_K, self._incremental_select(),
+               self.pair_f32, self.rate_normalize, state.element.dtype, state.charge.dtype,
+               tuple((x.data_ptr(), tuple(x.shape)) for x in
+                     (t.act_neigh, t.act_idx, t.abs2act, t.act_zero_rows, t.k_neigh_idx)))
+        make = {"fields": lambda: FieldsProgram(self, state),
+                "events_only": lambda: EventsOnlyProgram(self, state, chunk),
+                "cb_edge": lambda: CbEdgeProgram(self, state)}[kind]
+        return self.step_graphs.get(key, make)
+
+    def _capture_deck(self, kind: str, state: DeviceState, Vd: float):
+        """Build, and on a card capture, the program of ``kind``
+        (``_deck_program``; events only on ``RAND_CHUNK`` draws) warmed on
+        ``state`` at ``Vd`` (a window of zeros). Changes no state."""
+        prog = self._deck_program(kind, state, RAND_CHUNK if kind == "events_only" else 0)
+        if kind == "events_only":
+            prog.load(state, np.zeros(RAND_CHUNK))
+        else:
+            prog.load(state, Vd)
+        prog.capture()
+        return prog
 
     def _cg_totals(self) -> dict:
         """The counts of every CG program of ``cg_graphs``, summed."""
@@ -1114,8 +1200,15 @@ class VCMModel:
         the host seconds of each item. Under ``full_physics`` on a card the
         full-physics program of ``steps_per_dispatch`` supersteps is
         captured instead (``_capture_full``), warmed on ``state`` as it is
-        (its CB edge as the caller last solved it)."""
+        (its CB edge as the caller last solved it), and the CB edge's
+        program (``_capture_deck``). On a deck mode (the params'
+        ``perturb_structure = 0``: fields only; else ``solve_potential =
+        0`` without ``full_physics``: events only) its program instead of
+        the superstep's."""
         out = {}
+        p = self.params
+        deck = ("fields" if not p.perturb_structure
+                else "events_only" if not p.solve_potential and not full_physics else None)
 
         def timed(name, fn):
             t0 = time.perf_counter()
@@ -1144,12 +1237,17 @@ class VCMModel:
                 timed("local_heat", lambda: self.local_heat)
         if self.device.type == "cuda":
             timed("cg_loops", lambda: self._capture_cgs(state, Vd, full_physics))
-        if production and not full_physics:
+        programmed = self.device.type == "cuda" and self._programmed()
+        if programmed and full_physics:
+            timed("cb_edge_program", lambda: self._capture_deck("cb_edge", state, Vd))
+        if programmed and deck:
+            timed(f"{deck}_program", lambda: self._capture_deck(deck, state, Vd))
+        elif production and not full_physics:
             timed(f"production_program_B{batched}",
                   lambda: self._capture_production(state, Vd, batched, clock_f32))
-        elif self.device.type == "cuda" and self._programmed() and full_physics:
+        elif programmed and full_physics:
             timed("full_program", lambda: self._capture_full(state, Vd, steps_per_dispatch))
-        elif self.device.type == "cuda" and self._programmed() and not batched:
+        elif programmed and not batched:
             timed("superstep_program",
                   lambda: self._capture_program(state, Vd, steps_per_dispatch))
         self._cg_mark = self._cg_totals()
@@ -1161,8 +1259,9 @@ class VCMModel:
         into ``cg_graphs`` at this model's shapes: the banded or ELL K solve
         (counted in ``k_solves`` and ``k_iterations`` as any solve) and,
         under ``full_physics``, the CB-edge and power solves and, with the
-        local heat model, the steady heat solve (on zero power). Under a mesh
-        the CGs are host loops: nothing to capture."""
+        local heat model, the steady heat solve (on zero power); the CB-edge
+        solve only on the per-loop path. Under a mesh the CGs are host loops:
+        nothing to capture."""
         if self.mesh is not None:
             return
         if not isinstance(self.kop, DiaK):
@@ -1171,9 +1270,10 @@ class VCMModel:
         if not full_physics:
             return
         p, t = self.params, self.tables
-        solve_cb_edge(state.element, state.charge, state.cb_edge, t.k_neigh_idx,
-                      t.metal_or_edge, Vd, p.high_G * 100000, p.low_G,
-                      p.num_atoms_first_layer, max_iterations=0, graphs=self.cg_graphs)
+        if not self._programmed():       # else the CB edge runs as a program (``warmup``)
+            solve_cb_edge(state.element, state.charge, state.cb_edge, t.k_neigh_idx,
+                          t.metal_or_edge, Vd, p.high_G * 100000, p.low_G,
+                          p.num_atoms_first_layer, max_iterations=0, graphs=self.cg_graphs)
         m0 = torch.zeros(self.n_atom + 2, dtype=torch.float64, device=self.device)
         self._power(state.element, state.charge, state.cb_edge, m0, Vd, self.power_rtol_scale,
                     max_iterations=0)
@@ -1221,7 +1321,20 @@ class VCMModel:
     # (update_power_gpu, current_solver_gpu.cu:2382-2573; heat_solver.cpp)
     # ------------------------------------------------------------------
     def update_cb_edge(self, state: DeviceState, Vd: float) -> DeviceState:
-        """The conduction-band edge at bias ``Vd`` (once per bias point)."""
+        """The conduction-band edge at bias ``Vd`` (once per bias point). As
+        ``akmc_tpu`` runs it (``_cb_jit``): one program (``CbEdgeProgram``;
+        on a card one CUDA graph, its CG a while node) and one read of its
+        iteration count; without ``step_program`` (or under a mesh) the CG's
+        device loop (host loop under a mesh), the same bits. ``cb_counts``
+        counts which ran."""
+        if self._programmed():
+            prog = self._deck_program("cb_edge", state)
+            prog.load(state, Vd)
+            out, d = prog.run()
+            self.cb_counts["runs"] += 1
+            self.cb_iterations = int(d[0])
+            return state.replace(cb_edge=out["cb_edge"])
+        self.cb_counts["per_loop"] += 1
         p, t = self.params, self.tables
         cb, res = solve_cb_edge(
             state.element, state.charge, state.cb_edge, t.k_neigh_idx, t.metal_or_edge, Vd,
@@ -1439,7 +1552,13 @@ class VCMModel:
         superstep was done, the loop goes on in events-only chunks on the
         mutated table, as ``superstep`` does, and the heat model is applied
         again, on the host path, over the whole event time (the program's
-        heat output is dropped). Without ``step_program`` (or under a mesh):
+        heat output is dropped). ``akmc_tpu`` instead throws such a step away
+        and runs it again from the same cursor on a window four times larger
+        (``akmc_tpu/models/vcm.py:1633-1638``); the two give the same events,
+        draws and elements and the same heat up to the CGs' sum order
+        (``tests/test_torch_full_program.py::test_window_runs_out_as_akmc_tpu``),
+        and the continuation solves neither the fields nor the power again,
+        so the port keeps it. Without ``step_program`` (or under a mesh):
         the per-loop path (``step_counts["per_loop"]``), the fields with
         their caps grown first, then each loop on its own; the same bits."""
         if m_prev is None:

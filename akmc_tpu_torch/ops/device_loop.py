@@ -38,6 +38,7 @@ its result.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import ctypes
 import functools
@@ -46,6 +47,8 @@ import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
+from torch.utils import _pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 class StepProgram:
@@ -62,6 +65,7 @@ class StepProgram:
         self.graph = None
         self.capture_s = 0.0        # host seconds of the warm body, capture and instantiation
         self.launches: List = []    # kernel wrappers the graph launches, once each per replay
+        self.bound: List[tuple] = []    # what the graph binds from outside its pools (``tracing_bindings``)
 
     def capture(self, warm: bool = True) -> None:
         if self.device.type != "cuda":
@@ -80,12 +84,13 @@ class StepProgram:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph), _launches_into([]) as fns:
+            with tracing_bindings(self.device) as bound, torch.cuda.graph(graph), \
+                    _launches_into([]) as fns:
                 self.body()
         finally:
             if collecting:
                 gc.enable()
-        self.graph, self.launches = graph, fns
+        self.graph, self.launches, self.bound = graph, fns, bound
         self.capture_s = time.perf_counter() - t0
 
     def run(self) -> None:
@@ -210,6 +215,128 @@ class GraphLoop:
             live_before = live
             if not flags[0]:
                 return flags, replays, steps
+
+
+# ----------------------------------------------------------------------
+# what a captured graph binds from outside its private pools, and memory it
+# does not own filled with NaN: two checks of a graph's lifetimes, which
+# ``chip_smoke.py`` turns on (``TRACE_BINDINGS``); the main path runs neither
+# ----------------------------------------------------------------------
+TRACE_BINDINGS = False
+_BINDS: Optional[List[tuple]] = None     # (address, bytes) of each storage touched
+
+
+def _span(t: torch.Tensor) -> tuple:
+    st = t.untyped_storage()
+    return st.data_ptr(), st.nbytes()
+
+
+def bind(*tensors: Optional[torch.Tensor]) -> None:
+    """The tensors whose addresses a kernel wrapper hands to CUDA itself (a
+    raw pointer, which no PyTorch operation shows): noted for the binding
+    trace of a capture under way, else nothing."""
+    if _BINDS is not None:
+        _BINDS.extend(_span(t) for t in tensors if t is not None and t.is_cuda)
+
+
+class _Touches(TorchDispatchMode):
+    """Notes the storage of every CUDA tensor an operation takes or gives."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        bind(*(t for t in _pytree.tree_leaves((args, kwargs, out))
+               if isinstance(t, torch.Tensor)))
+        return out
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def live_blocks(device: torch.device) -> List[tuple]:
+    """(start, end) of every block the caching allocator has handed out on
+    ``device`` and not taken back, sorted (``torch.cuda.memory_snapshot``)."""
+    idx = _index(device)
+    return sorted((b["address"], b["address"] + b["size"])
+                  for seg in torch.cuda.memory_snapshot() if seg["device"] == idx
+                  for b in seg["blocks"] if b["state"] == "active_allocated")
+
+
+def _inside(blocks: List[tuple], ptr: int, n: int) -> bool:
+    i = bisect.bisect_right(blocks, (ptr, float("inf"))) - 1
+    return i >= 0 and blocks[i][0] <= ptr and ptr + n <= blocks[i][1]
+
+
+@contextlib.contextmanager
+def tracing_bindings(device: torch.device):
+    """Around a capture: yields a list that, once the block has ended, holds
+    the (address, bytes) of each storage the capture touched (an operation's
+    tensors, a kernel wrapper's ``bind``) that lay in a block handed out
+    before it began: what the graph binds from outside its private pools
+    (operands, loaded inputs, key state, a kernel's workspace), which must
+    outlive it. Empty unless ``TRACE_BINDINGS``."""
+    global _BINDS
+    bound: List[tuple] = []
+    if not TRACE_BINDINGS or device.type != "cuda":
+        yield bound
+        return
+    before = live_blocks(device)
+    prev, _BINDS = _BINDS, []
+    try:
+        with _Touches():
+            yield bound
+    finally:
+        seen, _BINDS = _BINDS, prev
+    bound.extend(sorted({(p, n) for p, n in seen if n and _inside(before, p, n)}))
+
+
+def stale_bindings(bound: Sequence[tuple], device: torch.device) -> List[tuple]:
+    """The spans of ``bound`` (``tracing_bindings``) that lie inside no live
+    block now: a replay would read or write memory the allocator has taken
+    back or handed to another tensor's block."""
+    blocks = live_blocks(device)
+    return [(p, n) for p, n in bound if not _inside(blocks, p, n)]
+
+
+def private_pools(device: torch.device) -> List[tuple]:
+    """The while bodies' pools on ``device`` (``body_pool``), every depth."""
+    return [pool for (idx, _), pool in _BODY_POOLS.items() if idx == _index(device)]
+
+
+def poison_free_blocks(device: torch.device, pools: Sequence[tuple] = ()) -> int:
+    """Fill every free block of the caching allocator on ``device``, in the
+    default pool and in each private pool of ``pools`` (a graph's, the while
+    bodies'), with 0xFF bytes (NaN as f64, -1 as an integer), then give them
+    back: a replay that reads memory it does not own, or a temporary before
+    writing it, then reads those. Each block is taken by an allocation of its
+    size on its own stream, largest first. Returns the bytes filled."""
+    idx = _index(device)
+    groups: Dict[tuple, List[int]] = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg["segment_pool_id"])
+        if seg["device"] != idx or (any(pool) and pool not in pools):
+            continue
+        for b in seg["blocks"]:
+            if b["state"] == "inactive":
+                groups.setdefault((pool, seg["stream"]), []).append(b["size"])
+    held, filled = [], 0
+    for (pool, stream), sizes in groups.items():
+        s = (torch.cuda.default_stream(device) if stream == 0
+             else torch.cuda.ExternalStream(stream, device=device))
+        with torch.cuda.stream(s):
+            if any(pool):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(idx, pool)
+            try:
+                for n in sorted(sizes, reverse=True):
+                    held.append(torch.empty(n, dtype=torch.uint8, device=device).fill_(255))
+                    filled += n
+            finally:
+                if any(pool):    # each begin counts a user of the pool: give it back
+                    torch._C._cuda_endAllocateToPool(idx, pool)
+                    torch._C._cuda_releasePool(idx, pool)
+    torch.cuda.synchronize(device)
+    del held
+    return filled
 
 
 # ----------------------------------------------------------------------
@@ -385,6 +512,7 @@ def _while_node(live: torch.Tensor, body: Callable[[], None], depth: int) -> Non
     if side is None:
         side = _BODY_STREAMS[(dev.index, depth)] = torch.cuda.Stream(dev)
     handle = ctypes.c_ulonglong()
+    bind(live)
     err = lib.graph_while_begin(outer.cuda_stream, side.cuda_stream, live.data_ptr(),
                                 ctypes.byref(handle))
     if err:

@@ -138,6 +138,7 @@ class DiaOperator:
             out = torch.empty((2, self.rows), dtype=torch.float64, device=dev)
         else:
             require_tensor("out", out, torch.float64, (2, self.rows), dev)
+        device_loop.bind(self.diags, self.offsets, x, xv, out)
         args = (self._op_ref, x.data_ptr(), xv.data_ptr(), out.data_ptr(),
                 current_raw_stream(dev.index))
         if torch.cuda.current_device() == dev.index:
@@ -192,8 +193,8 @@ def dia_combined_matvec_plain(
     xp[maxo : maxo + n] = x
     vp = torch.zeros(n + 2 * maxo, dtype=xv.dtype, device=xv.device)
     vp[maxo : maxo + n] = xv
-    hi = torch.tensor(float(val_high), dtype=x.dtype, device=x.device)
-    lo = torch.tensor(float(val_low), dtype=x.dtype, device=x.device)
+    hi = torch.full((), float(val_high), dtype=x.dtype, device=x.device)
+    lo = torch.full((), float(val_low), dtype=x.dtype, device=x.device)
     y = torch.zeros(rows, dtype=x.dtype, device=x.device)
     yv = torch.zeros(rows, dtype=xv.dtype, device=xv.device)
     for d, o in enumerate(offsets):

@@ -173,6 +173,7 @@ def draw_step(state: torch.Tensor, live: Optional[torch.Tensor] = None,
     if v is not None and v.numel():
         _check("v", v, (torch.float64,), dev)
         b = v.numel()
+    device_loop.bind(state, live, u if n else None, v if b else None)
     args = (state.data_ptr(), None if live is None else live.data_ptr(),
             u.data_ptr() if n else None, u_f32, n, v.data_ptr() if b else None, b,
             current_raw_stream(dev.index))

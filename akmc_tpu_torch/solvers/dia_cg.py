@@ -319,6 +319,8 @@ def dia_cg_solve(
         if size < 0:      # an error code; a CUDA error e comes as -1000 - e
             _raise_launch_error(size if size > -1000 else -1000 - size)
         work = _workspace(op, size)
+        device_loop.bind(op.diags, op.offsets, cvac, is_int, diag_i, dgc, inv_diag, rhs, x0,
+                         out, work, iterations, residual_sq, _iterations_total(dev))
         err = lib.dia_cg_solve_launch(
             op.diags.data_ptr(), op.offsets.data_ptr(), op.D, n, op.val_low, op.val_high,
             cvac.data_ptr(), is_int.data_ptr(), diag_i.data_ptr(), dgc.data_ptr(),

@@ -185,7 +185,7 @@ def solve_cb_edge(
     VR = -Vd/2 (the electron-energy sign) and the metal-OR rule for high-G
     edges (calc_off_diagonal_A_CB_gpu, 290-319); ``element`` and ``charge``
     do not enter it. ``shard`` and ``graphs`` as ``solve_potential_boundary``
-    takes them."""
+    takes them. Inside a program's body ``Vd`` may be a 0-d tensor."""
     n = element.shape[0]
     L = R = num_atoms_first_layer
     n_int = n - L - R
@@ -195,7 +195,7 @@ def solve_cb_edge(
 
     nbr = k_neigh_idx
     valid = nbr >= 0
-    hi = torch.tensor(high_G, dtype=torch.float64, device=nbr.device)
+    hi = torch.full((), high_G, dtype=torch.float64, device=nbr.device)
     G = torch.where(metal_or_edge, hi, low_G)
     Gv = torch.where(valid, G, 0.0)
 

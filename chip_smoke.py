@@ -62,19 +62,19 @@ line is printed):
            dead iterations, host reads per solve and capture seconds, and k
            = 8, 16, 32 on the open torch.dot solves; then one cold banded
            solve the same way at n_yz = LARGE_BANDED_N_YZ (124,412 sites;
-           the lists' 497,648 sites take no banded operator), and the sweep
+           n_yz = 96's 497,648 sites take no banded operator), and the sweep
            once more with the host loops, equal row for row but for time.
            The driver builds this structure file's lists on the card
            (``lattice_device.py``); beside the sweep, that builder against
            the k-d tree on ``synthetic_stack`` at n_yz = 24 (neighbor list,
-           periodic K adjacency, cutoff list) and at n_yz = 96 (497,648
+           periodic K adjacency, cutoff list) and at n_yz = 48 (124,412
            sites: the first two), equal entry for entry, both timed.
 4b. superstep_graph  the serial superstep as one CUDA graph
            (``models/step_program.py``: the K-CG and the event loop
            conditional while nodes, one host read a superstep) against the
            per-loop path (``VCMModel(step_program=False)``), in turns (loops,
-           program, program, loops), 16 supersteps at the deck's first eight
-           biases on the sweep's crossbar (DIA, 58,752 slots, pair table) and
+           program, program, loops), two supersteps at each of the deck's
+           first SG_BIASES biases on the sweep's crossbar (DIA, 58,752 slots, pair table) and
            on the disordered structure (banded and ELL, 31,088 sites): every
            superstep bit-equal (state, stats, the stream), one host read a
            superstep without a redo or a continuation, the DIA kernels
@@ -114,8 +114,8 @@ line is printed):
            shape (the matvec beside the sparse product assembled on the card,
            the fused CG per iteration beside its sync floor and streaming
            bound); the ``kernels`` line carries these readings per kernel
-           under ``crossbar_path``. One serial superstep (cold CG), six
-           ``superstep_native_batched`` (B = 64, ``mass_eps`` 1e-3), six more
+           under ``crossbar_path``. One serial superstep (cold CG), one
+           ``superstep_native_batched`` (B = 64, ``mass_eps`` 1e-3), one more
            with the f32 plane, f32 clocks, ``mass_eps`` 0.1 and ``k_extrap`` 1,
            one module-timed superstep. Every superstep fires an event and ends
            done, species sums are conserved, ``kmc_time`` is finite and
@@ -127,7 +127,7 @@ line is printed):
            their replays in a serial one (the fields' own reads are told
            apart by their source file); each superstep's replays and dead
            steps go into its row. At n_yz=64, after those, on the last
-           state's fields (``loop_turns``): the serial loop (on 4,096 draws of
+           state's fields (``loop_turns``): the serial loop (on 2,048 draws of
            the mt19937 stream), the native loop and the batched loop, each as
            its plain host loop and as its device loop in turns plain, device,
            device, plain, every run bit-equal to the first (integer state,
@@ -145,7 +145,7 @@ line is printed):
            give the uninterrupted sweep's metrics rows and final snapshot; the
            same with ``batched_events=64`` must complete and conserve species.
            The crossbar part then runs once more at n_yz=104 (1,081,600
-           slots) with three supersteps of each batched kind, under the same
+           slots) with one superstep of each batched kind, under the same
            checks. ``--crossbar-n-yz N[,N]`` picks other widths (the first at
            full depth).
 
@@ -221,7 +221,31 @@ line is printed):
            non-empty trace; ``device_memory_stats`` goes into the line. Every
            path that solves on the DIA operator launches each kernel once per
            K solve the model counted, with the iterations counted on the
-           device equal to the model's.
+           device equal to the model's. The fields-only and events-only
+           sweeps once more on the per-loop path (``step_program=False``),
+           equal row for row but for time. The deck modes and the CB edge as
+           one program a call (``models/step_program.py``: ``FieldsProgram``,
+           ``EventsOnlyProgram``, ``CbEdgeProgram``) against the per-loop
+           path in turns (loops, program, program, loops), every call
+           bit-equal: fields only at the deck's 15 biases, events only for 24
+           supersteps and the CB edge at the 15 biases on the sweep's
+           crossbar, the CB edge on the disordered stand-in; ms and host
+           reads a call, capture s, and the DIA kernels launched from inside
+           ``FieldsProgram``'s graph once per K solve; one fields-only call of
+           the stand-in (banded, 31,088 sites) and of the n_yz = 64 crossbar
+           (409,600 slots) each way, bit-equal. Then every program kind after
+           its redo paths on the crossbar (a vmax below the vacancies: a
+           discarded batch, a redo at the grown cap, continuations), every
+           call bit-equal to the per-loop path.
+
+           Fault A's checks (``lifetime_checks``) run wherever programs are
+           built (superstep_graph, production_graph, full, driver): every
+           capture records the spans its graph binds from outside its private
+           pools (``device_loop.tracing_bindings``), each must lie inside a
+           live block of ``torch.cuda.memory_snapshot()``, and each program
+           replayed after every free block of the caching allocator was
+           filled with NaN bytes (``device_loop.poison_free_blocks``) must
+           equal its replay before, to the bit.
 
 9. sharded  scale-out over torch.distributed, with 2 and 4 ranks sharing this
            card over gloo (NCCL refuses two ranks on one card; the gloo
@@ -231,22 +255,24 @@ line is printed):
            rank's 256-row-chunk window of N = 58,752 split 2 and 4 ways and of
            409,600 split 4 ways, bit-equal, then timed beside the twin and a
            sparse product on the window's rows. Through the driver's per-rank
-           function (``runtime/driver.py::run_on_mesh``): the sweep phase's
-           24 supersteps on 2 and 4 ranks, every metrics row and the final
-           elements equal to one rank's, the golden within GOLDEN_KMC_RTOL,
+           function (``runtime/driver.py::run_on_mesh``): the sweep's first
+           SHARDED_SWEEP_STEPS supersteps on 2 and 4 ranks, every metrics row
+           and the final elements equal to one rank's, the golden's first
+           supersteps within GOLDEN_KMC_RTOL,
            each rank's row-window launches equal to its K-CG iterations plus
            one per solve, every rank's state equal to rank 0's after every
            superstep, per-rank bytes of the pair table and the DIA codes about
-           1/ranks; concern groups 1:1 and 1:3 (fields and three supersteps
-           equal to one rank's to the bit); on 4 ranks, three batched
-           supersteps at 409,600 slots (integer state and counts equal to one
-           rank's, peak memory per rank), four full-physics supersteps
+           1/ranks; concern groups 1:1 and 1:3 (fields and
+           SHARDED_CONCERN_STEPS supersteps equal to one rank's to the bit);
+           on 4 ranks, SHARDED_BATCHED_STEPS batched supersteps at 409,600
+           slots (integer state and counts equal to one rank's, peak memory
+           per rank), SHARDED_FULL_STEPS full-physics supersteps
            (against one rank: events, elements and power-CG counts exact, KMC
            times within SHARDED_KMC_RTOL, P_tot within SHARDED_P_TOT_RTOL,
            I_macro within SHARDED_I_MACRO_ATOL, T_bg within 1e-12; against
-           the golden's first four supersteps: the full phase's bounds; W
-           bytes per rank about a quarter of one rank's), three supersteps of
-           the disordered stand-in (against one rank: events, elements and CG
+           the golden's first supersteps: the full phase's bounds; W
+           bytes per rank about a quarter of one rank's), SHARDED_SYNTH_STEPS
+           supersteps of the disordered stand-in (against one rank: events, elements and CG
            counts exact, KMC times within SHARDED_SYNTH_KMC_RTOL; against its
            golden: the disordered phase's bounds) and the CG harness (K-class at n = 100,000, T-class at the
            reference's 102,722 / 14,854: rel L2 error below 1e-8, iterations
@@ -262,13 +288,13 @@ line is printed):
            their twins on its operator and first K system
            (``crossbar_kernels``: bit-equal ``x``, ``r``, residual and
            iteration count), then one cold serial superstep with the incremental
-           selection and three ``superstep_native_batched`` (B = 64,
+           selection and FLAGSHIP_STEPS ``superstep_native_batched`` (B = 64,
            ``mass_eps`` 0.1; f64 clocks, as FLAGSHIP_CLOCK_F32 says why)
            under the crossbar checks (an event each, ended done, launches
            equal to the K solves, one host read per replay of the loops); on
            the last state's fields ``loop_turns`` and ``superstep_turns`` as
-           at n_yz=64, with the device loops also at k = 16, 32, 64 batches
-           and 32, 64, 128 events (LOOP_KS); and one batched loop on those
+           at n_yz=64, with the device loops also at k = 16 and 64 batches
+           and 32 and 128 events (LOOP_KS); and one batched loop on those
            fields replayed on the CPU from the same uniforms (integer state
            exact, ``event_time`` within 1e-12). On the fields the first
            batched superstep raced: the rate scale (``rate_scale``: the largest rate's event, the pair
@@ -294,13 +320,19 @@ batched path, under the same checks, on 2 and 4 ranks with a card each over
 NCCL, on a machine with four cards. ``--only schedules`` (never run by
 default) compiles copies of csrc/dia_cg.cu with the streaming case's other
 schedules (CG_SCHEDULES), holds each bit-equal to the twin and times each on
-the crossbars' cold K systems at n_yz = 64, 104 and 215. Needs one card, no
-network, and no JAX.
+the crossbars' cold K systems at n_yz = 64, 104 and 215. ``--only
+profiler_fault`` (never run by default) runs ``torch.profiler`` over three
+replays of each of PROFILER_CASES in a process of its own (``--profiler-case
+NAME``): a bare graph with one while node whose body is one elementwise add,
+then each program kind on the n_yz = 24 crossbar; its line says which ended
+their process, with the exit code and the last lines of its errors. Needs one
+card, no network, and no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -308,6 +340,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -360,7 +393,7 @@ TILED_N_YZ = 32
 TILED_N = 32 * 32 * 102
 BATCHED_DIR = os.path.join(HERE, "build", "chip_smoke", "batched")
 # crossbar widths: n_yz^2 x (10 + 22 + 8 + 10 slices) x 2 sublattices = 409,600 and
-# 1,081,600 slots; the first at six supersteps of each batched kind, the rest at three
+# 1,081,600 slots; one superstep of each batched kind
 CROSSBAR_N_YZ = (64, 104)
 CROSSBAR_VD = 15.0
 N_REP = 512
@@ -424,6 +457,20 @@ def fail(msg: str):
     sys.exit(1)
 
 
+class PartTimes(dict):
+    """Host seconds of a phase's parts: ``mark(name)`` closes the part that
+    ran since the last mark (a reading for the time aim)."""
+
+    def __init__(self):
+        super().__init__()
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self[name] = now - self.t
+        self.t = now
+
+
 def import_port():
     """The port from this checkout, and nothing else: a script copied alone
     into an empty directory must fail here."""
@@ -449,20 +496,18 @@ def cuda_time_ms(fn, reps: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 200):
-    """Device time per call from the profiler: the summed time of every
-    kernel ``fn`` launches, over ``reps`` calls (no host gaps). None when
-    the profiler records no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+def device_ms(fn, reps: int = 100):
+    """Device time per call: ``reps`` calls captured into one CUDA graph and
+    its replays timed by CUDA events (``graph_launch_ms``: no host path
+    between the calls). It reads within 6% of ``torch.profiler``'s summed
+    kernel time, which took seconds a session (threefry, PR 16). None when
+    the calls cannot be captured (the caller then takes the CUDA events of
+    calls launched one by one)."""
+    try:
+        return graph_launch_ms(fn, n=reps)
+    except RuntimeError:
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    return total_us / reps / 1e3 if total_us > 0 else None
+        return None
 
 
 def crossbar_dia(n_yz: int):
@@ -647,7 +692,8 @@ def check_dia_kernel(dev, dia, meta) -> dict:
         "library_ms": times["library"],
         "library": "torch.sparse_csr_tensor @ vector, block-diagonal [[W, 0], [0, adjacency]]",
         "empty_kernel_ms": times["empty"],     # the floor of one launch on this grid
-        "time_source": "profiler device time" if dev_ms["kernel"] is not None else "CUDA events",
+        "time_source": ("CUDA events over a graph of launches" if dev_ms["kernel"] is not None
+                        else "CUDA events"),
         "call_ms": call_ms,                    # back-to-back calls, host launch gaps included
         "host_path_us": host_path_us,
         "shape": bound["shape"],
@@ -953,7 +999,7 @@ def drive(deck, workdir, **options):
         "dia_launches": mv.dia_combined_matvec.launches,
         "dia_cg_launches": dia_cg.dia_cg_solve.launches,
         "cg_iterations_counted_on_device": dia_cg.iterations_total("cuda"),
-        "host_syncs": n_syncs(syncs),
+        "host_syncs": n_syncs(syncs), "host_sync_sites": sync_sites(syncs),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
@@ -1051,8 +1097,8 @@ CG_FILES = ("cg.py", "device_loop.py")       # where the CG loops read the host
 CG_KS = (8, 16, 32)                          # k read on the banded K solve and the power CG
 K_MODULES = ("banded", "poisson")            # the K solves' callers
 # One cold banded solve at the largest synthetic_stack the banded operator
-# takes within the phase's time: at n_yz = 96 (497,648 sites, the lists'
-# size) the band would be about 11 GB of int8 codes, past build_banded_k's
+# takes within the phase's time: at n_yz = 96 (497,648 sites) the band
+# would be about 11 GB of int8 codes, past build_banded_k's
 # 4e9-byte cap, and 87 GB decoded (the model falls back to ELL there); n_yz =
 # 48 is 124,412 sites, 0.73 GB of codes, 5.8 GB decoded.
 LARGE_BANDED_N_YZ = 48
@@ -1352,15 +1398,15 @@ def large_banded_solve(dev) -> dict:
     return out
 
 
-LISTS_N_YZ = (24, 96)                # synthetic_stack: 31,088 and 497,648 sites
+LISTS_N_YZ = (24, 48)                # synthetic_stack: 31,088 and 124,412 sites
 
 
 def disordered_lists(dev) -> dict:
     """The on-card list builder (``lattice_device.py``) against the k-d tree
     on ``synthetic_stack`` at n_yz = 24 (the stand-in: the neighbor list, the
-    periodic K adjacency and the cutoff list) and at n_yz = 96 (about 0.5 M
+    periodic K adjacency and the cutoff list) and at n_yz = 48 (124,412
     sites: the neighbor list and the periodic K adjacency; its cutoff list
-    would hold some 1.7e9 entries), with the deck's cutoffs: equal entry for
+    would hold some 0.4e9 entries), with the deck's cutoffs: equal entry for
     entry, each builder timed (host clock; the card's ends with the table on
     the host)."""
     from akmc_tpu_torch import lattice, lattice_device
@@ -1417,6 +1463,7 @@ def run_disordered(dev):
     shutil.rmtree(SYNTH_DIR, ignore_errors=True)
     deck = synth_deck.write_synth_deck(DECK, SYNTH_DIR, N_YZ)
     out_dir = os.path.join(SYNTH_DIR, "out")
+    times = PartTimes()
     summary, rows, counts = drive(deck, out_dir)
     model = summary["model"]
     if (model["N"], model["k_operator"], model["pairwise"]) != (SYNTH_N, "banded", "table"):
@@ -1451,8 +1498,11 @@ def run_disordered(dev):
         bad.append("the sweep with the K-CG's host loop differs from the device loop's: "
                    + _first_difference(_rows_but_time(out_dir), _rows_but_time(plain_dir)))
 
+    times.mark("sweeps")
     solves = [cold_k_solves(deck, dev, pbc) for pbc in (False, True)]
+    times.mark("cold_k_solves")
     large = large_banded_solve(dev)
+    times.mark("large_banded_solve")
     cg = sum(r["cg_iterations"] for r in rows)
     cold = [r for r in rows[1:] if r["cg_iterations"] > 1]
     warm = [r for r in rows[1:] if r["cg_iterations"] == 1]
@@ -1495,7 +1545,7 @@ def run_disordered(dev):
             "driver_supersteps_s": sum(r["superstep_s"] for r in rows_plain),
             "superstep_s": [r["superstep_s"] for r in rows_plain],
         },
-        "lists": disordered_lists(dev),
+        "lists": disordered_lists(dev), "part_s": times,
     }
     line["cg_loops"] = {f"cold_pbc{int(s['pbc'])}_{op}_{dot}": s[dot][op + "_cg"]
                         for s in solves for dot in ("torch.dot", "sum(a*b)")
@@ -1509,6 +1559,8 @@ def run_disordered(dev):
         problems.append("disordered sweep disagrees with the golden: " + "; ".join(bad[:10]))
     if not _final_potentials_finite(out_dir):
         problems.append("non-finite potentials in the disordered sweep's final snapshot")
+    times.mark("lists")
+    print("chip_smoke: phase disordered took " + json.dumps(times), flush=True)
     return line, "; ".join(problems) or None
 
 
@@ -1517,8 +1569,9 @@ def run_disordered(dev):
 # per-loop path (VCMModel(step_program=False))
 # ---------------------------------------------------------------------------
 SG_DIR = os.path.join(HERE, "build", "chip_smoke", "superstep_graph")
-SG_BIASES = 8                 # the deck's first bias points, two supersteps at each
+SG_BIASES = 3                 # the deck's first bias points, two supersteps at each
 SG_NODE_KS = (1, 4, 16)       # events, then iterations, per while-node pass, read on each path
+SG_PROFILED = 2               # supersteps in the idle-share window
 SG_SPD = 4                    # supersteps per dispatch against one at a time
 SG_SPD_CHUNK = 2048           # the rand window of both (superstep_multi's default)
 STATE_FIELDS = ("element", "charge", "potential_boundary", "potential_charge", "kmc_time")
@@ -1683,6 +1736,14 @@ def superstep_graph_case(dev, name, p, lat, kw) -> dict:
             attr = "SERIAL_NODE_K" if node == "event_loop" else "CG_NODE_K"
             for k in SG_NODE_KS:
                 cg.CG_NODE_K, ev.SERIAL_NODE_K = saved
+                if k == getattr(mod, attr):      # the turns' own program
+                    r = best[True]
+                    out["node_k_readings"][f"{node}_k{k}"] = {
+                        "ms_per_superstep": sum(r[2]) / len(biases),
+                        "warm_ms_mean": sum(r[2][i] for i in warm) / max(1, len(warm)),
+                        "cold_ms_mean": sum(r[2][i] for i in cold) / max(1, len(cold)),
+                        "passes": r[4], "capture_s": capture_s}
+                    continue
                 setattr(mod, attr, k)
                 t0 = time.perf_counter()
                 prog._capture_program(make_device_state(lat, p.background_temp, dev),
@@ -1697,21 +1758,22 @@ def superstep_graph_case(dev, name, p, lat, kw) -> dict:
                     "passes": r[4], "capture_s": cap}
     finally:
         cg.CG_NODE_K, ev.SERIAL_NODE_K = saved
-    # the device's idle share over the first four supersteps under the
-    # profiler, against their unprofiled wall (the best run's)
+    # the device's idle share over the first SG_PROFILED supersteps under
+    # the profiler, against their unprofiled wall (the best run's)
     out["profiled"] = {}
     for pr, model in ((False, loops), (True, prog)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
-            _sg_states(model, p, lat, biases[:4], _sg_one)
+            _sg_states(model, p, lat, biases[:SG_PROFILED], _sg_one)
             torch.cuda.synchronize()
         share = busy_share(trace)
-        wall = sum(best[pr][2][:4])
+        wall = sum(best[pr][2][:SG_PROFILED])
         share["unprofiled_ms"] = wall
         if share.get("busy_ms") is not None:
             share["idle_share_vs_unprofiled"] = 1.0 - share["busy_ms"] / wall
         out["profiled"]["program" if pr else "loops"] = share
     out["program_capture_s_all"] = prog.step_graphs.capture_s()
+    out["lifetime"] = lifetime_checks(dev, prog, f"superstep_graph {name}")
     print(f"chip_smoke: superstep_graph {name}: " + json.dumps(out))
     return out
 
@@ -1792,9 +1854,9 @@ def run_superstep_graph(dev):
 # csrc/threefry.cu)
 # ---------------------------------------------------------------------------
 PG_N_YZ = 64                  # 409,600 slots, as the batched phase's crossbar
-PG_STEPS = 4                  # batched supersteps a run, the first cold
+PG_STEPS = 2                  # batched supersteps a run, the first cold
 PG_NODE_KS = (1, 4, 16)       # batches per pass of the while node, read in turn
-PG_PROFILED = 2               # supersteps in the idle-share window
+PG_PROFILED = 1               # supersteps in the idle-share window
 PG_SEED = 31                  # the runs' key: PRNGKey(PG_SEED)
 PG_MASS_EPS = 1e-3
 PG_BATCH = 64
@@ -1833,15 +1895,66 @@ def _reset_production_counts() -> None:
     device_loop.while_loop.launches = 0
 
 
+INT32_LANES_PER_SM = 64          # H100: 4 partitions x 16 INT32 lanes a clock
+
+
+def threefry_int_work() -> dict:
+    """The integer work a value of ``csrc/threefry.cu`` needs, read from the
+    card's build: ``cuobjdump -sass`` of the library, the instructions of
+    ``threefry_step``, and among them the 32-bit integer ones that issue to
+    the INT32 (ALU) pipe: IADD3, LOP3, SHF, LEA, ISETP and the like; IMAD,
+    which the compiler also uses for moves, issues to the FMA pipe and is
+    left out. The block function is unrolled once per kind of value the
+    kernel draws, and its 20 rotations are 20 funnel shifts (SHF.L.W), so a
+    value's share is the integer instructions over the copies (funnel
+    shifts / 20). With the card's SM count and highest SM clock
+    (``nvidia-smi``) that gives the integer rate of the bound."""
+    from akmc_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build._nvcc()),
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path("threefry"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    ops, inside = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = "threefry_step" in ln
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+            if m:
+                ops.append(m.group(1))
+    roots = collections.Counter(op.split(".")[0] for op in ops)
+    ints = [op for op in ops if op.split(".")[0] in (
+        "IADD3", "IADD", "LOP3", "LOP", "SHF", "LEA", "IABS", "ISCADD", "PRMT", "SEL",
+        "IMNMX", "ISETP", "FLO", "POPC", "BREV")]
+    funnel = sum(op.startswith("SHF.L.W") or op.startswith("SHF.R.W") for op in ops)
+    copies = max(1, round(funnel / 20))
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                           timeout=60).stdout.split()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(clock[0]) if clock else float("nan")
+    return {"sass_instructions": len(ops), "opcodes": dict(roots.most_common()),
+            "int_instructions": len(ints),
+            "funnel_shifts": funnel, "block_copies": copies,
+            "int_ops_per_value": len(ints) / copies, "sms": sms, "sm_clock_max_mhz": mhz,
+            "int32_ops_per_s": sms * INT32_LANES_PER_SM * mhz * 1e6,
+            "source": "cuobjdump -sass of the built library; nvidia-smi clocks.max.sm"}
+
+
 def check_threefry(dev) -> dict:
     """``csrc/threefry.cu`` against its twin (``draw_step_plain``) at the
     main path's shapes: live, live, dead and live steps and the superstep's
     split, every bit of the draws, subkeys and key; then timed by CUDA
     events beside the twin on the card, ``torch.rand`` of the same shapes
-    (a yardstick: it computes no threefry) and the byte bound."""
+    (a yardstick: it computes no threefry) and the bound: the larger of the
+    bytes and the integer work (``threefry_int_work``), with the share of it
+    reached."""
     from akmc_tpu_torch.ops import threefry
 
-    def case(n, B, dtype):
+    work = threefry_int_work()
+
+    def case(n, B, dtype, timed=True):
         st_c = threefry.key_state(threefry.prng_key(PG_SEED + n, dev))
         st_h = st_c.cpu()
         u_c = torch.zeros(n, dtype=dtype, device=dev)
@@ -1858,6 +1971,8 @@ def check_threefry(dev) -> dict:
                 fail(f"threefry kernel differs from its twin at n = {n}, B = {B}, {dtype}")
         err = max([0.0] + [float((a.cpu().double() - b.double()).abs().max())
                            for a, b in ((u_c, u_h), (v_c, v_h)) if a.numel()])
+        if not timed:
+            return {"n": n, "B": B, "max_abs_err": err}
         live = torch.ones((), dtype=torch.bool, device=dev)
         st_p = st_c.clone()
         n_bytes = n * u_c.element_size() + B * 8 + 2 * threefry.STATE_LEN * 8
@@ -1868,21 +1983,26 @@ def check_threefry(dev) -> dict:
             # graph (one after another from the host, the launches' host
             # path, about 15 us, is what CUDA events read: "stream_ms")
             "ms": graph_launch_ms(step),
-            "profiler_ms": device_ms(step),
             "stream_ms": cuda_time_ms(step, reps=200),
             "plain_ms": graph_launch_ms(
                 lambda: threefry.draw_step_plain(st_p, live, u_c, v_c), n=10),
             "library_ms": graph_launch_ms(lambda: (torch.rand(n, dtype=dtype, device=dev),
                                                    torch.rand(B, dtype=torch.float64, device=dev))),
-            "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": n_bytes, "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "int_bound_ms": (n + B) * work["int_ops_per_value"] / work["int32_ops_per_s"] * 1e3,
         }
 
     shapes = [case(n, PG_BATCH, torch.float64) for n in THREEFRY_ROWS]
     shapes.append(case(THREEFRY_MAIN[0], PG_BATCH, torch.float32))
+    for c in shapes:
+        c["bound_ms"] = max(c["bytes_bound_ms"], c["int_bound_ms"])
+        c["bound_by"] = "operations" if c["int_bound_ms"] > c["bytes_bound_ms"] else "bytes"
+        c["share_of_bound"] = c["bound_ms"] / c["ms"]
     for n, B in ((1, 1), (0, 0), (100, 300)):       # the native event, the split, B > n
-        case(n, B, torch.float64)
+        case(n, B, torch.float64, timed=False)
     main = next(c for c in shapes if (c["n"], c["B"], c["dtype"]) == (*THREEFRY_MAIN, "float64"))
     print("chip_smoke: threefry kernel against its twin: " + json.dumps(shapes))
+    print("chip_smoke: threefry integer work: " + json.dumps(work))
     return {
         "name": "threefry draw_step",
         "route": "cuda",
@@ -1893,7 +2013,8 @@ def check_threefry(dev) -> dict:
         "max_abs_err": max(c["max_abs_err"] for c in shapes),
         "bitwise_equal_to_twin": True,
         "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "int_work": work,
         "library_ms": main["library_ms"],
         "library": "torch.rand of the same shapes (Philox, not threefry: a yardstick)",
         "time_source": "CUDA events over a graph of 100 launches (the twin: 10)",
@@ -2251,8 +2372,9 @@ def run_production_graph(dev):
     # the device's idle share over the first PG_PROFILED supersteps, against
     # their unprofiled wall (the best run's): the per-loop path under the
     # profiler; the program by CUDA events around each replay (the graph's
-    # time on the card), since torch.profiler's trace of its replays in this
-    # phase ended in an illegal memory access on the H100 (PERF.md §7)
+    # time on the card), as since PR 14, when torch.profiler's trace of its
+    # replays here ended in an illegal memory access (no longer so: the
+    # profiler_fault phase)
     line["profiled"] = {"supersteps": PG_PROFILED}
     with _per_loop(model, True):
         torch.cuda.synchronize()
@@ -2272,6 +2394,7 @@ def run_production_graph(dev):
         "busy_ms": sum(replay_ms), "unprofiled_ms": wall,
         "idle_share_vs_unprofiled": 1.0 - sum(replay_ms) / wall}
     print("chip_smoke: production_graph idle share: " + json.dumps(line["profiled"]))
+    line["lifetime"] = lifetime_checks(dev, model, "production_graph")
     line["batched_sweep"] = sweep
     return line, None
 
@@ -2862,9 +2985,10 @@ class CrossbarSteps:
 # the event loops on the card: each device loop (k steps per CUDA-graph
 # replay) against its plain host loop, from one frozen fields state
 # ---------------------------------------------------------------------------
-LOOP_SERIAL_DRAWS = 4096          # the serial loops are held on a chunk of this many draws
+LOOP_SERIAL_DRAWS = 2048          # the serial loops are held on a chunk of this many draws
 LOOP_FILES = ("events.py", "device_loop.py")   # where the event loops read the host
-LOOP_KS = {"serial": (32, 64, 128), "batched": (16, 32, 64)}   # k read at the flagship
+# k read at the flagship beside the loops' own (SERIAL_K 64, BATCHED_K 32)
+LOOP_KS = {"serial": (32, 128), "batched": (16, 64)}
 SERIAL_FIELDS = ("element", "charge", "P", "event_time", "n_events", "draws_used", "done",
                  "event_time_h")
 BATCHED_FIELDS = ("element", "charge", "P", "event_time", "n_events", "n_batches", "done",
@@ -3030,12 +3154,13 @@ def busy_share(prof) -> dict:
             "idle_share": 1.0 - busy / span}
 
 
-def superstep_turns(dev, model, state, where, mass_eps) -> dict:
+def superstep_turns(dev, model, state, where, mass_eps, profiled=True) -> dict:
     """One batched superstep (B = 64, f64 clocks) from ``state`` with the
     plain loop and with the device loop, each from a generator of one seed:
     in turns plain, device, device, plain on the host clock (every result
-    equal to the first: events, batches, waiting time, elements), then one of
-    each under ``torch.profiler`` for the device's idle share."""
+    equal to the first: events, batches, waiting time, elements), then, with
+    ``profiled``, one of each under ``torch.profiler`` for the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     from akmc_tpu_torch.ops import events as ev
@@ -3057,7 +3182,7 @@ def superstep_turns(dev, model, state, where, mass_eps) -> dict:
         out[f"{turn}_s"].append(wall)
         out["fields_s"].append(model.fields_s)
     out.update(events=ref[0][0], batches=ref[0][1])
-    for turn in ("plain", "device"):
+    for turn in ("plain", "device") if profiled else ():
         with plain_event_loops() if turn == "plain" else contextlib.nullcontext():
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3203,8 +3328,9 @@ def batched_crossbar(dev, n_yz: int, depth: int, incremental: bool = False) -> d
         if dev.type == "cuda":
             fr = model.fields(run.state, CROSSBAR_VD)
             out["loops"] = loop_turns(dev, model, run.state, fr, f"n_yz={n_yz}", 1e-3)
+            # the idle share is read at the flagship (``run_flagship``)
             out["superstep_turns"] = superstep_turns(dev, model, run.state, f"n_yz={n_yz}",
-                                                     1e-3)
+                                                     1e-3, profiled=False)
         out["incremental_selection"] = incremental_against_fresh(dev, model, state)
     return out
 
@@ -3282,11 +3408,24 @@ def batched_driver(dev, serial_rows) -> dict:
 
 def run_batched(dev, widths, serial_rows):
     """(batched line, None): each part fails the run on its own."""
-    line = {"replay": batched_replay(dev), "law": batched_law(dev),
-            "crossbar": batched_crossbar(dev, widths[0], depth=6, incremental=True)}
+    times = PartTimes()
+    line = {"replay": batched_replay(dev)}
+    times.mark("replay")
+    line["law"] = batched_law(dev)
+    times.mark("law")
+    line["crossbar"] = batched_crossbar(dev, widths[0], depth=1, incremental=True)
+    times.mark(f"crossbar_n_yz_{widths[0]}")
     for n_yz in widths[1:]:
-        line[f"crossbar_n_yz_{n_yz}"] = batched_crossbar(dev, n_yz, depth=3)
+        gc.collect()         # the last crossbar's model and graphs
+        torch.cuda.empty_cache()
+        line[f"crossbar_n_yz_{n_yz}"] = batched_crossbar(dev, n_yz, depth=1)
+        times.mark(f"crossbar_n_yz_{n_yz}")
+    gc.collect()
+    torch.cuda.empty_cache()
     line["driver"] = batched_driver(dev, serial_rows)
+    times.mark("driver")
+    line["part_s"] = times
+    print("chip_smoke: phase batched took " + json.dumps(times), flush=True)
     return line, None
 
 
@@ -3330,10 +3469,12 @@ def full_physics_probe():
         return out
 
     def probed_cb(self, state, Vd):
+        log = SYNC_LOGS[-1] if SYNC_LOGS else []
+        n0 = n_syncs(log)
         t0 = time.perf_counter()
         out = cb_edge(self, state, Vd)
         cb.append({"Vd": Vd, "iterations": self.cb_iterations,
-                   "ms": 1e3 * (time.perf_counter() - t0)})
+                   "ms": 1e3 * (time.perf_counter() - t0), "host_reads": n_syncs(log) - n0})
         return out
 
     VCMModel.superstep_full, VCMModel.update_cb_edge = probed_full, probed_cb
@@ -3557,8 +3698,12 @@ def full_cg_loops(dev, model, state) -> dict:
 
     g, Vd = model.cg_graphs, 8.0
     out = {}
-    out["cb_edge"], _ = cg_turns(dev, "stand-in CB-edge CG", lambda: model.update_cb_edge(
-        state, Vd).cb_edge, g)
+
+    def cb_edge():          # the CG's own loop: the per-loop path (a program's is a node)
+        with _per_loop(model, True):
+            return model.update_cb_edge(state, Vd).cb_edge
+
+    out["cb_edge"], _ = cg_turns(dev, "stand-in CB-edge CG", cb_edge, g)
     state = model.update_cb_edge(state, Vd)
     out["power_band"], (_, atom_power, m, _) = cg_turns(
         dev, "stand-in power CG, band", power_solve(model, state, Vd, 1.0), g, ks=CG_KS)
@@ -3584,9 +3729,11 @@ def full_cg_loops(dev, model, state) -> dict:
 
 
 # the full-physics superstep as one CUDA graph (models/step_program.py::FullProgram)
-FP_SUPERSTEPS = 8               # crossbar supersteps a run in turns: the deck's first biases, two each
-FP_STANDIN_SUPERSTEPS = 3       # the stand-in's, as its golden part
-FP_WKB_KS = (1, 4, 16)          # energy steps per pass of the WKB integral's while node
+FP_SUPERSTEPS = 4               # crossbar supersteps a run in turns: the deck's first biases, two each
+FP_STANDIN_SUPERSTEPS = 2       # the stand-in's, as its golden part
+# energy steps per pass of the WKB integral's while node, beside the turns'
+# own (current.WKB_PASS_STEPS, 4)
+FP_WKB_KS = (1, 16)
 FP_SPD = 4                      # supersteps per dispatch against one at a time
 FP_SPD_CHUNK = 2048             # the rand window of both (superstep_full_multi's default)
 FP_LARGE_N_YZ = LARGE_BANDED_N_YZ   # the stand-in at 124,412 sites: one superstep
@@ -3797,6 +3944,9 @@ def full_spd(dev, model, p, lat) -> dict:
             runs.setdefault(name, []).append(
                 (r, {k: m_.step_counts[k] - counts0[k] for k in counts0}))
             if m_ is not model:
+                if name == "spd":      # the discarded batch, its steps redone
+                    out["discard_lifetime"] = lifetime_checks(dev, m_, "full discard")
+                _drop_programs(m_)
                 del m_
                 torch.cuda.empty_cache()
         ref = runs["k1"][0][0]
@@ -3873,6 +4023,9 @@ def full_large(dev) -> dict:
     wd = SYNTH_DIR + f"_full_n{FP_LARGE_N_YZ}"
     shutil.rmtree(wd, ignore_errors=True)
     deck = synth_deck.write_synth_deck(DECK, wd, FP_LARGE_N_YZ)
+    gc.collect()             # the earlier models' graphs wait in reference cycles
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, state = full_model(deck, dev, synth_dir=wd, lists_on=dev)
@@ -3890,6 +4043,7 @@ def full_large(dev) -> dict:
     _fp_same("124,412 sites: program against loops", runs[False], runs[True])
     out = {
         "n_yz": FP_LARGE_N_YZ, "sites": lat.N, "atoms": model.n_atom, "Vd": FP_LARGE_VD,
+        "allocated_before_gb": allocated_before / 1e9,
         "model": model.describe(), "vmax": model.vmax,
         "contacts": int(model.current_tables.contact_idx.shape[0]),
         "w_block_bytes": dict(model.power_bytes),
@@ -3920,6 +4074,7 @@ def run_full(dev):
     spread = gold["spread"]["band_vs_gather"]
     parts = gold["parts"]
     problems = []
+    times = PartTimes()
 
     # the whole sweep through the driver, held to the golden: each superstep
     # one program run (FullProgram, one CUDA graph), the driver's default
@@ -3932,6 +4087,10 @@ def run_full(dev):
     while_launches = device_loop.while_loop.launches
     check_launches("full", summary, rows, counts)
     step_counts = dict(models[0].step_counts)
+    sweep_lifetime = lifetime_checks(dev, models[0], "full sweep")
+    cb_counts = dict(models[0].cb_counts)
+    del models[:]
+    times.mark("sweep")
     if step_counts["per_loop"] or step_counts["runs"] != len(rows) + step_counts["redos"]:
         problems.append(f"the full sweep did not run one program a superstep: {step_counts}")
     got = golden.summarize(FULL_DIR)
@@ -3968,9 +4127,10 @@ def run_full(dev):
         "driver_total_s": summary["total_time_s"], "driver_supersteps_s": summary["supersteps_s"],
         "driver_snapshot_s": summary["snapshot_s"],
         "host_syncs": counts["host_syncs"], "host_syncs_per_superstep":
-        counts["host_syncs"] / len(rows), "peak_mem_gb": counts["peak_mem_gb"],
-        "wall_s": counts["wall_s"], "step_counts": step_counts,
-        "while_condition_launches": while_launches,
+        counts["host_syncs"] / len(rows), "host_sync_sites": counts["host_sync_sites"],
+        "peak_mem_gb": counts["peak_mem_gb"],
+        "wall_s": counts["wall_s"], "step_counts": step_counts, "cb_counts": cb_counts,
+        "while_condition_launches": while_launches, "lifetime": sweep_lifetime,
     }
     print(f"chip_smoke: full sweep: {len(rows)} supersteps, P_tot {dist['P_tot_max_rel']:.3e} "
           f"and I_macro {dist['I_macro_max_rel']:.3e} from the golden (relative)")
@@ -4045,6 +4205,7 @@ def run_full(dev):
 
     # one power solve at three tolerances, on the crossbar and on the disordered stand-in
     model, state = full_model(DECK, dev)
+    times.mark("per_loop_plain_cg_wkb_f32_sweeps")
     line["tolerances_crossbar"] = tolerance_solves(model, state, parts["rtol"], "crossbar",
                                                    power_rtol=CROSSBAR_SOLVE_POWER_RTOL)
     synth_dir = FULL_DIR + "_synth"
@@ -4056,6 +4217,7 @@ def run_full(dev):
         current_rtol=(STANDIN_SOLVE_CURRENT_RTOL,) * 3, power_rtol=(STANDIN_SOLVE_POWER_RTOL,) * 3)
     line["cg_loops"] = full_cg_loops(dev, model, state)
     del model, state
+    times.mark("tolerances_and_cg_loops")
     for key in ("tolerances_crossbar", "tolerances_disordered"):
         problems += line[key].pop("problems")
 
@@ -4110,8 +4272,10 @@ def run_full(dev):
     model, state = full_model(DECK, dev, pair_table_budget=8e9)
     p = model.params
     biases = [Vd for Vd in p.V_switch[: FP_SUPERSTEPS // 2] for _ in range(2)]
+    times.mark("standin_supersteps")
     prog["sweep_crossbar"] = full_turns(dev, model, p, model.lat, biases, "crossbar")
     prog["steps_per_dispatch"] = full_spd(dev, model, p, model.lat)
+    times.mark("crossbar_turns_and_spd")
     del model, state
     torch.cuda.empty_cache()
     model, _ = full_model(synth, dev, synth_dir=synth_dir)
@@ -4123,7 +4287,11 @@ def run_full(dev):
     torch.cuda.empty_cache()
     prog["standin_heating"] = standin_heating(dev, synth, synth_dir,
                                               prog["standin"]["event_time"])
+    times.mark("standin_turns_and_heating")
     prog["large_standin"] = full_large(dev)
+    times.mark("large_standin")
+    line["part_s"] = times
+    print("chip_smoke: phase full took " + json.dumps(times), flush=True)
     return line, "; ".join(problems) or None
 
 
@@ -4175,6 +4343,479 @@ def lists_never_built():
         lattice.build_neighbor_list = built
 
 
+# ---------------------------------------------------------------------------
+# fault A: what a program's graph binds, and memory it does not own poisoned
+# (ops/device_loop.py::tracing_bindings, stale_bindings, poison_free_blocks)
+# ---------------------------------------------------------------------------
+def _replay_outputs(prog) -> list:
+    """One replay of a captured program on its loaded inputs, outside its
+    dispatch (no count applied, the fused CG's running total kept): copies of
+    its outputs and packed vector."""
+    from akmc_tpu_torch.solvers import dia_cg
+
+    with dia_cg.iterations_total_kept(prog.device):
+        prog.graph.replay()
+    torch.cuda.synchronize()
+    out, stats, _ = prog.captured
+    return [t.clone() for t in out.values() if isinstance(t, torch.Tensor)] + [stats.clone()]
+
+
+def _graph_loops(model):
+    """The captured ``StepProgram``s of the model's event and CG device loops."""
+    for graphs in (model.loop_graphs, model.cg_graphs):
+        for prog in graphs.programs.values():
+            loop = getattr(prog, "_loop", None)
+            if loop is not None:
+                yield from (sp for sp in loop.programs.values() if sp.graph is not None)
+
+
+def lifetime_checks(dev, model, label: str) -> dict:
+    """Fault A's two checks over every program ``model`` holds (its
+    ``step_graphs``), captured with ``device_loop.TRACE_BINDINGS`` on: each
+    span its graph binds from outside its private pools lies inside a live
+    block of ``torch.cuda.memory_snapshot()``; then a replay, every free block
+    of the default pool, the program's own pool and the while bodies' pools
+    filled with NaN bytes, and a second replay equal to the first to the bit.
+    The captured replays of its device loops (``loop_graphs``, ``cg_graphs``)
+    get the first check. Fails the script on any finding."""
+    from akmc_tpu_torch.ops import device_loop
+
+    if dev.type != "cuda":
+        return {}
+    kinds, spans, poisoned, loops = {}, 0, 0, 0
+    allocated, t0 = torch.cuda.memory_allocated(dev), time.perf_counter()
+    for prog in list(model.step_graphs.programs.values()):
+        if prog.graph is None:
+            continue
+        name = type(prog).__name__
+        if not prog.bound:
+            fail(f"{label}: the capture of a {name} recorded no binding (the trace was off)")
+        stale = device_loop.stale_bindings(prog.bound, dev)
+        if stale:
+            fail(f"{label}: a {name} binds {len(stale)} spans outside every live block: "
+                 f"{stale[:4]}")
+        before = _replay_outputs(prog)
+        poisoned += device_loop.poison_free_blocks(
+            dev, [prog.graph.pool(), *device_loop.private_pools(dev)])
+        after = _replay_outputs(prog)
+        if len(before) != len(after) or not all(same_bits(a, b) for a, b in zip(before, after)):
+            fail(f"{label}: a {name} replayed over memory filled with NaN differs from its "
+                 "replay before")
+        kinds[name] = kinds.get(name, 0) + 1
+        spans += len(prog.bound)
+    for sp in _graph_loops(model):
+        stale = device_loop.stale_bindings(sp.bound, dev)
+        if stale:
+            fail(f"{label}: a device loop's replay binds {len(stale)} spans outside every "
+                 f"live block: {stale[:4]}")
+        loops += 1
+        spans += len(sp.bound)
+    return {"programs": kinds, "graph_loops": loops, "bound_spans": spans, "stale_spans": 0,
+            "poisoned_gb": poisoned / 1e9, "poisoned_replays_bitwise_equal": True,
+            "allocated_gb": [allocated / 1e9, torch.cuda.memory_allocated(dev) / 1e9],
+            "reserved_gb": torch.cuda.memory_reserved(dev) / 1e9, "s": time.perf_counter() - t0}
+
+
+REDO_VD = 8.0                 # the deck's highest bias
+REDO_CHUNK = 2                # a window of one event: a superstep of two runs out
+REDO_FIELDS = STATE_FIELDS + ("power", "temperature", "T_bg", "cb_edge")
+PROGRAM_KINDS = ("SuperstepProgram", "ProductionProgram", "FullProgram", "FieldsProgram",
+                 "EventsOnlyProgram", "CbEdgeProgram")
+
+
+def _redo_sequence(model, state):
+    """Every program kind of ``model`` after the redo paths, in one run from
+    ``state`` on a vmax below the vacancies: the CB edge; a
+    ``superstep_multi`` of 2 on windows of REDO_CHUNK draws, whose first
+    step outgrows the cap, so that the batch is discarded and replayed step
+    by step, that step redone at the grown cap (the outgrown programs
+    dropped) and, firing more events than its window holds, continued; a
+    superstep; a native and a batched production superstep; a full one and
+    a ``superstep_full_multi`` of 2 on such windows; the fields only; an
+    events-only step on such a window; the CB edge again. (the states after
+    each call, their stats, the stream's next draw, the key)."""
+    from akmc_tpu_torch.ops.threefry import KeyDraws
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+
+    stream = BufferedStream(ReferenceRNG(model.params.rnd_seed_kmc))
+    draws = KeyDraws.seeded(PG_SEED, model.device)
+    Vd, c = REDO_VD, REDO_CHUNK
+    states, stats, mw = [], [], None
+
+    def keep(st):
+        states.append({f: getattr(state, f).clone() for f in REDO_FIELDS})
+        stats.append(st)
+
+    state = model.update_cb_edge(state, Vd)
+    keep({"cb_iterations": model.cb_iterations})
+    state, st = model.superstep_multi(state, Vd, stream, 2, rand_chunk=c)
+    keep(st)
+    state, st = model.superstep(state, Vd, stream)
+    keep(st)
+    state, st = model.superstep_native(state, Vd, draws)
+    keep(st)
+    state, st = model.superstep_native_batched(state, Vd, draws, batch=BATCHED_SWEEP_B)
+    keep(st)
+    state, st, mw = model.superstep_full(state, Vd, stream, rand_chunk=c)
+    keep(st)
+    state, st, mw = model.superstep_full_multi(state, Vd, stream, 2, m_prev=mw, rand_chunk=c)
+    keep(st)
+    state, st = model.fields_only(state, Vd)
+    keep(st)
+    state, st = model.superstep_events_only(state, stream, rand_chunk=c)
+    keep(st)
+    state = model.update_cb_edge(state, Vd)       # its program was dropped with the caps
+    keep({"cb_iterations": model.cb_iterations})
+    return states, stats, stream.peek(1)[0], draws.key.tolist()
+
+
+def program_redo_paths(dev) -> dict:
+    """Every program kind after its redo paths (``_redo_sequence``) on the
+    n_yz = 24 crossbar, against the per-loop path from the same state, the
+    same cap and the same stream and key: every call's state and stats
+    equal to the bit; then ``lifetime_checks`` over the programs that are
+    left, every kind among them."""
+    from akmc_tpu_torch.lattice import ELEM
+    from akmc_tpu_torch.models.vcm import VCMModel
+
+    model, state0 = full_model(DECK, dev, pair_table_budget=8e9)
+    p, lat = model.params, model.lat
+    small = max(1, int((state0.element == int(ELEM.VACANCY)).sum()) // 2)
+    del model
+    runs = {}
+    for programmed in (False, True):
+        model = VCMModel(p, lat, device=dev, rate_normalize=True, pair_table_budget=8e9,
+                         vmax=small, step_program=programmed)
+        t0 = time.perf_counter()
+        runs[programmed] = (_redo_sequence(model, state0), dict(model.step_counts),
+                            dict(model.cb_counts), time.perf_counter() - t0)
+        if programmed:
+            lifetime = lifetime_checks(dev, model, "redo paths")
+        del model
+        torch.cuda.empty_cache()
+    (ref, _, _, _), (got, counts, cb_counts, wall) = runs[False], runs[True]
+    if ref[1] != got[1] or ref[2:] != got[2:]:
+        fail(f"redo paths: the programs' stats or stream differ from the per-loop path's")
+    for i, (a, b) in enumerate(zip(ref[0], got[0])):
+        for f in REDO_FIELDS:
+            if not same_bits(a[f], b[f]):
+                fail(f"redo paths: call {i} differs from the per-loop path in {f}")
+    if dev.type == "cuda" and not (counts["redos"] and counts["continues"]
+                                   and counts["discards"] and not counts["per_loop"]):
+        fail(f"redo paths: the programs ran {counts}: a redo, a continuation and a "
+             "discard expected")
+    if dev.type == "cuda" and set(lifetime["programs"]) != set(PROGRAM_KINDS):
+        fail(f"redo paths: the checks saw {lifetime['programs']}, not every kind")
+    return {"vmax_from": small, "Vd": REDO_VD, "rand_chunk": REDO_CHUNK, "calls": len(got[0]),
+            "bitwise_equal": True, "step_counts": counts, "cb_counts": cb_counts,
+            "wall_s": wall, "lifetime": lifetime if dev.type == "cuda" else None}
+
+
+DECK_FIELDS = ("element", "charge", "potential_boundary", "potential_charge", "kmc_time",
+               "cb_edge")
+
+
+def _deck_calls(model, kind, state0, biases):
+    """``kind`` ("fields", "events_only", "cb_edge") once per bias from
+    ``state0`` (events only on a fresh mt19937 stream), each call timed
+    (host clock, the card drained) and its host reads counted: (states,
+    stats, ms, reads, the stream's next draw)."""
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+
+    dev = model.device
+    stream = BufferedStream(ReferenceRNG(model.params.rnd_seed_kmc))
+    state, states, stats, ms, reads = state0, [], [], [], []
+    for Vd in biases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count_syncs(dev) as caught:
+            if kind == "fields":
+                state, st = model.fields_only(state, Vd)
+            elif kind == "events_only":
+                state, st = model.superstep_events_only(state, stream)
+            else:
+                state, st = model.update_cb_edge(state, Vd), {"cg_iterations": None}
+                st["cg_iterations"] = model.cb_iterations
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        reads.append(n_syncs(caught))
+        states.append({f: getattr(state, f).clone() for f in DECK_FIELDS})
+        stats.append(st)
+    return states, stats, ms, reads, stream.peek(1)[0]
+
+
+def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
+    """``kind`` on the per-loop path and as one program a call in turns
+    (loops, program, program, loops), every call bit-equal to the first
+    run's: ms and host reads a call, the program's capture seconds, and on
+    the DIA operator the kernels' launches from inside the program's graph
+    (one each per K solve, the fused CG's iterations counted on the device
+    equal to the model's). Then ``lifetime_checks`` on the program's model."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    kw = model_kw or {}
+    loops = VCMModel(p, lat, device=dev, step_program=False, **kw)
+    prog = VCMModel(p, lat, device=dev, **kw)
+    state0 = make_device_state(lat, p.background_temp, dev)
+    t0 = time.perf_counter()
+    captured = prog._capture_deck(kind, state0, biases[0])
+    capture_s = time.perf_counter() - t0
+    runs, launches = {False: [], True: []}, None
+    for programmed in (False, True, True, False):
+        model = prog if programmed else loops
+        counts0 = dict(model.cb_counts if kind == "cb_edge" else model.step_counts)
+        if programmed:
+            mv.dia_combined_matvec.launches = dia_cg.dia_cg_solve.launches = 0
+            dia_cg.reset_iterations_total(dev)
+            solves0, iters0 = model.k_solves, model.k_iterations
+        r = _deck_calls(model, kind, state0, biases)
+        counts = model.cb_counts if kind == "cb_edge" else model.step_counts
+        done = {k: counts[k] - counts0[k] for k in counts0}
+        if programmed:
+            launches = {"dia_launches": mv.dia_combined_matvec.launches,
+                        "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+                        "cg_iterations_counted_on_device": dia_cg.iterations_total(dev),
+                        "k_solves": model.k_solves - solves0,
+                        "k_iterations": model.k_iterations - iters0}
+            if done["per_loop"] or done["runs"] != len(biases) + done.get("redos", 0):
+                fail(f"{name} {kind}: the program path ran {done}")
+            if dev.type == "cuda" and not (done.get("redos") or done.get("continues")) and any(
+                    n != 1 for n in r[3]):
+                fail(f"{name} {kind}: a program call read the host {r[3]} times")
+        elif done["per_loop"] != len(biases):
+            fail(f"{name} {kind}: the per-loop path ran {done}")
+        runs[programmed].append((r, done))
+    ref = runs[False][0][0]
+    for label, (r, _) in (("program 1", runs[True][0]), ("program 2", runs[True][1]),
+                          ("loops 2", runs[False][1])):
+        if r[1] != ref[1] or r[4] != ref[4]:
+            fail(f"{name} {kind}: {label}'s stats or stream differ from loops 1's")
+        for i, (a, b) in enumerate(zip(ref[0], r[0])):
+            for f in DECK_FIELDS:
+                if not same_bits(a[f], b[f]):
+                    fail(f"{name} {kind}: {label}'s call {i} differs from loops 1's in {f}")
+    if dev.type != "cuda":
+        pass
+    elif prog.dia is not None and kind == "fields":
+        if (launches["dia_launches"], launches["dia_cg_launches"]) != (launches["k_solves"],) * 2:
+            fail(f"{name} fields: DIA launches {launches} for the program's K solves")
+        if launches["cg_iterations_counted_on_device"] != launches["k_iterations"]:
+            fail(f"{name} fields: the fused CG counted {launches} iterations")
+    elif launches["dia_launches"] or launches["dia_cg_launches"]:
+        fail(f"{name} {kind}: a DIA kernel was launched: {launches}")
+    best = {pr: min(runs[pr], key=lambda x: sum(x[0][2])) for pr in (False, True)}
+    n = len(biases)
+    out = {
+        "model": prog.describe(), "calls": n, "bitwise_equal": True,
+        "capture_s": capture_s, "program_capture_s": captured.capture_s,
+        "ms_per_call_loops": [sum(r[2]) / n for r, _ in runs[False]],
+        "ms_per_call_program": [sum(r[2]) / n for r, _ in runs[True]],
+        "ms_loops": best[False][0][2], "ms_program": best[True][0][2],
+        "host_reads_per_call_loops": sum(best[False][0][3]) / n,
+        "host_reads_per_call_program": sum(best[True][0][3]) / n,
+        "host_reads_program": best[True][0][3],
+        "program_counts": best[True][1], "launches": launches,
+        "stats": [{k: v for k, v in s.items() if k != "event_time"} for s in ref[1]],
+        "lifetime": lifetime_checks(dev, prog, f"{name} {kind}"),
+    }
+    del loops, prog
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: deck program {name} {kind}: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("stats", "ms_loops", "ms_program")}))
+    return out
+
+
+def fields_once(dev, name, p, lat, Vd, model_kw=None) -> dict:
+    """One fields-only call of a large structure at ``Vd`` on each path (the
+    program captured first), bit-equal: ms, host reads."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.state import make_device_state
+
+    out, ref = {"Vd": Vd}, None
+    for programmed in (False, True):
+        model = VCMModel(p, lat, device=dev, step_program=programmed, **(model_kw or {}))
+        state0 = make_device_state(lat, p.background_temp, dev)
+        if programmed:
+            t0 = time.perf_counter()
+            model._capture_deck("fields", state0, Vd)
+            out["capture_s"] = time.perf_counter() - t0
+        r = _deck_calls(model, "fields", state0, [Vd])
+        key = "program" if programmed else "loops"
+        out[f"ms_{key}"], out[f"host_reads_{key}"] = r[2][0], r[3][0]
+        out["cg_iterations"] = r[1][0]["cg_iterations"]
+        if programmed:
+            out["lifetime"] = lifetime_checks(dev, model, f"{name} fields")
+            if r[1] != ref[1] or not all(same_bits(ref[0][0][f], r[0][0][f])
+                                         for f in DECK_FIELDS):
+                fail(f"{name}: the fields-only program differs from the per-loop path")
+        ref = r
+        out["model"] = model.describe()
+        del model
+        torch.cuda.empty_cache()
+    out["bitwise_equal"] = True
+    print(f"chip_smoke: deck program {name} fields once: " + json.dumps(out))
+    return out
+
+
+def deck_programs(dev, synth, synth_dir) -> dict:
+    """The deck modes and the CB edge on both paths (``deck_turns``): fields
+    only at the deck's 15 biases and events only for N_SWEEP supersteps on
+    the sweep's crossbar, the CB edge at the 15 biases on the crossbar and on
+    the disordered stand-in; one fields-only call of the stand-in (banded,
+    31,088 sites) and of the n_yz = 64 crossbar (409,600 slots) each way
+    (``fields_once``); every program kind after its redo paths
+    (``program_redo_paths``)."""
+    from akmc_tpu_torch.config import KMCParameters
+    from akmc_tpu_torch.lattice import build_lattice
+    from akmc_tpu_torch.models import crossbar
+    from akmc_tpu_torch.rng import ReferenceRNG
+    from akmc_tpu_torch.runtime.driver import load_structure
+    from akmc_tpu_torch.state import make_substoichiometric
+
+    t0 = time.perf_counter()
+    _, _, p, lat = crossbar_dia(N_YZ)
+    biases = [float(v) for v in p.V_switch]
+    out = {"crossbar_fields": deck_turns(dev, "crossbar", p, lat, "fields", biases),
+           "crossbar_events_only": deck_turns(dev, "crossbar", p, lat, "events_only",
+                                              biases[:1] * N_SWEEP),
+           "crossbar_cb_edge": deck_turns(dev, "crossbar", p, lat, "cb_edge", biases)}
+    sp = KMCParameters.from_file(synth)
+    element, x, y, z = load_structure(sp, synth_dir)
+    element = make_substoichiometric(element, sp.initial_vacancy_concentration,
+                                     ReferenceRNG(sp.rnd_seed))
+    slat = build_lattice(element, x, y, z, sp, device=dev)
+    out["standin_cb_edge"] = deck_turns(dev, "stand-in", sp, slat, "cb_edge",
+                                        [float(v) for v in sp.V_switch])
+    out["standin_fields"] = fields_once(dev, "stand-in", sp, slat, float(sp.V_switch[0]))
+    if out["standin_fields"]["model"]["k_operator"] != "banded":
+        fail(f"the stand-in's fields took {out['standin_fields']['model']}, not the band")
+    cp, clat = crossbar.build_grid_crossbar(
+        n_yz=PG_N_YZ, contact_slices=10, oxide_slices=22, ti_slices=8,
+        defect_fraction=0.1, vacancy_concentration=0.05, seed=0)
+    out[f"crossbar_n{PG_N_YZ}_fields"] = fields_once(dev, f"crossbar n_yz={PG_N_YZ}", cp, clat,
+                                                     CROSSBAR_VD, dict(rate_normalize=True))
+    del clat
+    t1 = time.perf_counter()
+    out["redo_paths"] = program_redo_paths(dev)
+    out["part_s"] = {"turns_and_fields_once": t1 - t0, "redo_paths": time.perf_counter() - t1}
+    print("chip_smoke: redo paths: " + json.dumps(out["redo_paths"]))
+    print("chip_smoke: deck programs took " + json.dumps(out["part_s"]), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fault A: torch.profiler over replays, each case in a process of its own
+# (``--only profiler_fault``)
+# ---------------------------------------------------------------------------
+PROFILER_CASES = ("bare_while", "superstep", "production_native", "production_batched",
+                  "full", "fields", "events_only", "cb_edge", "production_graph_window")
+PROFILER_REPLAYS = 3
+PROFILER_FAULTS = ("illegal memory access", "CUDA error", "CUPTI", "cudaError")
+
+
+def profiler_case(name: str) -> int:
+    """In a process of its own: ``torch.profiler`` (CPU and CUDA activities)
+    over PROFILER_REPLAYS replays of one graph, then a device read. ``name``:
+    "bare_while", a graph with one while node whose body is one elementwise
+    add (and the compare that sets its flag); a program kind of the n_yz =
+    24 crossbar, captured and run once first; or "production_graph_window",
+    what ended in an illegal memory access in PR 14: the production_graph
+    phase's idle-share window on the program path (its two batched
+    supersteps at 409,600 slots, each a dispatch with its read). Prints one
+    JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import_port()
+    from akmc_tpu_torch.ops import device_loop
+    from akmc_tpu_torch.ops.threefry import KeyDraws
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if name == "bare_while":
+        x = torch.zeros((), dtype=torch.float64, device=dev)
+        live = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def body():
+            x.add_(1.0)
+            torch.lt(x, 10.0, out=live)
+
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            x.zero_()
+            live.fill_(True)
+            device_loop.while_loop(live, body)
+        replay = graph.replay
+    elif name == "production_graph_window":
+        from akmc_tpu_torch.state import make_device_state
+
+        p, lat, model, _, _ = crossbar_model(dev, PG_N_YZ)
+        state0 = make_device_state(lat, p.background_temp, dev)
+        model.warmup(state0, CROSSBAR_VD, batched=PG_BATCH)
+        _pg_run(model, state0, 1)
+
+        def replay():
+            _pg_run(model, state0, 2)
+    else:
+        model, state = full_model(DECK, dev, pair_table_budget=8e9)
+        Vd = float(model.params.V_switch[-1])
+        stream = BufferedStream(ReferenceRNG(model.params.rnd_seed_kmc))
+        if name == "superstep":
+            prog = model._capture_program(state, Vd, 1)
+        elif name.startswith("production"):
+            batch = BATCHED_SWEEP_B if name.endswith("batched") else 0
+            prog = model._capture_production(state, Vd, batch, False)
+            prog.load(state, Vd, KeyDraws.seeded(PG_SEED, dev).key)
+        elif name == "full":
+            state = model.update_cb_edge(state, Vd)
+            prog = model._capture_full(state, Vd, 1)
+        else:
+            prog = model._capture_deck(name, state, Vd)
+        if name in ("superstep", "full"):
+            prog.load(state, Vd, stream.peek(prog.k * prog.chunk), *(
+                (torch.zeros(model.n_atom + 2, dtype=torch.float64, device=dev), 1.0)
+                if name == "full" else ()))
+        prog.run()
+        replay = prog.graph.replay
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        for _ in range(PROFILER_REPLAYS):
+            replay()
+        torch.cuda.synchronize()
+    events = trace.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in events)
+    print(json.dumps({"case": name, "ok": True, "kernels": len(events),
+                      "device_us": device_us}))
+    return 0
+
+
+def run_profiler_fault(dev):
+    """(profiler_fault line, None): each case of PROFILER_CASES profiled in a
+    process of its own (``--profiler-case``), its exit code and the last
+    lines of its errors kept. A case that ends its process is the finding,
+    not a failure of this phase; a case that cannot start is."""
+    line = {"replays": PROFILER_REPLAYS, "cases": {}}
+    for name in PROFILER_CASES:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--profiler-case", name],
+                           capture_output=True, text=True, timeout=600, cwd=HERE)
+        last = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+        errors = [ln for ln in r.stderr.splitlines() if ln.strip()][-6:]
+        # a signal, or an error the card or the profiler raised, is the finding;
+        # anything else is a fault of the case itself
+        on_card = r.returncode < 0 or any(k in r.stderr for k in PROFILER_FAULTS)
+        line["cases"][name] = {"returncode": r.returncode, "ended": r.returncode != 0,
+                               "result": json.loads(last[-1]) if last else None,
+                               "stderr_tail": errors, "s": time.perf_counter() - t0}
+        print(f"chip_smoke: profiler case {name}: " + json.dumps(line["cases"][name]))
+        if r.returncode != 0 and not on_card:
+            fail(f"profiler case {name} failed in its own code: {errors}")
+    line["ended"] = [n for n, c in line["cases"].items() if c["ended"]]
+    return line, None
+
+
 def run_driver(dev, sweep_rows):
     """(driver line, what is wrong with it or None): the deck modes and the
     options the port gained last, each through ``runtime.driver.run`` on the
@@ -4210,6 +4851,14 @@ def run_driver(dev, sweep_rows):
             bad.append(f"potentials: {key} {pot[key]:.3e} beyond {bound:.3e}")
     if bad:
         problems.append("fields-only sweep: " + "; ".join(bad[:5]))
+    # the same sweep on the per-loop path (``step_program=False``): its rows
+    wd_loops = os.path.join(DRIVER_DIR, "fields_only_loops")
+    summary_l, rows_l, counts_l = drive(deck, wd_loops, synthesize_crossbar=N_YZ,
+                                       dia_pallas=True, step_program=False)
+    check_launches("fields-only per-loop", summary_l, rows_l, counts_l)
+    if _rows_but_time(wd_loops) != _rows_but_time(wd) or _log_but_time(wd_loops) != _log_but_time(
+            wd):
+        problems.append("the fields-only sweep's programs and its per-loop path differ")
     line["fields_only"] = {
         "passes": len(rows), "k_solves": summary["k_solves"],
         "cg_per_pass": [r["cg_iterations"] for r in rows],
@@ -4221,6 +4870,10 @@ def run_driver(dev, sweep_rows):
         "superstep_s": [r["superstep_s"] for r in rows],
         "driver_total_s": summary["total_time_s"], "driver_snapshot_s": summary["snapshot_s"],
         "host_syncs_per_pass": counts["host_syncs"] / len(rows), **launches["fields_only"],
+        "per_loop": {"superstep_s": [r["superstep_s"] for r in rows_l],
+                     "driver_total_s": summary_l["total_time_s"],
+                     "host_syncs_per_pass": counts_l["host_syncs"] / len(rows_l),
+                     "rows_equal_but_time": True},
     }
 
     # events only, on the stale (zero) potential: no K solve, no kernel
@@ -4230,6 +4883,12 @@ def run_driver(dev, sweep_rows):
     launches["events_only"] = _launches_of(counts, summary)
     if any(launches["events_only"].values()):
         problems.append(f"the events-only sweep solved or launched: {launches['events_only']}")
+    wd_loops = os.path.join(DRIVER_DIR, "events_only_loops")
+    _, rows_l, counts_l = drive(deck, wd_loops, synthesize_crossbar=N_YZ,
+                                max_supersteps=N_SWEEP, step_program=False)
+    if _rows_but_time(wd_loops) != _rows_but_time(wd) or _log_but_time(wd_loops) != _log_but_time(
+            wd):
+        problems.append("the events-only sweep's programs and its per-loop path differ")
     ref = gold["events_only"]
     got = golden.summarize(wd)
     bad = golden.compare(ref, got, EVENTS_KMC_RTOL)
@@ -4240,6 +4899,9 @@ def run_driver(dev, sweep_rows):
         "kmc_time_max_rel_vs_golden": golden.distance(ref, got)["kmc_time_max_rel"],
         "kmc_rtol": EVENTS_KMC_RTOL, "superstep_s": [r["superstep_s"] for r in rows],
         "host_syncs_per_superstep": counts["host_syncs"] / len(rows), **launches["events_only"],
+        "per_loop": {"superstep_s": [r["superstep_s"] for r in rows_l],
+                     "host_syncs_per_superstep": counts_l["host_syncs"] / len(rows_l),
+                     "rows_equal_but_time": True},
     }
 
     # --steps-per-dispatch on the sweep: a bias point runs whole batches, so
@@ -4325,9 +4987,16 @@ def run_driver(dev, sweep_rows):
     launches["warmup"] = {k: warm[True][k] for k in ("dia_launches", "dia_cg_launches", "k_solves")}
     line["warmup"] = {"with": warm[True], "without": warm[False]}
 
-    # the disordered stand-in: --cache-dir twice, the second run reading the file
+    # the deck modes and the CB edge as one program a call, against the
+    # per-loop path; every program kind after its redo paths
     synth_dir = os.path.join(DRIVER_DIR, "synth")
     synth = synth_deck.write_synth_deck(DECK, synth_dir, N_YZ)
+    line["programs"] = deck_programs(dev, synth, synth_dir)
+    launches["fields_program"] = {
+        k: line["programs"]["crossbar_fields"]["launches"][k]
+        for k in ("dia_launches", "dia_cg_launches", "k_solves")}
+
+    # the disordered stand-in: --cache-dir twice, the second run reading the file
     cache = os.path.join(DRIVER_DIR, "cache")
     cached = []
     for i in range(2):
@@ -4403,10 +5072,11 @@ def _final_potentials_finite(workdir: str) -> bool:
 # ----------------------------------------------------------------------
 SHARDED_DIR = os.path.join(HERE, "build", "chip_smoke", "sharded")
 SHARDED_BATCHED_N_YZ = 64            # 409,600 slots
-SHARDED_BATCHED_STEPS = 3
-SHARDED_FULL_STEPS = 4
-SHARDED_SYNTH_STEPS = 3
-SHARDED_CONCERN_STEPS = 3
+SHARDED_SWEEP_STEPS = 2             # the sweep's first supersteps, of 24, on 2 and 4 ranks
+SHARDED_BATCHED_STEPS = 1
+SHARDED_FULL_STEPS = 1
+SHARDED_SYNTH_STEPS = 1
+SHARDED_CONCERN_STEPS = 1
 HARNESS_K_N = 100_000
 HARNESS_T_N, HARNESS_T_SUB = 102_722, 14_854   # the reference's instance (cg_harness.py)
 HARNESS_RTOL = 1e-8
@@ -4539,7 +5209,8 @@ def check_row_window(dev, operators) -> dict:
         "timed_on": label, "ms": times["kernel"], "plain_ms": times["plain"],
         "library_ms": times["library"], "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "shape": bound["shape"], "call_ms": call_ms,
-        "time_source": "profiler device time" if dev_ms["kernel"] is not None else "CUDA events",
+        "time_source": ("CUDA events over a graph of launches" if dev_ms["kernel"] is not None
+                        else "CUDA events"),
         "library": "torch.sparse_csr_tensor @ vector on the window's rows",
     }
 
@@ -4754,9 +5425,10 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
         s_one, sweep_rows, _ = drive(DECK, os.path.join(SHARDED_DIR, "one_sweep"),
                                      synthesize_crossbar=N_YZ)
         sweep_held = s_one["held_bytes"]
-    refs["sweep"] = golden.summarize(
-        WORKDIR if os.path.isdir(WORKDIR) else os.path.join(SHARDED_DIR, "one_sweep"))
-    refs["sweep_rows"] = sweep_rows
+    head_dir = os.path.join(SHARDED_DIR, "one_sweep_head")
+    drive(DECK, head_dir, synthesize_crossbar=N_YZ, max_supersteps=SHARDED_SWEEP_STEPS)
+    refs["sweep"] = golden.summarize(head_dir)
+    refs["sweep_rows"] = sweep_rows[:SHARDED_SWEEP_STEPS]
     refs["batched"] = _sharded_batched(None)
     if not nccl:
         synth = synth_deck.write_synth_deck(DECK, os.path.join(SHARDED_DIR, "synth"), N_YZ)
@@ -4777,7 +5449,8 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
 
     def sweep_part(size):
         return (f"sweep_{size}", {"workdir": os.path.join(SHARDED_DIR, f"sweep_{size}"),
-                                  "synthesize_crossbar": N_YZ})
+                                  "synthesize_crossbar": N_YZ,
+                                  "max_supersteps": SHARDED_SWEEP_STEPS})
 
     def concern_part(ratio):
         tag = f"{ratio[0]}to{ratio[1]}"
@@ -4812,6 +5485,9 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
     strip = _strip_rows
     with open(GOLDEN) as f:
         gold = json.load(f)
+    # the golden's first supersteps, ending in the one-rank run's elements there
+    gold = {"supersteps": gold["supersteps"][:SHARDED_SWEEP_STEPS],
+            "final_elements": refs["sweep"]["final_elements"]}
     for size, per_rank in results.items():
         r0 = per_rank[0]
         # 2. the sweep
@@ -5002,7 +5678,7 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
 # phase 10: the flagship crossbar
 # ---------------------------------------------------------------------------
 FLAGSHIP_N_YZ = 215                  # 215^2 x 50 slices x 2 sublattices = 4,622,500 slots
-FLAGSHIP_STEPS = 3
+FLAGSHIP_STEPS = 2
 FLAGSHIP_MASS_EPS = 0.1
 # The batched supersteps race f64 clocks, not the recorded run's f32 ones. The
 # loop ends a superstep on a gap of exp(ln_S) / freq in the clocks' scaled
@@ -5094,8 +5770,10 @@ def run_flagship(dev):
     from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
     from akmc_tpu_torch.state import make_device_state
 
+    parts = PartTimes()
     p, lat, model, desc, build = crossbar_model(
         dev, FLAGSHIP_N_YZ, pair_f32=True, event_select_incremental=True)
+    parts.mark("build")
     if lat.N != FLAGSHIP_N_YZ ** 2 * 100 or (desc["k_operator"], desc["pairwise"]) != (
             "dia", "tiled"):
         fail(f"the flagship crossbar is {lat.N} slots, {desc}")
@@ -5106,6 +5784,7 @@ def run_flagship(dev):
     warm = {**model.warmup(state, CROSSBAR_VD), **model.warmup(state, CROSSBAR_VD, batched=64)}
     warmup_s = time.perf_counter() - t0
     at_shape = crossbar_kernels(dev, model, state, FLAGSHIP_N_YZ)
+    parts.mark("warmup_and_kernels")
 
     since = reset_launches(dev, model)
     # the batched supersteps draw from the threefry key on the card: one
@@ -5144,16 +5823,20 @@ def run_flagship(dev):
     program_vs_per_loop = {"bitwise_equal": True, "per_loop_wall_s": per_loop_s,
                            "program_wall_s": prog_row["wall_s"],
                            "events": st["n_events"], "batches": st["n_batches"]}
+    parts.mark("supersteps")
 
     # the three loops against their plain loops, then a batched superstep
     # with each, on the last state; one batched loop replayed on the CPU,
     # from the same fields and the same uniforms
     fr = model.fields(run.state, CROSSBAR_VD)
     loops = loop_turns(dev, model, run.state, fr, "flagship", FLAGSHIP_MASS_EPS, ks=True)
+    parts.mark("loop_turns")
     turns = superstep_turns(dev, model, run.state, "flagship", FLAGSHIP_MASS_EPS)
+    parts.mark("superstep_turns")
     peak_loops = torch.cuda.max_memory_allocated() / 1e9
     replay = replay_case(dev, run.state, fr, model.tables, p.freq, 215, 64, FLAGSHIP_CLOCK_F32,
                          FLAGSHIP_MASS_EPS, "the flagship's fields, B=64")
+    parts.mark("cpu_replay")
     t = model.tables
     cold_ln_S = float(model.fields(state, CROSSBAR_VD).ln_S)
     fr = model.fields(after_serial, CROSSBAR_VD)
@@ -5170,6 +5853,7 @@ def run_flagship(dev):
              "wall_s": time.perf_counter() - t0}
     print("chip_smoke: flagship, f32 clocks on the first batched superstep's fields: "
           + json.dumps(probe))
+    parts.mark("rate_scale_and_f32_probe")
     steps = run.steps
     batched = [r for r in steps if r["kind"] == "batched"]
     line = {
@@ -5187,10 +5871,10 @@ def run_flagship(dev):
         "loop_graphs_capture_s": model.loop_graphs.capture_s(),
         "production_launches": production_launches,
         "program_vs_per_loop": program_vs_per_loop,
-        "program_capture_s": model.step_graphs.capture_s(),
+        "program_capture_s": model.step_graphs.capture_s(), "part_s": parts,
     }
     print("chip_smoke: flagship " + json.dumps({k: line[k] for k in (
-        "slots", "build_s", "model_s", "warmup_s", "peak_mem_gb")}))
+        "slots", "build_s", "model_s", "warmup_s", "peak_mem_gb", "part_s")}))
     return line, None
 
 
@@ -5204,7 +5888,8 @@ def crossbar_lines(lines):
 
 PHASES = ("kernels", "sweep", "disordered", "superstep_graph", "production_graph", "tiled",
           "batched", "full", "driver", "sharded", "flagship")
-OPT_IN = ("nccl", "schedules")   # run only when --only names them
+OPT_IN = ("nccl", "schedules", "profiler_fault")   # run only when --only names them
+LIFETIME_PHASES = ("superstep_graph", "production_graph", "full", "driver")
 
 
 def main(argv=None) -> int:
@@ -5214,14 +5899,20 @@ def main(argv=None) -> int:
     ap.add_argument("--crossbar-n-yz", default=",".join(map(str, CROSSBAR_N_YZ)),
                     help="widths of the batched phase's crossbar runs (default 64,104: 409,600 "
                          "and 1,081,600 slots), the first at full depth")
+    ap.add_argument("--profiler-case", choices=PROFILER_CASES,
+                    help="(the profiler_fault phase's child process) profile one case's replays")
     args = ap.parse_args(argv)
+    if args.profiler_case:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: this smoke run needs the card")
+        return profiler_case(args.profiler_case)
     phases = args.only.split(",")
     if set(phases) - set(PHASES) - set(OPT_IN):
         fail(f"--only takes phases of {PHASES + OPT_IN}")
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the card")
     import_port()
-    from akmc_tpu_torch.ops import cuda_build
+    from akmc_tpu_torch.ops import cuda_build, device_loop
 
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
@@ -5236,9 +5927,17 @@ def main(argv=None) -> int:
 
     kernels, lines, problems = [], {}, []
     if "kernels" in phases:
+        parts = PartTimes()
         dia, meta, p, lat = crossbar_dia(N_YZ)
-        kernels = [check_dia_kernel(dev, dia, meta), check_dia_cg(dev, dia, meta, p, lat),
-                   check_threefry(dev), check_graph_while(dev)]
+        parts.mark("crossbar")
+        kernels = []
+        for name, check in (("dia_matvec", lambda: check_dia_kernel(dev, dia, meta)),
+                            ("dia_cg", lambda: check_dia_cg(dev, dia, meta, p, lat)),
+                            ("threefry", lambda: check_threefry(dev)),
+                            ("graph_while", lambda: check_graph_while(dev))):
+            kernels.append(check())
+            parts.mark(name)
+        print("chip_smoke: phase kernels took " + json.dumps(parts), flush=True)
     sweep_rows, sweep_held = [], {}
 
     def sweep():
@@ -5260,11 +5959,20 @@ def main(argv=None) -> int:
                       ("nccl", lambda: run_sharded(dev, sweep_rows or None, sweep_held,
                                                    device="cuda", backend="nccl")),
                       ("flagship", lambda: run_flagship(dev)),
-                      ("schedules", lambda: run_schedules(dev))):
+                      ("schedules", lambda: run_schedules(dev)),
+                      ("profiler_fault", lambda: run_profiler_fault(dev))):
         if name in phases:
+            # in the phases that check program lifetimes (fault A;
+            # ``lifetime_checks``) every capture records what its graph binds
+            device_loop.TRACE_BINDINGS = name in LIFETIME_PHASES
+            # the models of the phases before are garbage in reference cycles,
+            # and each holds its graphs' pools: free them before this phase
+            gc.collect()
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
             lines[name], problem = run()
             lines[name]["phase_s"] = time.perf_counter() - t0
+            print(f"chip_smoke: phase {name} took {lines[name]['phase_s']:.1f} s", flush=True)
             if problem:
                 problems.append(problem)
     # the threefry kernel and the while nodes: launches on the production

@@ -913,6 +913,7 @@ def _cg_caller(name, dev):
             return out
         return carried
     if name == "cb_edge":
+        model.step_program = False      # the CG's own loop (a program's is a while node)
         return lambda: [model.update_cb_edge(state, Vd).cb_edge for Vd in (2.0, 3.0)]
     if name.startswith("power"):
         if name == "power_gather":
@@ -1228,3 +1229,122 @@ def test_full_graph_matches_per_loop_path(card, case):
             assert torch.equal(getattr(ref[0], field), getattr(r[0], field)), field
         assert torch.equal(ref[2], r[2])
         assert r[1] == ref[1] and r[3] == ref[3]
+
+
+# ----------------------------------------------------------------------------
+# the deck modes and the per-bias CB edge as one CUDA graph each
+# (models/step_program.py: FieldsProgram, EventsOnlyProgram, CbEdgeProgram)
+# ----------------------------------------------------------------------------
+def _reads_of(fn):
+    """(fn's result, the host reads it made)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fields", "events_only", "cb_edge"])
+@pytest.mark.parametrize("case", ["crossbar-n6", "toy-banded"])
+def test_deck_programs_match_per_loop_path(card, case, kind):
+    """``fields_only``, ``superstep_events_only`` (on the stale fields at
+    8 V) and ``update_cb_edge`` as one graph replay a call equal the per-loop
+    path to the bit, with one host read a call after the capture (more only
+    for a continuation); on the DIA operator both kernels launch from inside
+    ``FieldsProgram``'s graph once per K solve."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import dia_matvec
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    name, p, lat, kw = next(c for c in _graph_cases() if c[0] == case)
+    s0 = make_device_state(lat, p.background_temp, card)
+    if kind == "events_only":
+        s0, _ = VCMModel(p, lat, device=card, step_program=False, **kw).fields_only(s0, 8.0)
+    runs = []
+    for programmed in (False, True, True):
+        m = VCMModel(p, lat, device=card, step_program=programmed, **kw)
+        s, stream = s0, BufferedStream(ReferenceRNG(1))
+        stats, reads = [], []
+        launches0 = dia_matvec.dia_combined_matvec.launches, dia_cg.dia_cg_solve.launches
+        for Vd in (2.0, 3.0, 3.0):
+            if kind == "fields":
+                (s, st), n = _reads_of(lambda: m.fields_only(s, Vd))
+            elif kind == "events_only":
+                (s, st), n = _reads_of(lambda: m.superstep_events_only(s, stream))
+            else:
+                s, n = _reads_of(lambda: m.update_cb_edge(s, Vd))
+                st = {"cg_iterations": m.cb_iterations}
+            stats.append(st)
+            reads.append(n)
+        if programmed:
+            counts = m.cb_counts if kind == "cb_edge" else m.step_counts
+            assert counts["runs"] == 3 and counts["per_loop"] == 0, counts
+            if not m.step_counts["continues"]:
+                assert reads[1:] == [1, 1], reads       # the first call also captures
+            if kind == "fields" and m.dia is not None:
+                assert (dia_matvec.dia_combined_matvec.launches - launches0[0],
+                        dia_cg.dia_cg_solve.launches - launches0[1]) == (m.k_solves,) * 2
+        runs.append((s, stats, stream.peek(1)[0]))
+    ref = runs[0]
+    for r in runs[1:]:
+        for field in ("element", "charge", "potential_boundary", "potential_charge",
+                      "kmc_time", "cb_edge"):
+            a, b = getattr(ref[0], field), getattr(r[0], field)
+            if a.dtype == torch.float64:
+                a, b = a.view(torch.int64), b.view(torch.int64)
+            assert torch.equal(a, b), field
+        assert r[1:] == ref[1:]
+
+
+@pytest.mark.cuda
+def test_program_bindings_live_and_poisoned_memory_unread(card, monkeypatch):
+    """Every program kind captured with the binding trace on binds only
+    spans inside live blocks of the caching allocator, and replays the same
+    bits after every free block (the default pool, its own, the while
+    bodies') was filled with NaN bytes."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import device_loop
+    from akmc_tpu_torch.ops.threefry import KeyDraws
+    from akmc_tpu_torch.rng import BufferedStream, ReferenceRNG
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    monkeypatch.setattr(device_loop, "TRACE_BINDINGS", True)
+    p, lat, kw = _full_case("crossbar-n6:global")
+    m = VCMModel(p, lat, device=card, **kw)
+    s = m.update_cb_edge(make_device_state(lat, p.background_temp, card), 5.0)
+    stream, draws = BufferedStream(ReferenceRNG(1)), KeyDraws.seeded(3, card)
+    s, _ = m.superstep(s, 5.0, stream)
+    s, _ = m.superstep_native_batched(s, 5.0, draws, batch=8)
+    s, _, _ = m.superstep_full(s, 5.0, stream)
+    s, _ = m.fields_only(s, 5.0)
+    s, _ = m.superstep_events_only(s, stream)
+    kinds = set()
+    for prog in m.step_graphs.programs.values():
+        assert prog.bound and not device_loop.stale_bindings(prog.bound, card)
+
+        def replay():
+            with dia_cg.iterations_total_kept(card):
+                prog.graph.replay()
+            torch.cuda.synchronize()
+            out, stats, _ = prog.captured
+            return [t.clone() for t in (*out.values(), stats) if isinstance(t, torch.Tensor)]
+
+        before = replay()
+        assert device_loop.poison_free_blocks(
+            card, [prog.graph.pool(), *device_loop.private_pools(card)]) > 0
+        after = replay()
+        for a, b in zip(before, after):
+            if a.dtype == torch.float64:
+                a, b = a.view(torch.int64), b.view(torch.int64)
+            assert torch.equal(a, b), type(prog).__name__
+        kinds.add(type(prog).__name__)
+    assert kinds == {"SuperstepProgram", "ProductionProgram", "FullProgram", "FieldsProgram",
+                     "EventsOnlyProgram", "CbEdgeProgram"}

@@ -17,6 +17,9 @@ while nodes; here the same body, eagerly). Held here:
   bit: state, stats, ``m``, the stream; heat off, global and local (steady
   and transient), band and gather, ``wkb_f32``, a cap redone, a window
   continued, a ``superstep_full_multi`` batch kept and one discarded;
+* windows that run out against ``akmc_tpu``, which replays such a step on a
+  window four times larger where the port continues it: the same events,
+  draws and elements, with global heat and both local branches;
 * the body reads nothing back and makes no tensor from host data.
 """
 
@@ -397,6 +400,75 @@ def test_full_program_matches_akmc_tpu():
         np.testing.assert_allclose(a["I_macro"], b["I_macro"], rtol=1e-6)
         np.testing.assert_allclose(a["P_tot"], b["P_tot"], rtol=1e-6)
     np.testing.assert_array_equal(ts.element.numpy(), np.asarray(js.element))
+
+
+def _akmc_tpu_full(p, lat, steps, multi, k, chunk, multi_chunk):
+    """akmc_tpu's ``superstep_full`` ``steps`` times on windows of ``chunk``,
+    then ``superstep_full_multi`` of k ``multi`` times on ``multi_chunk``
+    draws a step: (state, stats, the stream's next draw)."""
+    jm = JModel(p, lat, ne_max=NE_MAX)
+    js = jm.update_cb_edge(j_state(lat, p.background_temp), VD)
+    jstream = JStream(JRNG(1))
+    stats, m = [], None
+    for i in range(steps):
+        js, s, m = jm.superstep_full(js, VD, jstream, m_prev=m, rand_chunk=chunk,
+                                     rtol_scale=1e-2 if i % 2 else 1.0)
+        stats.append(s)
+    for _ in range(multi):
+        js, more, m = jm.superstep_full_multi(js, VD, jstream, k, m_prev=m,
+                                              rand_chunk=multi_chunk)
+        stats += more
+    return js, stats, jstream.peek(1)[0]
+
+
+@pytest.mark.parametrize("heating, delta_t", [("global", 1e-13), ("local", 1e-13),
+                                              ("local", 1e-3)],
+                         ids=["global", "local-steady", "local-transient"])
+def test_window_runs_out_as_akmc_tpu(heating, delta_t):
+    """Windows that run out: three superstep_full calls on 4 draws and a
+    superstep_full_multi batch of 2 on 3 draws a step, every window too
+    short. akmc_tpu throws such a step away and runs it again on a window
+    four times larger (a batch: step by step through that path); the port
+    goes on in events-only chunks and applies the heat model again over the
+    whole event time. Events, draws and elements equal; the power CG's
+    counts equal; I_macro, P_tot, T_bg and each site's temperature to the
+    rtol 1e-6 of test_full_program_matches_akmc_tpu. At delta_t 1e-13 the
+    local model takes its steady branch in three of the five supersteps and
+    its transient one (one and two steps) in the other two.
+
+    One batch, not more: the next batch's last superstep (5.1e-13 s) takes
+    six transient steps at dt_eff 0.2, which diverge on the toy's lattice in
+    both packages (sites near 1e63 K); its rise above 300 K then carries
+    f64's ulp(300 K) / rise, about 1e-6, of rounding, amplified, and the two
+    packages read 2.8e-6 apart there."""
+    p, lat, kw = _full(heating, delta_t)
+    model = TModel(convert.params(p), convert.lattice(lat), device="cpu", **kw)
+    ts = model.update_cb_edge(convert.state(j_state(lat, p.background_temp)), VD)
+    stream = TStream(TRNG(1))
+    tst, m = [], None
+    for i in range(3):
+        ts, s, m = model.superstep_full(ts, VD, stream, m_prev=m, rand_chunk=4,
+                                        rtol_scale=1e-2 if i % 2 else 1.0)
+        tst.append(s)
+    ts, more, m = model.superstep_full_multi(ts, VD, stream, 2, m_prev=m, rand_chunk=3)
+    tst += more
+    counts = model.step_counts
+    assert counts["discards"] == 1 and counts["continues"] >= len(tst)
+    js, jst, nj = _akmc_tpu_full(p, lat, 3, 1, 2, 4, 3)
+    assert stream.peek(1)[0] == nj
+    assert len(tst) == len(jst) == 5
+    for a, b in zip(tst, jst):
+        assert (a["n_events"], a["power_cg_iterations"]) == (b["n_events"],
+                                                             b["power_cg_iterations"])
+        for key in ("I_macro", "P_tot", "T_bg"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-6, err_msg=key)
+    np.testing.assert_array_equal(ts.element.numpy(), np.asarray(js.element))
+    np.testing.assert_allclose(float(ts.T_bg), float(js.T_bg), rtol=1e-6)
+    np.testing.assert_allclose(ts.temperature.numpy(), np.asarray(js.temperature), rtol=1e-6)
+    if heating == "global":
+        assert float(ts.T_bg) > 300.0
+    else:
+        assert (ts.temperature.numpy() != 300.0).any()
 
 
 class _NoReads(TorchDispatchMode):
