@@ -17,8 +17,21 @@
 // (the body recomputes `live` before it) and ends the body's capture. The
 // node then runs its body again for as long as the body leaves `live` true.
 //
-// Replaces no TPU kernel: it is graph plumbing. It computes nothing, and the
-// only kernel in it runs one thread. Needs CUDA >= 12.3 (conditional nodes).
+// span_stamp_launch issues one stamp of a span table (runtime/profiling.py):
+// a one-thread kernel that reads the device's %globaltimer (nanoseconds)
+// where it stands in the stream or graph. A table row is five int64 words,
+// [sum, count, first start, last end, open start]:
+//   kOpen   writes the open start (and the first start while count is 0);
+//   kClose  adds now - open start to sum, 1 to count, and sets last end;
+//   kAnchor writes now into word 0 of a one-word row, as its own kernel
+//           span_anchor (launched eagerly before a replay, it is the kernel
+//           by which a trace finds the dispatch);
+// inside a while body a row adds up the node's passes. globaltimer_samples
+// reads the timer n times back to back in one thread, for its resolution.
+//
+// Replaces no TPU kernel: it is graph plumbing and tracing. It computes
+// nothing, and every kernel in it runs one thread. Needs CUDA >= 12.3
+// (conditional nodes).
 
 #include <cuda_runtime.h>
 
@@ -40,6 +53,32 @@ constexpr int kErrNotCapturing = -1;
 
 __global__ void set_condition(cudaGraphConditionalHandle handle, const unsigned char* live) {
   cudaGraphSetConditional(handle, *live != 0 ? 1u : 0u);
+}
+
+enum StampOp { kOpen = 0, kClose = 1, kAnchor = 2 };
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void span_stamp(long long* row, int op) {
+  const long long now = global_ns();
+  if (op == kOpen) {
+    row[4] = now;
+    if (row[1] == 0) row[2] = now;
+  } else {
+    row[0] += now - row[4];
+    row[1] += 1;
+    row[3] = now;
+  }
+}
+
+__global__ void span_anchor(long long* row) { row[0] = global_ns(); }
+
+__global__ void globaltimer_samples(long long* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = global_ns();
 }
 
 }  // namespace
@@ -99,4 +138,24 @@ extern "C" int graph_while_end(void* body_stream, unsigned long long handle, con
   cudaGraph_t captured = nullptr;
   const cudaError_t end = cudaStreamEndCapture(b, &captured);
   return static_cast<int>(err != cudaSuccess ? err : end);
+}
+
+// One stamp of `op` on the table row `row` (five int64 words), on `stream`
+// (captured into the graph when the stream is capturing). kAnchor launches
+// its own kernel, span_anchor, so that a trace tells anchors from the
+// stamps inside a graph by name. Returns a cudaError_t.
+extern "C" int span_stamp_launch(void* stream, long long* row, int op) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (op == kAnchor) {
+    span_anchor<<<1, 1, 0, s>>>(row);
+  } else {
+    span_stamp<<<1, 1, 0, s>>>(row, op);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `n` reads of %globaltimer back to back into `out` (n int64), on `stream`.
+extern "C" int globaltimer_samples_launch(void* stream, long long* out, int n) {
+  globaltimer_samples<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, n);
+  return static_cast<int>(cudaGetLastError());
 }

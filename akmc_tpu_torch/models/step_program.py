@@ -52,6 +52,13 @@ with the K-CG a while loop; ``[cg_iterations, q_ovf, v_ovf, c_ovf]``),
 potential, then the serial loop on one window; ``[n_events, draws_used,
 event_time, done]``) and ``CbEdgeProgram`` (``solve_cb_edge`` with its CG a
 while loop; ``[cg_iterations]``), each followed by the loops' recordings.
+
+With the model's ``spans`` on, every program also owns a span table
+(``runtime/profiling.py``): the body zeroes it, stamps ``superstep`` and the
+module spans of the code it runs, and records it after the diagnostics, so
+that the one read of a run brings the dispatch's device spans
+(``last_spans``); a run stamps the dispatch's anchor before its replay and
+times its host phases.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from akmc_tpu_torch.ops import device_loop
 from akmc_tpu_torch.ops import events
 from akmc_tpu_torch.ops import threefry
 from akmc_tpu_torch.ops.events import _BatchedProgram, _pack_code, _SerialProgram, _unpack_code
+from akmc_tpu_torch.runtime import profiling
 
 DIAG = 8     # entries per superstep of the packed diagnostics
 PRODUCTION_DIAG = 10     # the production supersteps' (akmc_tpu's _step_b's)
@@ -79,9 +87,18 @@ MAX_EVENTS = 1 << 20     # the native loop's (run_event_loop_native's default)
 class _Program:
     """A body that reads nothing back, captured once on a card and run as
     one replay and one host read (eagerly on the CPU). ``KEEP``: outputs
-    handed out as the program's own tensors rather than copies."""
+    handed out as the program's own tensors rather than copies. ``LABEL``
+    names its host spans (``akmc.<kind>.<phase>``).
+
+    With the model's ``spans`` on, the program owns a span table
+    (``runtime/profiling.py::SpanTable``, allocated here, before any
+    capture): ``body`` zeroes it, opens ``superstep`` around the subclass's
+    ``_body`` and records the table with the diagnostics, so the one read
+    of a run brings ``last_spans``. With spans off ``body`` is the
+    subclass's body and its pack, node for node."""
 
     KEEP = ()
+    LABEL = "akmc.program"
 
     def _init_program(self, model) -> None:
         self.model = model
@@ -91,9 +108,31 @@ class _Program:
         self.capture_s = 0.0     # host seconds of the warm run, capture, instantiation, first launch
         self.runs = 0
         self.bound: List[tuple] = []     # what the graph binds from outside its pools
+        self.spans = profiling.SpanTable(self.device) if model.spans else None
+        self.last_spans: Dict[str, dict] = {}
+
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The program's work on the loaded inputs: (outputs, the packed
+        diagnostics). Reads nothing back."""
+        raise NotImplementedError
 
     def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        raise NotImplementedError
+        """``_body`` and its spans, then the diagnostics followed by what was
+        recorded (run it inside ``device_loop.recording``): (outputs, the
+        packed vector)."""
+        rec = device_loop._RECORDING
+        table = self.spans
+        with profiling.spanning(table):
+            if table is not None:
+                table.reset()
+            with profiling.span("superstep"):
+                out, diag = self._body()
+        if table is not None:
+            device_loop.record(table.tensors(), self._read_spans)
+        return out, torch.cat([diag, *rec.pack()])
+
+    def _read_spans(self, values) -> None:
+        self.last_spans = self.spans.read(values)
 
     def _capture(self) -> None:
         """Warm the body once eagerly on a side stream (its counts dropped and
@@ -136,24 +175,34 @@ class _Program:
         if self.device.type == "cuda" and self.graph is None:
             self._capture()
 
-    def run(self) -> Tuple[Dict[str, torch.Tensor], List[float]]:
+    def run(self, host: "profiling.HostSpans" = None
+            ) -> Tuple[Dict[str, torch.Tensor], List[float]]:
         """One run on the loaded inputs: (outputs, the packed vector as
         read). The one host read of the dispatch; the recorded counts are
         applied (the entries after the first ``self.n_diag``). The outputs
         but ``KEEP`` are copies: the next run writes the program's own (the
-        graph's, or the loops' buffers)."""
+        graph's, or the loops' buffers). With spans on, the anchor stamp
+        goes first, and ``host`` times the ``launch`` (the replay, or on the
+        CPU the eager body), the ``read`` and the ``unpack``."""
         if self.device.type == "cuda":
             self.capture()
-            self.graph.replay()
+            if self.spans is not None:
+                self.spans.stamp_anchor()
+            with profiling.host_span(host, "launch"):
+                self.graph.replay()
             out, stats, rec = self.captured
         else:
             rec = device_loop.Recording()
-            with device_loop.recording(rec):
+            if self.spans is not None:
+                self.spans.stamp_anchor()
+            with profiling.host_span(host, "launch"), device_loop.recording(rec):
                 out, stats = self.body()
-        vals = stats.tolist()
+        with profiling.host_span(host, "read"):
+            vals = stats.tolist()
         self.runs += 1
-        rec.apply(vals[self.n_diag:])
-        out = {name: (t if name in self.KEEP else t.clone()) for name, t in out.items()}
+        with profiling.host_span(host, "unpack"):
+            rec.apply(vals[self.n_diag:])
+            out = {name: (t if name in self.KEEP else t.clone()) for name, t in out.items()}
         return out, vals[: self.n_diag]
 
 
@@ -165,6 +214,7 @@ class SuperstepProgram(_Program):
 
     KEEP = ("P", "etype", "ln_S")
     ROW = DIAG      # diagnostics a superstep
+    LABEL = "akmc.superstep"
 
     def __init__(self, model, state, k: int, chunk: int, carry: bool):
         self._init_program(model)
@@ -210,10 +260,9 @@ class SuperstepProgram(_Program):
             self.staging[: win.shape[0]].copy_(win)
             dst.copy_(self.staging[: win.shape[0]], non_blocking=True)
 
-    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The k supersteps on the loaded inputs: (outputs, the packed
-        diagnostics of every step). Reads nothing back; run it inside
-        ``device_loop.recording``, whose entries it packs after the diagnostics."""
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The k supersteps on the loaded inputs: (outputs, the diagnostics
+        of every step). Reads nothing back."""
         m, loop = self.model, self.loop
         inv_freq = 1.0 / m.params.freq
         element, charge, pb, kmc = self.element, self.charge, self.pb, self.kmc_time
@@ -239,15 +288,14 @@ class SuperstepProgram(_Program):
         out = dict(element=element, charge=charge, potential_boundary=pb,
                    potential_charge=fr.potential_sum, kmc_time=kmc, event_time=ev_time,
                    P=fr.P, etype=fr.etype, ln_S=fr.ln_S)
-        rec = device_loop._RECORDING
-        stats = torch.cat([torch.stack(rows).reshape(-1), *rec.pack()])
-        return out, stats
+        return out, torch.stack(rows).reshape(-1)
 
-    def run(self) -> Tuple[Dict[str, torch.Tensor], List[List[float]]]:
+    def run(self, host: "profiling.HostSpans" = None
+            ) -> Tuple[Dict[str, torch.Tensor], List[List[float]]]:
         """One run on the loaded inputs: (outputs, each step's ``ROW``
         diagnostics as read). ``P``, ``etype`` and ``ln_S`` are the program's
         until its next run."""
-        out, vals = super().run()
+        out, vals = super().run(host)
         r = self.ROW
         return out, [vals[r * i: r * (i + 1)] for i in range(self.k)]
 
@@ -260,6 +308,8 @@ class ProductionProgram(_Program):
     ``events.BATCHED_NODE_K`` batches per pass of its while node. ``run``
     gives (outputs, the 10 diagnostics); ``out["key"]`` is the key moved on
     by the superstep's split."""
+
+    LABEL = "akmc.production"
 
     def __init__(self, model, state, batch: int, clock_f32: bool):
         self._init_program(model)
@@ -317,17 +367,18 @@ class ProductionProgram(_Program):
         self.k_extrap.fill_(float(k_extrap))
         self.key_in.copy_(key)
 
-    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The superstep on the loaded inputs: (outputs, the packed vector).
-        Reads nothing back; run it inside ``device_loop.recording``."""
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The superstep on the loaded inputs: (outputs, the diagnostics).
+        Reads nothing back."""
         m, loop, dev = self.model, self.loop, self.device
         f64 = torch.float64
         pb = self.pb
         if self.batch:
             pb = pb + self.k_extrap * (pb - self.pb_prev2)
         fr = m._fields(self.element, self.charge, pb, self.T_bg, self.Vd)
-        self.key[threefry.KEY].copy_(self.key_in)
-        threefry.draw_step(self.key)          # key, sub = split(key): sub in key[4:6]
+        with profiling.span("key_split"):
+            self.key[threefry.KEY].copy_(self.key_in)
+            threefry.draw_step(self.key)          # key, sub = split(key): sub in key[4:6]
         sub = self.key[4:6]
         if self.batch:
             loop.load(self.element, fr.charge, fr.P, fr.etype, fr.ln_S, self.mass_eps,
@@ -354,8 +405,7 @@ class ProductionProgram(_Program):
         out = dict(element=element, charge=charge, potential_boundary=fr.potential_boundary,
                    potential_charge=fr.potential_sum, event_time=ev_time,
                    key=self.key[threefry.KEY])
-        rec = device_loop._RECORDING
-        return out, torch.cat([diag, *rec.pack()])
+        return out, diag
 
     def _capture(self) -> None:
         """``_Program._capture`` with the loop cut to one batch or event: the
@@ -395,6 +445,7 @@ class FullProgram(SuperstepProgram):
     events-only continuation."""
 
     ROW = FULL_DIAG
+    LABEL = "akmc.full"
 
     def __init__(self, model, state, k: int, chunk: int):
         super().__init__(model, state, k, chunk, False)
@@ -416,9 +467,9 @@ class FullProgram(SuperstepProgram):
         self.m_prev.copy_(m_prev)
         self.rtol_scale.fill_(float(rtol_scale))
 
-    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The k steps on the loaded inputs: (outputs, the packed vector).
-        Reads nothing back; run it inside ``device_loop.recording``."""
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The k steps on the loaded inputs: (outputs, the diagnostics).
+        Reads nothing back."""
         m, loop, dev = self.model, self.loop, self.device
         inv_freq = 1.0 / m.params.freq
         f64 = torch.float64
@@ -449,8 +500,7 @@ class FullProgram(SuperstepProgram):
                    potential_charge=fr.potential_sum, kmc_time=kmc, event_time=ev_time,
                    temperature=temp, T_bg=T_bg, power=site_power, m=m_prev,
                    P=fr.P, etype=fr.etype, ln_S=fr.ln_S)
-        rec = device_loop._RECORDING
-        return out, torch.cat([torch.stack(rows).reshape(-1), *rec.pack()])
+        return out, torch.stack(rows).reshape(-1)
 
 
 class FieldsProgram(_Program):
@@ -461,6 +511,8 @@ class FieldsProgram(_Program):
     packed as ``[cg_iterations, q_ovf, v_ovf, c_ovf]`` and the loops'
     recordings. ``Vd`` is a 0-d tensor of the program; the state is copied
     in. ``run`` gives the charge, the boundary and the summed potential."""
+
+    LABEL = "akmc.fields"
 
     def __init__(self, model, state):
         self._init_program(model)
@@ -478,9 +530,9 @@ class FieldsProgram(_Program):
         self.T_bg.copy_(state.T_bg)
         self.Vd.fill_(float(Vd))
 
-    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The fields on the loaded inputs: (outputs, the packed vector).
-        Reads nothing back; run it inside ``device_loop.recording``."""
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The fields on the loaded inputs: (outputs, the diagnostics).
+        Reads nothing back."""
         f64 = torch.float64
         fr = self.model._fields(self.element, self.charge, self.pb, self.T_bg, self.Vd)
         diag = torch.stack([torch.as_tensor(fr.cg_iterations, device=self.device).to(f64),
@@ -488,7 +540,7 @@ class FieldsProgram(_Program):
                             fr.c_overflow.to(f64)])
         out = dict(charge=fr.charge, potential_boundary=fr.potential_boundary,
                    potential_sum=fr.potential_sum)
-        return out, torch.cat([diag, *device_loop._RECORDING.pack()])
+        return out, diag
 
 
 class EventsOnlyProgram(SuperstepProgram):
@@ -502,6 +554,7 @@ class EventsOnlyProgram(SuperstepProgram):
     until its next run) for an events-only continuation."""
 
     ROW = EVENTS_DIAG
+    LABEL = "akmc.events_only"
 
     def __init__(self, model, state, chunk: int):
         super().__init__(model, state, 1, chunk, False)
@@ -512,10 +565,11 @@ class EventsOnlyProgram(SuperstepProgram):
         super().load(state, 0.0, window)
         self.pc.copy_(state.potential_charge)
 
-    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         m, loop = self.model, self.loop
         f64 = torch.float64
-        P, etype, ln_S = m._build_rates(self.element, self.charge, self.pc, self.T_bg)
+        with profiling.span("rates"):
+            P, etype, ln_S = m._build_rates(self.element, self.charge, self.pc, self.T_bg)
         loop.load(self.element, self.charge, P, etype, ln_S, None)
         loop.base.zero_()
         loop.run_nested()
@@ -524,7 +578,7 @@ class EventsOnlyProgram(SuperstepProgram):
                             (ev_time >= 1.0 / m.params.freq).to(f64)])
         out = dict(element=element, charge=charge, event_time=ev_time, P=P, etype=etype,
                    ln_S=ln_S)
-        return out, torch.cat([diag, *device_loop._RECORDING.pack()])
+        return out, diag
 
 
 class CbEdgeProgram(_Program):
@@ -533,6 +587,8 @@ class CbEdgeProgram(_Program):
     and its ``symscaled_cg`` as a while loop, packed as ``[cg_iterations]``
     and the loop's recordings. ``Vd`` is a 0-d tensor of the program; the
     element, charge and previous edge are copied in."""
+
+    LABEL = "akmc.cb_edge"
 
     def __init__(self, model, state):
         self._init_program(model)
@@ -548,7 +604,7 @@ class CbEdgeProgram(_Program):
         self.cb_prev.copy_(state.cb_edge)
         self.Vd.fill_(float(Vd))
 
-    def body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    def _body(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         from akmc_tpu_torch.solvers.poisson import solve_cb_edge
 
         m = self.model
@@ -557,4 +613,4 @@ class CbEdgeProgram(_Program):
                                 t.metal_or_edge, self.Vd, p.high_G * 100000, p.low_G,
                                 p.num_atoms_first_layer, graphs=m.cg_graphs)
         it = torch.as_tensor(res.iterations, device=self.device).to(torch.float64).reshape(1)
-        return {"cb_edge": cb}, torch.cat([it, *device_loop._RECORDING.pack()])
+        return {"cb_edge": cb}, it

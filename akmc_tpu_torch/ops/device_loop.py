@@ -50,6 +50,8 @@ import torch
 from torch.utils import _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from akmc_tpu_torch.runtime import profiling
+
 
 class StepProgram:
     """``body`` (k steps of a loop and the pack of its flags, over tensors
@@ -74,8 +76,8 @@ class StepProgram:
         if warm:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side), _launches_into([]):    # the warm run is not counted
-                self.body()
+            with torch.cuda.stream(side), _launches_into([]), profiling.suspended():
+                self.body()       # the warm run is not counted
             torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # a dropped program keeps its graphs in a reference cycle until the
@@ -85,7 +87,7 @@ class StepProgram:
         gc.disable()
         try:
             with tracing_bindings(self.device) as bound, torch.cuda.graph(graph), \
-                    _launches_into([]) as fns:
+                    _launches_into([]) as fns, profiling.suspended():
                 self.body()
         finally:
             if collecting:
@@ -99,7 +101,8 @@ class StepProgram:
             for fn in self.launches:
                 fn.launches += 1
         else:
-            self.body()
+            with profiling.suspended():
+                self.body()
 
 
 class LoopGraphs:
@@ -447,7 +450,8 @@ def _condition(live: torch.Tensor) -> bool:
 
 
 def _while_lib():
-    """``csrc/graph_while.cu``, built and typed on first use."""
+    """``csrc/graph_while.cu`` (while nodes, span stamps), built and typed on
+    first use."""
     from akmc_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("graph_while")
@@ -459,6 +463,10 @@ def _while_lib():
         lib.graph_while_end.restype = ctypes.c_int
         lib.graph_while_versions.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.graph_while_versions.restype = ctypes.c_int
+        lib.span_stamp_launch.argtypes = [v, v, ctypes.c_int]
+        lib.span_stamp_launch.restype = ctypes.c_int
+        lib.globaltimer_samples_launch.argtypes = [v, v, ctypes.c_int]
+        lib.globaltimer_samples_launch.restype = ctypes.c_int
     return lib
 
 

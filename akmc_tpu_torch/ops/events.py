@@ -44,6 +44,7 @@ from akmc_tpu_torch.lattice import ELEM, EVENT
 from akmc_tpu_torch.ops import device_loop, threefry
 from akmc_tpu_torch.ops.device_loop import GraphLoop, Prefill, program
 from akmc_tpu_torch.ops.threefry import KeyDraws
+from akmc_tpu_torch.runtime import profiling
 
 _EPS_OVERFLOW = 1e-200   # exponential overflow guard (kmc_events.cu:150)
 _BLK = 256
@@ -484,8 +485,9 @@ def _set(dst: torch.Tensor, value) -> None:
 
 def _run_nested(prog, name: str, live_steps: torch.Tensor) -> None:
     """A loop program's steps as a ``device_loop.while_loop`` of k-step
-    passes inside a program; its passes and ``live_steps`` are recorded for
-    the program's read, as ``name``'s counts."""
+    passes inside a program (the span ``event_loop``); its passes and
+    ``live_steps`` are recorded for the program's read, as ``name``'s
+    counts."""
     passes = torch.zeros((), dtype=torch.int64, device=prog.live.device)
 
     def body():
@@ -495,7 +497,8 @@ def _run_nested(prog, name: str, live_steps: torch.Tensor) -> None:
         prog.live.copy_(prog._live())
 
     prog.live.copy_(prog._live())
-    device_loop.while_loop(prog.live, body)
+    with profiling.span("event_loop"):
+        device_loop.while_loop(prog.live, body)
     device_loop.record((passes, live_steps.clone()), lambda v: _count(
         name, int(v[0]), int(v[0]) * prog.k, int(v[1])))
 
@@ -1226,14 +1229,20 @@ class _BatchedProgram:
 
     def _step(self, i):
         """One batch of ``run_event_loop_batched_plain``, operation for
-        operation, with its writes guarded by ``live``."""
-        P, R, element_x, charge_x = self.P, self.R, self.element_x, self.charge_x
-        neigh_idx, act_idx, abs2act = self.neigh_idx, self.act_idx, self.abs2act
-        n, nn = P.shape
-        B, n_sites, ln_S, dev = self.B, self.n_sites, self.ln_S, P.device
-        inv_freq = 1.0 / self.freq
+        operation, with its writes guarded by ``live``: the race over every
+        row (span ``batch.race``), then its B candidates resolved
+        (``batch.resolve``)."""
         live = self._live()
+        with profiling.span("batch.race"):
+            race = self._race(i, live)
+        with profiling.span("batch.resolve"):
+            self._resolve(live, *race)
 
+    def _race(self, i, live):
+        """The batch's draws, every row's clock and the B smallest: (slot
+        uniforms, clocks of the B, their rows, the total rate, whether it is
+        positive)."""
+        R = self.R
         if self.st is not None:
             u, u_slot = self.u[0], self.v[0]
             threefry.draw_step(self.st, live, u, u_slot)
@@ -1242,7 +1251,17 @@ class _BatchedProgram:
         tau = -torch.log(u) / R.to(self.clock_dtype)
         total = torch.sum(R)
         ok = total > 0.0
-        tau_b, rows_b = _topk_smallest(tau, B)
+        tau_b, rows_b = _topk_smallest(tau, self.B)
+        return u_slot, tau_b, rows_b, total, ok
+
+    def _resolve(self, live, u_slot, tau_b, rows_b, total, ok):
+        """The B candidates' slots, the conflict and mass cuts, the writes,
+        the rows touched and the counters."""
+        P, R, element_x, charge_x = self.P, self.R, self.element_x, self.charge_x
+        neigh_idx, act_idx, abs2act = self.neigh_idx, self.act_idx, self.abs2act
+        n, nn = P.shape
+        B, n_sites, ln_S, dev = self.B, self.n_sites, self.ln_S, P.device
+        inv_freq = 1.0 / self.freq
 
         rows_P = P[rows_b]
         cumr = torch.cumsum(rows_P, dim=1)

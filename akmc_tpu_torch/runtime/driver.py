@@ -146,8 +146,10 @@ def run(
     ``akmc_tpu``'s draws, not reference-stream parity), with ``batched_mass_eps`` the killed-mass
     staleness bound, ``batched_clock_f32`` f32 race clocks and
     ``batched_k_extrap`` the K-solve warm-start extrapolation coefficient.
-    ``module_timing`` runs each physics module apart so that the per-module
-    timing lines carry measured values. ``checkpoint_every`` N saves
+    ``module_timing`` turns the model's spans on (``VCMModel.spans``), so that
+    the per-module timing lines carry the device time of each module's span
+    in the last dispatch, a superstep, and ``metrics.jsonl`` each dispatch's
+    span table. ``checkpoint_every`` N saves
     ``checkpoint.npz`` in the workdir every N supersteps; ``resume_from``
     continues such a file (appending to the workdir's logs), bit-identically
     for the serial loop; the batched key is not in a checkpoint and is made
@@ -315,6 +317,7 @@ def _run(
         # and the batched loop then draws what it draws on one device)
         model = VCMModel(p, lat, device=device, rate_normalize=rate_normalize,
                          pair_f32=pair_f32, wkb_f32=wkb_f32, step_program=step_program)
+        model.spans = bool(module_timing)
         state = make_device_state(lat, p.background_temp, model.device)
         if sharded:
             from akmc_tpu_torch.parallel.mesh import replicate_state, shard_model
@@ -471,9 +474,6 @@ def _run(
                     # perturb_structure)
                     state, stats = model.superstep_events_only(state, kmc_stream)
                     stats_list = [stats]
-                elif module_timing:
-                    state, stats = model.superstep_timed(state, Vd, kmc_stream)
-                    stats_list = [stats]
                 elif batched_events:
                     # production throughput mode: the multi-event batched
                     # loop on akmc_tpu's threefry key (not reference-stream parity;
@@ -502,14 +502,16 @@ def _run(
                 batch_s = time.perf_counter() - t0
                 supersteps_s += batch_s
                 dt = batch_s / len(stats_list)
+                if module_timing:
+                    _add_module_times(stats_list, model.last_spans)
 
                 for stats in stats_list:
                     # the clock is tracked on the host; state.kmc_time stays
                     # authoritative for checkpoints
                     kmc_time += stats["event_time"]
                     # per-module timing lines, each gated on its module as the
-                    # reference gates it: measured per module under
-                    # module_timing, else each line carries the superstep total
+                    # reference gates it: the dispatch's device spans a
+                    # superstep under module_timing, else the superstep total
                     if p.solve_potential:
                         out.write("Z - calculation time - charge [s]"
                                   f"{_g(stats.get('t_charge', dt))}\n")
@@ -589,6 +591,24 @@ def _run(
     }
 
 
+# the reference's per-module timing lines and the spans that time them
+MODULE_SPANS = {"t_charge": "charge", "t_boundary": "k_solve", "t_pairwise": "pairwise",
+                "t_rates": "rates", "t_events": "event_loop"}
+
+
+def _add_module_times(stats_list: list, spans: dict) -> None:
+    """``--module-timing``: each superstep's stats get the last dispatch's
+    span table (``VCMModel.last_spans``) and, in seconds a superstep, the
+    module times its spans give (``MODULE_SPANS``; a module the dispatch
+    did not run has none)."""
+    k = len(stats_list)
+    for stats in stats_list:
+        for key, name in MODULE_SPANS.items():
+            if name in spans:
+                stats[key] = spans[name]["ms"] * 1e-3 / k
+        stats["spans"] = spans
+
+
 def _g(v: float) -> str:
     """C++ default ostream double formatting (6 significant digits)."""
     return f"{float(v):.6g}"
@@ -644,9 +664,10 @@ def main(argv=None):
                          "pb_prev); the converged tolerance is unchanged; 0 = "
                          "plain warm start")
     ap.add_argument("--module-timing", action="store_true",
-                    help="run each physics module apart so that the per-module "
-                         "'Z - calculation time' lines carry measured values "
-                         "(slower: one device synchronisation per module)")
+                    help="turn the model's spans on, so that the per-module "
+                         "'Z - calculation time' lines carry each module's "
+                         "device time (the dispatch's span table also goes "
+                         "into metrics.jsonl)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="save a full checkpoint (checkpoint.npz in the "
                          "workdir) every N supersteps, counted per bias point")

@@ -2150,13 +2150,13 @@ def program_replay_ms(fn) -> tuple:
             self.graph.replay()
             self.events[1].record()
 
-    def timed(prog):
+    def timed(prog, *args):
         if prog.graph is None:
-            return run(prog)
+            return run(prog, *args)
         graph = prog.graph
         prog.graph = Bracketed(graph)
         try:
-            return run(prog)
+            return run(prog, *args)
         finally:
             a, b = prog.graph.events
             prog.graph = graph
@@ -2890,7 +2890,9 @@ class CrossbarSteps:
         pb_before = self.state.potential_boundary
         capture_s = None
         runs0 = dict(model.step_counts)
-        if kind == "serial" and dev.type == "cuda" and model._programmed():
+        # "timed": the serial superstep with the model's spans on
+        model.spans = kind == "timed"
+        if kind in ("serial", "timed") and dev.type == "cuda" and model._programmed():
             # the superstep's program is captured before its timed run: the
             # warm run that precedes a capture reads the host per pass
             t0 = time.perf_counter()
@@ -2901,10 +2903,8 @@ class CrossbarSteps:
         ev.reset_loop_counts()
         t0 = time.perf_counter()
         with count_syncs(dev) as caught:
-            if kind == "serial":
+            if kind in ("serial", "timed"):
                 self.state, stats = model.superstep(self.state, CROSSBAR_VD, self.stream)
-            elif kind == "timed":
-                self.state, stats = model.superstep_timed(self.state, CROSSBAR_VD, self.stream)
             else:
                 self.state, stats = model.superstep_native_batched(
                     self.state, CROSSBAR_VD, self.draws, batch=64, pb_prev2=self.pb_prev2, **kw)
@@ -2954,7 +2954,8 @@ class CrossbarSteps:
         else:
             row["host_syncs_per_event"] = syncs / max(1, stats["n_events"])
             row["loop_k"] = (1 if dev.type != "cuda" else ev.SERIAL_NODE_K
-                             if kind == "serial" and model._programmed() else ev.SERIAL_K)
+                             if kind in ("serial", "timed") and model._programmed()
+                             else ev.SERIAL_K)
             if capture_s is not None:
                 row["program_capture_s"] = capture_s
             if i == 0:
@@ -2963,8 +2964,12 @@ class CrossbarSteps:
                 fail(f"{name}: the serial loop read the device {in_loop} times in "
                      f"{loop['replays']} replays, at {sync_sites(caught)}")
         if kind == "timed":
-            row.update({k: stats[k] for k in
-                        ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")})
+            from akmc_tpu_torch.runtime.driver import MODULE_SPANS
+
+            model.spans = False
+            spans = model.last_spans
+            row.update({k: spans[name]["ms"] * 1e-3 for k, name in MODULE_SPANS.items()})
+            row["spans_ms"] = {name: s["ms"] for name, s in spans.items()}
         if stats["n_events"] < 1:
             fail(f"{name} fired no event")
         self.kmc_times.append(float(self.state.kmc_time))
@@ -3457,11 +3462,7 @@ def full_physics_probe():
         out = full(self, *args, **kwargs)        # ends with a read of its stats
         wall = time.perf_counter() - t0
         timing = dict(self.power_timing)
-        marks = timing.pop("device_marks")
-        if marks:
-            marks[-1].synchronize()
-            timing["wkb_build_device_ms"] = marks[0].elapsed_time(marks[1])
-            timing["power_solve_device_ms"] = marks[1].elapsed_time(marks[2])
+        timing.update(_power_spans(self))
         steps.append({**timing, "fields_s": self.fields_s if not self._programmed() else None,
                       "superstep_s": wall, "host_reads": n_syncs(log) - n0})
         if not models:
@@ -3484,10 +3485,18 @@ def full_physics_probe():
         VCMModel.superstep_full, VCMModel.update_cb_edge = full, cb_edge
 
 
+def _power_spans(model) -> dict:
+    """The last dispatch's ``wkb_build`` and ``power_solve`` spans in ms, where
+    the model's spans were on (``VCMModel.last_spans``), else nothing."""
+    spans = model.last_spans
+    return {f"{name}_device_ms": spans[name]["ms"] for name in ("wkb_build", "power_solve")
+            if name in spans}
+
+
 def _summarize_steps(steps: list) -> dict:
     """The probe's per-superstep readings, as lists and their sums (the
-    build/solve split and the fields' time on the per-loop path only: a
-    program times none of its parts)."""
+    build/solve split where the model's spans were on, and the fields' time
+    on the per-loop path)."""
     def col(k):
         return [r[k] for r in steps]
 
@@ -3495,18 +3504,15 @@ def _summarize_steps(steps: list) -> dict:
            "superstep_ms": [1e3 * v for v in col("superstep_s")],
            "host_reads": col("host_reads"),
            "host_reads_per_superstep": sum(col("host_reads")) / max(1, len(steps))}
-    if steps and "wkb_build_s" not in steps[0]:
+    if steps and steps[0]["fields_s"] is not None:
+        out["fields_ms"] = [1e3 * v for v in col("fields_s")]
+    if not steps or "wkb_build_device_ms" not in steps[0]:
         return out
-    wkb, solve, its = col("wkb_build_s"), col("power_solve_s"), col("iterations")
-    if "wkb_build_device_ms" in steps[0]:
-        out.update(wkb_build_device_ms=col("wkb_build_device_ms"),
-                   power_solve_device_ms=col("power_solve_device_ms"))
+    wkb, solve, its = col("wkb_build_device_ms"), col("power_solve_device_ms"), col("iterations")
     return {
-        **out,
-        "wkb_build_ms": [1e3 * v for v in wkb], "power_solve_ms": [1e3 * v for v in solve],
-        "power_ms_per_iteration": [1e3 * v / k for v, k in zip(solve, its)],
-        "fields_ms": [1e3 * v for v in col("fields_s")],
-        "wkb_build_s_total": sum(wkb), "power_solve_s_total": sum(solve),
+        **out, "wkb_build_device_ms": wkb, "power_solve_device_ms": solve,
+        "power_ms_per_iteration": [v / k for v, k in zip(solve, its)],
+        "wkb_build_ms_total": sum(wkb), "power_solve_ms_total": sum(solve),
     }
 
 
@@ -3557,16 +3563,12 @@ def tolerance_solves(model, state, ref: dict, where: str, current_rtol=None,
         s, I_macro, _, iters = model.update_power(state, ref["Vd"], rtol_scale=scale)
         P_tot = float(s.power.sum())
         ms = 1e3 * (time.perf_counter() - t0)
-        marks = model.power_timing["device_marks"]
-        device = {}
-        if marks:
-            device = {"wkb_build_device_ms": marks[0].elapsed_time(marks[1]),
-                      "power_solve_device_ms": marks[1].elapsed_time(marks[2])}
+        device = _power_spans(model)
         row = {"rtol_scale": scale, "I_macro": I_macro, "I_macro_akmc_tpu": g["I_macro"],
                "P_tot": P_tot, "P_tot_akmc_tpu": g["P_tot"],
                "power_cg_iterations": iters, "power_cg_iterations_akmc_tpu":
                g["power_cg_iterations"], "ms": ms, **device,
-               **{k: v for k, v in model.power_timing.items() if k != "device_marks"},
+               **model.power_timing,
                "I_macro_rel": _rel(I_macro, g["I_macro"]), "P_tot_rel": _rel(P_tot, g["P_tot"]),
                "I_macro_spread": _rel(gg["I_macro"], g["I_macro"]),
                "P_tot_spread": _rel(gg["P_tot"], g["P_tot"])}
@@ -4039,7 +4041,7 @@ def full_large(dev) -> dict:
     for programmed in (True, False):
         with _per_loop(model, not programmed):
             runs[programmed] = _fp_run(model, p, state0, [FP_LARGE_VD])
-            timing = dict(model.power_timing)
+            timing = dict(model.power_timing, **_power_spans(model))
     _fp_same("124,412 sites: program against loops", runs[False], runs[True])
     out = {
         "n_yz": FP_LARGE_N_YZ, "sites": lat.N, "atoms": model.n_atom, "Vd": FP_LARGE_VD,
@@ -4052,8 +4054,8 @@ def full_large(dev) -> dict:
         "capture_s": capture_s,
         "ms_program": runs[True][2], "ms_loops": runs[False][2],
         "host_reads_program": runs[True][3], "host_reads_loops": runs[False][3],
-        "wkb_build_ms_loops": 1e3 * timing.get("wkb_build_s", float("nan")),
-        "power_solve_ms_loops": 1e3 * timing.get("power_solve_s", float("nan")),
+        "wkb_build_ms_loops": timing.get("wkb_build_device_ms", float("nan")),
+        "power_solve_ms_loops": timing.get("power_solve_device_ms", float("nan")),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if not any(b > 1 for b in out["ct_loop_bounds"] or []):
@@ -4151,9 +4153,9 @@ def run_full(dev):
     line["per_loop_sweep"] = {
         "rows_equal_but_time": True, "driver_supersteps_s": sum(r["superstep_s"] for r in rows_l),
         "host_syncs_per_superstep": counts_l["host_syncs"] / len(rows_l),
-        **{k: loop_steps[k] for k in ("superstep_ms", "host_reads", "host_reads_per_superstep",
-                                      "wkb_build_ms", "power_solve_ms", "fields_ms")},
-        **{k: loop_steps.get(k) for k in ("wkb_build_device_ms", "power_solve_device_ms")}}
+        **{k: loop_steps[k] for k in ("superstep_ms", "host_reads", "host_reads_per_superstep")},
+        **{k: loop_steps.get(k) for k in ("fields_ms", "wkb_build_device_ms",
+                                          "power_solve_device_ms")}}
 
     # the same sweep with the host loops of its CGs (power, CB edge) on the
     # per-loop path (a host loop cannot be captured): every row but its time
@@ -4172,8 +4174,8 @@ def run_full(dev):
         "driver_supersteps_s": sum(r["superstep_s"] for r in rows_p),
         "superstep_ms": plain_steps["superstep_ms"],
         "host_reads_per_superstep": plain_steps["host_reads_per_superstep"],
-        "power_solve_ms": plain_steps["power_solve_ms"],
-        "power_ms_per_iteration": plain_steps["power_ms_per_iteration"],
+        "power_solve_device_ms": plain_steps.get("power_solve_device_ms"),
+        "power_ms_per_iteration": plain_steps.get("power_ms_per_iteration"),
     }
 
     # --wkb-f32: three supersteps, held to akmc_tpu's f32 run within its f32-vs-f64 spread

@@ -253,14 +253,16 @@ def test_resumed_hysteresis_sweep_keeps_its_folder_names(tmp_path):
 
 def test_module_timing_lines(tmp_path):
     """--module-timing: the four Z-lines carry per-module measured values
-    (not one repeated superstep total) and the trajectory is unchanged."""
+    (not one repeated superstep total: the dispatch's spans) and the
+    trajectory is unchanged; each row of metrics.jsonl holds the span table."""
     deck, _ = _write_toy_deck(tmp_path, t_switch=1e3)
     _run(deck, tmp_path / "a", max_supersteps=3)
     _run(deck, tmp_path / "b", max_supersteps=3, module_timing=True)
     assert _kmc_times(tmp_path / "b") == _kmc_times(tmp_path / "a")
     ra, rb = _rows(tmp_path / "a"), _rows(tmp_path / "b")
-    times = ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")
+    times = ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events", "spans")
     assert [{k: v for k, v in r.items() if k not in times} for r in rb] == ra
+    assert all(r["spans"]["superstep"]["n"] == 1 for r in rb)
     per_step = re.findall(
         r"charge \[s\]([\d.eE+-]+)\n"
         r"Z - calculation time - potential from boundaries \[s\]([\d.eE+-]+)\n"

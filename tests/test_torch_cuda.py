@@ -1161,6 +1161,84 @@ def test_production_graph_matches_per_loop_path(card, case, batch):
 
 
 # ----------------------------------------------------------------------------
+# spans inside the programs (runtime/profiling.py, the stamp kernels of
+# csrc/graph_while.cu)
+# ----------------------------------------------------------------------------
+def _spanned_batched(card, spans, n=3):
+    """``n`` batched production supersteps on the n_yz = 6 crossbar with the
+    model's spans ``spans``: (states, stats, each dispatch's spans, the
+    counted launches of the threefry kernel, the while nodes' condition
+    kernel and the fused CG)."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+    from akmc_tpu_torch.ops import device_loop, threefry
+    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.state import make_device_state
+
+    name, p, lat, kw = next(c for c in _graph_cases() if c[0] == "crossbar-n6")
+    m = VCMModel(p, lat, device=card, **kw)
+    m.spans = spans
+    s = make_device_state(lat, p.background_temp, m.device)
+    m.warmup(s, 2.0, batched=8)
+    draws = threefry.KeyDraws.seeded(5, card)
+    fns = (threefry.draw_step, dia_cg.dia_cg_solve)
+    before = [f.launches for f in fns] + [device_loop.while_loop.launches]
+    states, stats, tables = [], [], []
+    for _ in range(n):
+        s, st = m.superstep_native_batched(s, 2.0, draws, batch=8)
+        states.append(s)
+        stats.append(st)
+        tables.append(m.last_spans)
+    after = [f.launches for f in fns] + [device_loop.while_loop.launches]
+    return states, stats, tables, [a - b for a, b in zip(after, before)]
+
+
+@pytest.mark.cuda
+def test_spans_off_launch_the_same_kernels_and_bits(card):
+    """A program captured with spans off launches the kernels it launched
+    before spans existed (counted launches of the threefry kernel, the fused
+    CG and the while nodes' condition) and gives the bits of one captured
+    with spans on; with spans off no dispatch reads a table."""
+    off = _spanned_batched(card, False)
+    on = _spanned_batched(card, True)
+    assert off[3] == on[3] and off[3][0] > 0
+    assert off[1] == on[1] and all(t == {} for t in off[2])
+    for a, b in zip(off[0], on[0]):
+        for f in ("element", "charge", "potential_boundary", "potential_charge", "kmc_time"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    spans = on[2][-1]
+    assert spans["batch.race"]["n"] == on[1][-1]["n_batches"] == spans["batch.resolve"]["n"]
+    assert spans["k_solve"]["n"] == spans["superstep"]["n"] == 1
+
+
+@pytest.mark.cuda
+def test_aligned_spans_fall_inside_their_dispatch(card):
+    """Under ``torch.profiler`` each dispatch's anchor puts its device spans on
+    the profile's clock: ``superstep`` opens after the host's ``launch``
+    began and closes before its ``read`` ended; the anchors' offsets agree
+    to 20 µs; ``%globaltimer`` steps by no more than a microsecond."""
+    from akmc_tpu_torch.runtime import profiling
+
+    _spanned_batched(card, True, n=1)          # builds and captures
+    with profiling.collecting() as got, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _spanned_batched(card, True)
+        torch.cuda.synchronize()
+    aligned = profiling.align(prof, got)
+    host = {}
+    for s, e, name in profiling.host_ranges(prof, "akmc.production."):
+        host.setdefault(name.rsplit(".", 1)[-1], []).append((s, e))
+    launch, read = sorted(host["launch"]), sorted(host["read"])
+    steps = [(n, a, b, k) for n, _, a, b, _, k in aligned.spans if n == "superstep"]
+    assert len(steps) == len(got) == len(launch) == len(read)
+    for n, a, b, k in steps:
+        assert launch[k][0] <= a < b <= read[k][1], (k, a, b, launch[k], read[k])
+    assert aligned.offset_spread_us <= 20.0, aligned.offsets_us
+    res = profiling.clock_resolution_ns(card)
+    assert res["min_step_ns"] is not None and 0 < res["min_step_ns"] <= 1000, res
+
+
+# ----------------------------------------------------------------------------
 # the full-physics superstep as one CUDA graph (models/step_program.py::FullProgram)
 # ----------------------------------------------------------------------------
 def _full_case(case):

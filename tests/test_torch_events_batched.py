@@ -1,6 +1,6 @@
 """The production event path of akmc_tpu_torch against akmc_tpu on the CPU:
 ``_topk_smallest``, ``run_event_loop_batched``, ``run_event_loop_native``,
-``superstep_native``/``superstep_native_batched`` and ``superstep_timed``.
+``superstep_native``/``superstep_native_batched`` and ``--module-timing``.
 
 akmc_tpu draws from threefry inside its loops; the port takes its uniforms
 from a draws source. The replay tests walk akmc_tpu's key schedule themselves
@@ -35,6 +35,7 @@ from akmc_tpu_torch.models.vcm import VCMModel as TModel
 from akmc_tpu_torch.ops import events as tev
 from akmc_tpu_torch.rng import BufferedStream as TStream
 from akmc_tpu_torch.rng import ReferenceRNG as TRNG
+from akmc_tpu_torch.runtime import driver as tdriver
 from tests.test_events_loop import crafted  # noqa: F401  (fixture)
 from tests.util_toy import toy_device
 
@@ -541,26 +542,30 @@ def test_batched_k_extrap_zero_is_identity_and_nonzero_runs():
     assert np.isfinite(float(s_c.kmc_time)) and float(s_c.kmc_time) > 0.0
 
 
-# ------------------------------------------------------- (d) superstep_timed
+# ------------------------------------------------------- (d) --module-timing
 @pytest.mark.parametrize("flags", [{}, dict(use_dia_k=False, pair_table_budget=0,
                                             pair_tiling_min_n=1, qmax=8, vmax=8,
                                             pair_cand_cap=2)],
                          ids=["table", "tiled-caps-grow"])
-def test_superstep_timed_equals_superstep(flags):
-    """Same state, stats and stream position as ``superstep``, with the five
-    module times beside them; a cap overflow restarts the step."""
+def test_module_timing_equals_plain_run(flags):
+    """``--module-timing`` (the model's spans on, the driver's module times
+    taken from the last dispatch's spans): the same state, stats and stream
+    position as the plain run, with the five module times beside them,
+    finite and nonnegative; a cap overflow redoes the dispatch."""
     p, lat = toy_device()
     lat.element0[:] = make_substoichiometric(lat.element0, 0.2, JRNG(7))
     tp_, tl = convert.params(p), convert.lattice(lat)
 
     def run(timed):
         model = TModel(tp_, tl, device="cpu", **flags)
+        model.spans = timed
         state = convert.state(j_state(lat, p.background_temp))
         stream = TStream(TRNG(1))
         all_stats = []
         for _ in range(3):
-            step = model.superstep_timed if timed else model.superstep
-            state, stats = step(state, 2.0, stream)
+            state, stats = model.superstep(state, 2.0, stream)
+            if timed:
+                tdriver._add_module_times([stats], model.last_spans)
             all_stats.append(stats)
         return model, state, stream, all_stats
 
@@ -572,8 +577,11 @@ def test_superstep_timed_equals_superstep(flags):
     assert (m_a.qmax, m_a.vmax, m_a.pair_cand_cap) == (m_b.qmax, m_b.vmax, m_b.pair_cand_cap)
     if flags:
         assert m_b.qmax > 8 and m_b.vmax > 8 and m_b.pair_cand_cap > 2
-    times = ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")
+        assert m_b.step_counts["redos"] > 0
+    times = tuple(tdriver.MODULE_SPANS)
+    assert times == ("t_charge", "t_boundary", "t_pairwise", "t_rates", "t_events")
     for a, b in zip(stats_a, stats_b):
-        assert {k: v for k, v in b.items() if k not in times} == a
-        assert all(b[k] > 0.0 for k in times)
+        assert {k: v for k, v in b.items() if k not in times + ("spans",)} == a
+        assert all(0.0 <= b[k] < float("inf") for k in times)
+        assert b["spans"]["superstep"]["n"] == 1
     assert sum(s["n_events"] for s in stats_a) >= 3

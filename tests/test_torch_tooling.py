@@ -188,11 +188,6 @@ def test_snapshot_bytes_equal_akmc_tpu(tmp_path):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    timers = profiling.PhaseTimers()
-    for _ in range(2):
-        with timers.phase("a"):
-            pass
-    assert timers.summary()["a"]["count"] == 2
     with profiling.trace(str(tmp_path / "trace")) as prof:
         torch.ones(8).sum()
     files = list((tmp_path / "trace").glob("trace_*.json"))
