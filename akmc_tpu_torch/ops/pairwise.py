@@ -20,18 +20,22 @@ per-pair operations in each (``akmc_tpu/ops/pairwise.py``):
 * ``pairwise_potential_tiled``: for structures whose table does not fit.
   Sites are binned into cubic tiles; per solve each tile gets a compacted
   list of the charged sites within reach (cutoff + tile circumradius) and
-  the erfc plane shrinks from (N, qmax) to (T, S, C).
+  the erfc plane shrinks from (N, qmax) to (T, S, C). On a card one
+  hand-written kernel (``csrc/pair_tiled.cu``) does it all on chip; its
+  plain twin ``pairwise_potential_tiled_plain`` runs on the CPU.
 * ``pairwise_potential``: the on-the-fly (N, qmax) plane, row-blocked.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from akmc_tpu_torch.ops import cuda_build, device_loop
 from akmc_tpu_torch.ops.compact import compact_mask
 
 Q_E = 1.60217663e-19
@@ -203,6 +207,25 @@ def build_pair_tiling(
     )
 
 
+def _reach(tiling: PairTiling, r_tile: float, cutoff_radius: float) -> torch.Tensor:
+    """The candidate filter's squared reach (0-d f32): cutoff + tile
+    circumradius, padded against rounding proportionally to the coordinate
+    magnitude. 0-d constants are made by a fill on the device, not copied
+    from the host: the pairwise solve runs inside a captured superstep
+    (models/step_program.py)."""
+    f32, dev = torch.float32, tiling.tile_center.device
+    coord_scale = torch.max(torch.abs(tiling.tile_center.to(f32)))
+    pad = torch.full((), 1e-3, dtype=f32, device=dev) + 64.0 * torch.full(
+        (), 1.2e-7, dtype=f32, device=dev) * coord_scale
+    return (torch.full((), cutoff_radius + r_tile, dtype=f32, device=dev) + pad) ** 2
+
+
+def _d2(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """(dx·dx + dy·dy) + dz·dz: the one order of the squared distance that
+    the filter, the plane and ``csrc/pair_tiled.cu`` share."""
+    return (dx * dx + dy * dy) + dz * dz
+
+
 def tile_candidates(
     tiling: PairTiling,
     r_tile: float,
@@ -219,25 +242,17 @@ def tile_candidates(
 
     The filter runs in f32, blocked over tile chunks. It selects only: the
     reach is padded against rounding proportionally to the coordinate
-    magnitude, the exact f64 ``d2 < cutoff^2`` test still runs in the
-    compute plane, and over-inclusion is harmless."""
+    magnitude, the exact ``d2 < cutoff^2`` test still runs in the compute
+    plane, and over-inclusion is harmless."""
     T = tiling.tile_center.shape[0]
-    f32 = torch.float32
-    dev = q_pos.device
-    cen32 = tiling.tile_center.to(f32)
-    qp32 = q_pos.to(f32)
-    coord_scale = torch.max(torch.abs(cen32))
-    # 0-d constants made by a fill on the device, not copied from the host:
-    # the pairwise solve runs inside a captured superstep (models/step_program.py)
-    pad = torch.full((), 1e-3, dtype=f32, device=dev) + 64.0 * torch.full(
-        (), 1.2e-7, dtype=f32, device=dev) * coord_scale
-    reach = (torch.full((), cutoff_radius + r_tile, dtype=f32, device=dev) + pad) ** 2
+    cen32 = tiling.tile_center.to(torch.float32)
+    qp32 = q_pos.to(torch.float32)
+    reach = _reach(tiling, r_tile, cutoff_radius)
     fblk = max(1, min(T, plane_budget // max(1, 4 * qv.shape[0])))
     sel, cand, cnt = [], [], []
     for s in range(0, T, fblk):
-        cen_b = cen32[s : s + fblk]
-        d2c = torch.sum((cen_b[:, None, :] - qp32[None, :, :]) ** 2, dim=-1)
-        mask = (d2c < reach) & qv[None, :]
+        diff = [cen32[s : s + fblk, None, a] - qp32[None, :, a] for a in range(3)]
+        mask = (_d2(*diff) < reach) & qv[None, :]
         # in-reach entries first, each group in ascending list position: a
         # stable sort, because top-k selection does not keep ties in order
         ci = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices[:, :cand_cap]
@@ -247,7 +262,7 @@ def tile_candidates(
     return torch.cat(sel), torch.cat(cand), torch.cat(cnt).max() > cand_cap
 
 
-def pairwise_potential_tiled(
+def pairwise_potential_tiled_plain(
     tiling: PairTiling,
     r_tile: float,             # tile circumradius [Angstrom]
     pos: torch.Tensor,         # (N, 3) f64 (charged-site position source)
@@ -256,26 +271,18 @@ def pairwise_potential_tiled(
     sigma: float,
     k: float,
     qmax: int,
-    cand_cap: int,             # per-tile candidate cap (grown by the caller
-    #                            on overflow like qmax)
+    cand_cap: int,
     tile_block: Optional[int] = None,
     plane_budget: int = 512 * 1024 * 1024,
     plane_f32: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns ((N,) potential, q_overflow, cand_overflow).
-
-    Same pair set as ``pairwise_potential`` (the extra tile filter only
-    removes pairs beyond the cutoff); per-site summation order follows the
-    per-tile candidate list instead of the global charged list, so values
-    agree to summation-order reassociation.
-
-    ``plane_f32``: evaluate the (B, S, C) distance/erfc plane in f32; the f64
-    path stays the default and the oracle. Error model: coordinates are exact
-    in f32 to ~1e-5 relative, the difference-first d2 has no cancellation,
-    and the per-site sum over <= C terms lands ~1e-6 relative on the
-    potential. The in-cutoff membership test also rounds in f32, so a pair
-    within ~1e-5 relative of the cutoff shell may classify differently from
-    the f64 path: a real pair-set difference, not just rounding."""
+    """The plain PyTorch twin of ``csrc/pair_tiled.cu`` on any device (on a
+    card it materialises the (B, S, C) plane, blocked to ``plane_budget``
+    bytes or ``tile_block`` tiles): the candidate lists of
+    ``tile_candidates``, the pair term per (site, candidate), and each site's
+    terms added one after the other down the candidate axis in the plane's
+    type (a running sum, as the kernel adds them), then converted to the
+    position type. Same results, bit for bit, as the kernel."""
     n = pos.shape[0]
     dt = pos.dtype
     T, S = tiling.tile_sites.shape
@@ -310,17 +317,19 @@ def pairwise_potential_tiled(
     for s in range(0, T, tile_block):
         b = slice(s, s + tile_block)
         ts, qs = tiling.tile_sites[b], q_sitec[b]
-        d2 = torch.sum(
-            (pos_tiles[b][:, :, None, :] - q_posc[b][:, None, :, :]) ** 2, dim=-1
-        )                                                           # (B, S, C)
+        d2 = _d2(*(pos_tiles[b][:, :, None, a] - q_posc[b][:, None, :, a] for a in range(3)))
         valid = (
             (d2 < cut2_p)
             & (ts[:, :, None] != qs[:, None, :])
             & (qs[:, None, :] >= 0)
-        )
+        )                                                           # (B, S, C)
         d = ang * torch.sqrt(torch.where(valid, d2, one))
         v = q_valc[b][:, None, :] * torch.special.erfc(d * inv_sig_p) * kq_p / d
-        vals[b] = torch.sum(torch.where(valid, v, zero), dim=2).to(dt)
+        v = torch.where(valid, v, zero)
+        acc = torch.zeros(v.shape[:2], dtype=pdt, device=dev)
+        for c in range(v.shape[2]):
+            acc = acc + v[:, :, c]
+        vals[b] = acc.to(dt)
 
     # every site lies in exactly one tile slot and pad slots add exact zeros
     # at index 0, so the scatter-add has one order only
@@ -329,3 +338,166 @@ def pairwise_potential_tiled(
         torch.where(tiling.tile_sites >= 0, vals, 0.0).reshape(-1),
     )
     return pot, q_overflow, cand_overflow
+
+
+# the spatial hash of ``_buckets``
+_HASH = (73856093, 19349663, 83492791)
+
+
+def _buckets(tiling: PairTiling, reach: torch.Tensor, q_pos: torch.Tensor, qv: torch.Tensor):
+    """The charged list's valid entries by coarse cell, hashed into H buckets
+    (a power of two, at least twice the list), and the cells each tile's
+    reach meets: (list positions ordered by bucket (Q,), each bucket's first
+    place in that order (H + 1,), H, (T, 27) the bucket of each cell a tile
+    tests, -1 past its cells). Invalid entries go past the last bucket.
+
+    A tile tests the entries within ``rl`` of its center on each axis: the
+    filter's squared ``reach`` as a distance, with room for the f32 rounding
+    of the coordinates and of the test, so every entry the test passes lies
+    inside. The cells' edge is the largest ``rl``, so a tile meets at most
+    three a side. Cells that share a bucket only cost a few extra tests."""
+    Q, dev = q_pos.shape[0], q_pos.device
+    H = 1 << max(6, (2 * Q - 1).bit_length())
+    center = tiling.tile_center
+    rl = (reach.to(torch.float64).sqrt() * (1.0 + 1e-4)
+          + 1e-6 * center.abs().sum(dim=1, keepdim=True) + 1e-2)           # (T, 1)
+    inv_edge = 1.0 / rl.max()
+
+    def key(ix, iy, iz):
+        return ((ix * _HASH[0]) ^ (iy * _HASH[1]) ^ (iz * _HASH[2])) & (H - 1)
+
+    cell = torch.floor(q_pos * inv_edge).to(torch.int64)
+    bucket = torch.where(qv, key(cell[:, 0], cell[:, 1], cell[:, 2]), H)
+    order = torch.argsort(bucket, stable=True)
+    start = torch.searchsorted(bucket[order], torch.arange(H + 1, device=dev))
+    lo = torch.floor((center - rl) * inv_edge).to(torch.int64)
+    hi = torch.floor((center + rl) * inv_edge).to(torch.int64)
+    c = lo[:, :, None] + torch.arange(3, device=dev)                       # (T, axis, 3)
+    met = c <= hi[:, :, None]
+    T = c.shape[0]
+    cells = torch.where(
+        met[:, 0, :, None, None] & met[:, 1, None, :, None] & met[:, 2, None, None, :],
+        key(c[:, 0, :, None, None], c[:, 1, None, :, None], c[:, 2, None, None, :]), -1)
+    return order, start, H, cells.reshape(T, 27)
+
+
+_KERNEL = "pair_tiled"
+
+
+class _PairArgs(ctypes.Structure):
+    """``struct PairArgs`` of ``csrc/pair_tiled.cu``."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in (
+            "tile_sites", "pos_tiles", "tile_center", "q_pos", "q_val", "q_idx", "reach",
+            "order", "start", "cells", "pot", "cand_overflow")),
+        *((name, ctypes.c_longlong) for name in ("T", "S", "Q", "cand_cap")),
+        *((name, ctypes.c_double) for name in ("cut2", "inv_sig", "kq", "ang")),
+        ("plane_f32", ctypes.c_int),
+    ]
+
+
+def _launcher():
+    """The library's C entry point, built and typed on first use."""
+    fn = cuda_build.load(_KERNEL).pair_tiled_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_PairArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pairwise_potential_tiled(
+    tiling: PairTiling,
+    r_tile: float,             # tile circumradius [Angstrom]
+    pos: torch.Tensor,         # (N, 3) f64 (charged-site position source)
+    charge: torch.Tensor,      # (N,) int32
+    cutoff_radius: float,
+    sigma: float,
+    k: float,
+    qmax: int,
+    cand_cap: int,             # per-tile candidate cap (grown by the caller
+    #                            on overflow like qmax)
+    plane_f32: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns ((N,) potential, q_overflow, cand_overflow): on CUDA tensors
+    the kernel ``csrc/pair_tiled.cu`` (one launch after the charged list,
+    nothing of size T·Q or T·S·C in device memory), on CPU tensors the twin
+    ``pairwise_potential_tiled_plain``; the two agree bit for bit. The
+    tiling may hold some of the tiles only (a rank's share): the potential
+    is then those tiles' sites', exact zeros elsewhere.
+
+    Same pair set as ``pairwise_potential`` (the extra tile filter only
+    removes pairs beyond the cutoff); per-site summation order follows the
+    per-tile candidate list instead of the global charged list, so values
+    agree to summation-order reassociation.
+
+    ``plane_f32``: evaluate the distance/erfc plane in f32; the f64 path
+    stays the default and the oracle. Error model: coordinates are exact in
+    f32 to ~1e-5 relative, the difference-first d2 has no cancellation, and
+    the per-site running sum over <= C terms lands ~1e-6 relative on the
+    potential. The in-cutoff membership test also rounds in f32, so a pair
+    within ~1e-5 relative of the cutoff shell may classify differently from
+    the f64 path: a real pair-set difference, not just rounding."""
+    if pos.device.type == "cpu":
+        return pairwise_potential_tiled_plain(
+            tiling, r_tile, pos, charge, cutoff_radius, sigma, k, qmax, cand_cap,
+            plane_f32=plane_f32)
+    launch, out = kernel_call(tiling, r_tile, pos, charge, cutoff_radius, sigma, k, qmax,
+                              cand_cap, plane_f32)
+    launch()
+    return out
+
+
+def kernel_call(tiling, r_tile, pos, charge, cutoff_radius, sigma, k, qmax, cand_cap,
+                plane_f32):
+    """``pairwise_potential_tiled``'s work on a card up to the kernel: its
+    inputs made on the device, and (the kernel's launch, (potential,
+    q_overflow, cand_overflow)). The kernel writes the given tiles' sites
+    and may set the flag, nothing else, so launching it again gives the
+    same outputs: chip_smoke.py times the launch alone."""
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"pairwise_potential_tiled: unsupported device {dev}")
+    from akmc_tpu_torch.ops.dia_matvec import current_raw_stream, require_tensor
+
+    n = pos.shape[0]
+    T, S = tiling.tile_sites.shape
+    if n >= 1 << 31:
+        raise ValueError(f"pairwise_potential_tiled: {n} sites do not fit the kernel's int ids")
+    f64 = torch.float64
+    require_tensor("pos", pos, f64, (n, 3), dev)
+    require_tensor("tile_sites", tiling.tile_sites, torch.int64, (T, S), dev)
+    require_tensor("pos_tiles", tiling.pos_tiles, f64, (T, S, 3), dev)
+    require_tensor("tile_center", tiling.tile_center, f64, (T, 3), dev)
+
+    q_idx, qv, q_pos, q_val, q_overflow = _charged_list(pos, charge, qmax)
+    reach = _reach(tiling, r_tile, cutoff_radius)
+    order, start, _, cells = _buckets(tiling, reach, q_pos, qv)
+    pot = torch.zeros(n, dtype=f64, device=dev)
+    cand_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    args = _PairArgs(
+        tiling.tile_sites.data_ptr(), tiling.pos_tiles.data_ptr(), tiling.tile_center.data_ptr(),
+        q_pos.data_ptr(), q_val.data_ptr(), q_idx.data_ptr(), reach.data_ptr(),
+        order.data_ptr(), start.data_ptr(), cells.data_ptr(), pot.data_ptr(),
+        cand_overflow.data_ptr(), T, S, qmax, min(cand_cap, qmax),
+        cutoff_radius * cutoff_radius, 1.0 / (sigma * math.sqrt(2.0)), k * Q_E, 1e-10,
+        int(plane_f32),
+    )
+
+    def launch():
+        device_loop.bind(*tiling, q_pos, q_val, q_idx, reach, order, start, cells, pot,
+                         cand_overflow)
+        call = (ctypes.byref(args), current_raw_stream(dev.index))
+        if torch.cuda.current_device() == dev.index:
+            err = _launcher()(*call)
+        else:
+            with torch.cuda.device(dev):
+                err = _launcher()(*call)
+        if err != 0:
+            raise RuntimeError(f"pair_tiled kernel launch failed: CUDA error {err}")
+        device_loop.count_launch(pairwise_potential_tiled)
+
+    return launch, (pot, q_overflow, cand_overflow)
+
+
+pairwise_potential_tiled.launches = 0   # kernel launches (in a graph: launches as replayed)

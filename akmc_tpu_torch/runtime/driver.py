@@ -207,10 +207,10 @@ def run(
     if dev.type == "cuda":
         # build every kernel once, here, before the ranks start: ranks must not
         # race nvcc on one build directory
-        from akmc_tpu_torch.ops import cuda_build, dia_matvec
+        from akmc_tpu_torch.ops import cuda_build, dia_matvec, pairwise
         from akmc_tpu_torch.solvers import dia_cg
 
-        cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL])
+        cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL, pairwise._KERNEL])
     outs = spawn(run_on_mesh, ranks, str(dev), backend, param_file,
                  dict(options, concern_split=concern_split), timeout=rank_timeout)
     return {**outs[0], "ranks": outs}

@@ -29,6 +29,19 @@ line is printed):
            same number of grid syncs with no work between them (the sync
            floor) and beside the streaming bound of an iteration
            (``cg_bound``), with the share of it reached;
+           ``pairwise_potential_tiled`` (``csrc/pair_tiled.cu``): the n_yz=24
+           crossbar tiled as the model tiles a structure whose pair table does
+           not fit, on its first superstep's charges: potential and both flags
+           bit-equal to ``pairwise_potential_tiled_plain`` in the f32 and the
+           f64 plane, then the launch alone and the whole call timed beside
+           the twin, beside the bound of the f32 plane's work (the pairs
+           inside the cutoff at PAIR_ISSUE issue slots and PAIR_MUFU MUFU
+           operations each: ``pair_tiled_bound``) and beside the issue time
+           of the kernel's own SASS (a diagnostic). The other phases add the
+           kernel's launches on each path, counted over that path alone (one
+           a K solve where the model took the tiled path, none elsewhere),
+           and its readings at their shapes.
+
 3. sweep   the port's main path through its driver: the whole 15-point I-V
            sweep of ``decks/iv_sweep_5nm.txt`` on a synthesized grid-native
            crossbar at n_yz=24 (58,752 slots), with every launch counter set
@@ -89,9 +102,13 @@ line is printed):
            the deck on a synthesized crossbar at n_yz=32 (104,448 slots, pair
            table past its 8e9-byte budget). The model must have taken the tiled
            path and the DIA operator, both kernels must have been launched,
-           every superstep finite. On the first superstep's charges the tiled
-           potential is held against the on-the-fly plane (f64: rtol 1e-12;
-           f32 plane: rtol 2e-5 off the cutoff shell), and both are timed.
+           every superstep finite, and the tiled pairwise kernel
+           (``csrc/pair_tiled.cu``) launched once per K solve. On the first
+           superstep's charges the kernel is held bit-equal to its plain twin
+           (potential and both flags, f64 and f32 planes), the tiled potential
+           against the on-the-fly plane (f64: rtol 1e-12; f32 plane: rtol 2e-5
+           off the cutoff shell), and kernel, twin and on-the-fly plane are
+           timed, the kernel beside its bound.
 
 6. batched the production event path, in three parts.
            replay: on one frozen fields state of the n_yz=24 crossbar at 8 V
@@ -107,14 +124,15 @@ line is printed):
            alpha = 1e-3 critical value 0.1218.
            crossbar: ``build_grid_crossbar(n_yz=64, 10/22/8 slices)``, 409,600
            slots, at 15 V with shifted-exponent rates; DIA operator and tiled
-           pairwise asserted. First both kernels once more against their
+           pairwise asserted. First the kernels once more against their
            twins, on this crossbar's own operator and first K system (cold
-           start, the fused CG's streaming kernel: rows not in registers):
-           bit-equal, equal iteration count, timed, with the bounds from this
-           shape (the matvec beside the sparse product assembled on the card,
-           the fused CG per iteration beside its sync floor and streaming
-           bound); the ``kernels`` line carries these readings per kernel
-           under ``crossbar_path``. One serial superstep (cold CG), one
+           start, the fused CG's streaming kernel: rows not in registers) and
+           its tiling on that superstep's charges: bit-equal, equal iteration
+           count, timed, with the bounds from this shape (the matvec beside
+           the sparse product assembled on the card, the fused CG per
+           iteration beside its sync floor and streaming bound, the pairwise
+           kernel as in the kernels phase); the ``kernels`` line carries these
+           readings per kernel under ``crossbar_path``. One serial superstep (cold CG), one
            ``superstep_native_batched`` (B = 64, ``mass_eps`` 1e-3), one more
            with the f32 plane, f32 clocks, ``mass_eps`` 0.1 and ``k_extrap`` 1,
            one module-timed superstep. Every superstep fires an event and ends
@@ -190,7 +208,9 @@ line is printed):
            transient); FP_SPD supersteps a dispatch against one at a time (one
            read a dispatch), and a batch discarded on a vmax below the
            vacancies; one superstep of the stand-in at 124,412 sites (W-block
-           bytes, energy bounds, peak memory).
+           bytes, energy bounds, peak memory; it takes the tiled pairwise
+           path: the kernel launched once a K solve through the program and
+           through the loops, and held against its twin at this shape).
 
 8. driver  the deck modes and options of the driver, on the sizes above
            (``runtime/synth_deck.py`` writes the deck copies), against
@@ -266,7 +286,8 @@ line is printed):
            SHARDED_CONCERN_STEPS supersteps equal to one rank's to the bit);
            on 4 ranks, SHARDED_BATCHED_STEPS batched supersteps at 409,600
            slots (integer state and counts equal to one rank's, peak memory
-           per rank), SHARDED_FULL_STEPS full-physics supersteps
+           per rank, each rank's tiled pairwise kernel launched once a K
+           solve and bit-equal to its twin on the rank's share of the tiles), SHARDED_FULL_STEPS full-physics supersteps
            (against one rank: events, elements and power-CG counts exact, KMC
            times within SHARDED_KMC_RTOL, P_tot within SHARDED_P_TOT_RTOL,
            I_macro within SHARDED_I_MACRO_ATOL, T_bg within 1e-12; against
@@ -284,10 +305,10 @@ line is printed):
            ``VCMModel(rate_normalize, pair_f32, event_select_incremental)``,
            the configuration ``BENCH_crossbar_r05.json`` records; DIA
            operator and tiled pairwise asserted. ``warmup`` (the kernels
-           are built and loaded when the script starts), both kernels against
-           their twins on its operator and first K system
+           are built and loaded when the script starts), the kernels against
+           their twins on its operator, first K system and tiling
            (``crossbar_kernels``: bit-equal ``x``, ``r``, residual and
-           iteration count), then one cold serial superstep with the incremental
+           iteration count, the pairwise potential and flags), then one cold serial superstep with the incremental
            selection and FLAGSHIP_STEPS ``superstep_native_batched`` (B = 64,
            ``mass_eps`` 0.1; f64 clocks, as FLAGSHIP_CLOCK_F32 says why)
            under the crossbar checks (an event each, ended done, launches
@@ -355,7 +376,7 @@ DECK = os.path.join(HERE, "decks", "iv_sweep_5nm.txt")
 GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24.json")
 WORKDIR = os.path.join(HERE, "build", "chip_smoke", "iv_sweep_n24")
 N_YZ = 24
-KERNELS = ("dia_matvec", "dia_cg", "threefry")
+KERNELS = ("dia_matvec", "dia_cg", "threefry", "pair_tiled")
 PLUMBING = ("graph_while",)      # built with the kernels: the superstep graph's while nodes
 MATVEC_RTOL = 1e-12
 CG_BIASES = (1.0, 8.0)           # the deck's first and highest bias
@@ -391,6 +412,25 @@ BANDED_ELL_RTOL, BANDED_ELL_ATOL = 1e-5, 5e-5
 TILED_DIR = os.path.join(HERE, "build", "chip_smoke", "tiled_n32")
 TILED_N_YZ = 32
 TILED_N = 32 * 32 * 102
+# the tiled pairwise solve's bound, from the work of the function and not
+# from the kernel's code: each pair inside the cutoff in f32, as the
+# production plane runs it. d² (3 differences, 3 squares, 2 sums: 8), the
+# cutoff and self tests (2), the sum's add (1), one reciprocal square root
+# for d and 1/d (MUFU) with d = ang·d²·rsqrt (2), the argument d·inv_sig
+# (1), erfc as exp(-x²) times a degree-5 polynomial in t = 1/(1 + p·x)
+# (Abramowitz & Stegun 7.1.26, error 1.5e-7: x², the ex2 scale, p·x + 1,
+# five Horner steps, the product: 9, and an ex2 and a reciprocal, MUFU), and
+# q·erfc·(kq/ang)·rsqrt (3): 26 instructions and 3 MUFU, 29 issue slots a
+# pair. H100 SXM: 132 SMs, each issuing 4 x 32 lanes and 16 MUFU results a
+# cycle, at 1,980 MHz.
+PAIR_ISSUE, PAIR_MUFU = 29, 3
+LANE_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
+MUFU_PER_S = 132 * 16 * 1.98e9
+# beside the bound, what this kernel's own SASS issues (cuobjdump -sass, nvcc
+# 12.9): 27 instructions a pair tested, inside the cutoff or not (the ring's
+# loads, d², the tests, the add), and 78 more a pair inside the cutoff (the
+# IEEE square root and division, the library's erfc, the products)
+PAIR_TEST_INSTR, PAIR_TERM_INSTR = 27, 78
 BATCHED_DIR = os.path.join(HERE, "build", "chip_smoke", "batched")
 # crossbar widths: n_yz^2 x (10 + 22 + 8 + 10 slices) x 2 sublattices = 409,600 and
 # 1,081,600 slots; one superstep of each batched kind
@@ -982,12 +1022,14 @@ def drive(deck, workdir, **options):
     fused CG counted on the device, the host synchronisations and the wall
     time."""
     from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.runtime import driver
     from akmc_tpu_torch.solvers import dia_cg
 
     shutil.rmtree(workdir, ignore_errors=True)
     mv.dia_combined_matvec.launches = 0
     dia_cg.dia_cg_solve.launches = 0
+    pairwise.pairwise_potential_tiled.launches = 0
     dia_cg.reset_iterations_total("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -998,6 +1040,7 @@ def drive(deck, workdir, **options):
         "wall_s": time.perf_counter() - t0,
         "dia_launches": mv.dia_combined_matvec.launches,
         "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+        "pair_tiled_launches": pairwise.pairwise_potential_tiled.launches,
         "cg_iterations_counted_on_device": dia_cg.iterations_total("cuda"),
         "host_syncs": n_syncs(syncs), "host_sync_sites": sync_sites(syncs),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1013,14 +1056,21 @@ def drive(deck, workdir, **options):
 def check_launches(path: str, summary: dict, rows: list, counts: dict) -> None:
     """Each K solve of the driver's model (``k_solves``, those a grown cap
     repeated included) launched the fused CG once and the matvec once (the
-    conductive-vacancy degrees), and the iterations the fused kernel counted
-    on the device are the model's (``k_iterations``); without a grown cap the
-    solves are the supersteps and their iterations those of metrics.jsonl."""
+    conductive-vacancy degrees), and the tiled pairwise kernel once where the
+    model took the tiled path (none elsewhere); the iterations the fused
+    kernel counted on the device are the model's (``k_iterations``); without
+    a grown cap the solves are the supersteps and their iterations those of
+    metrics.jsonl."""
     k_solves, k_iterations = summary["k_solves"], summary["k_iterations"]
     launches = (counts["dia_launches"], counts["dia_cg_launches"])
     if launches != (k_solves, k_solves):
         fail(f"the {path} path launched the DIA kernels (matvec, CG) {launches} times for "
              f"{k_solves} K solves")
+    pair = k_solves if summary["model"]["pairwise"] == "tiled" else 0
+    if counts["pair_tiled_launches"] != pair:
+        fail(f"the {path} path launched the tiled pairwise kernel "
+             f"{counts['pair_tiled_launches']} times for {k_solves} K solves of a "
+             f"{summary['model']['pairwise']} pairwise path")
     if counts["cg_iterations_counted_on_device"] != k_iterations:
         fail(f"the {path} path's fused solves counted {counts['cg_iterations_counted_on_device']} "
              f"iterations on the device, the model's K solves {k_iterations}")
@@ -1569,7 +1619,7 @@ def run_disordered(dev):
 # per-loop path (VCMModel(step_program=False))
 # ---------------------------------------------------------------------------
 SG_DIR = os.path.join(HERE, "build", "chip_smoke", "superstep_graph")
-SG_BIASES = 3                 # the deck's first bias points, two supersteps at each
+SG_BIASES = 2                 # the deck's first bias points, two supersteps at each
 SG_NODE_KS = (1, 4, 16)       # events, then iterations, per while-node pass, read on each path
 SG_PROFILED = 2               # supersteps in the idle-share window
 SG_SPD = 4                    # supersteps per dispatch against one at a time
@@ -2399,6 +2449,111 @@ def run_production_graph(dev):
     return line, None
 
 
+def pair_tiled_work(tiling, r_tile, pos, charge, cutoff_radius, qmax, cand_cap, block=512):
+    """(pairs the f32 kernel tests, pairs of them inside the cutoff) in one
+    call: each tile's real sites times its first ``cand_cap`` in-reach
+    candidates, and those of the pairs that pass the f32 cutoff and self
+    tests."""
+    from akmc_tpu_torch.ops import pairwise as pw
+
+    f32 = torch.float32
+    q_idx, qv, q_pos, _, _ = pw._charged_list(pos, charge, qmax)
+    sel, cand, _ = pw.tile_candidates(tiling, r_tile, q_pos, qv, cutoff_radius,
+                                      min(cand_cap, qmax))
+    real = tiling.tile_sites >= 0
+    tested = int((real.sum(dim=1) * sel.sum(dim=1)).sum())
+    cut2 = torch.tensor(cutoff_radius ** 2, dtype=torch.float64).to(f32)
+    p32, q32 = tiling.pos_tiles.to(f32), q_pos.to(f32)
+    inside = 0
+    for s in range(0, sel.shape[0], block):
+        c, b = cand[s:s + block], slice(s, s + block)
+        d2 = pw._d2(*(p32[b, :, None, a] - q32[c][:, None, :, a] for a in range(3)))
+        inside += int(((d2 < cut2) & sel[b, None, :] & real[b, :, None]
+                       & (tiling.tile_sites[b, :, None] != q_idx[c][:, None, :])).sum())
+    return tested, inside
+
+
+def pair_tiled_bound(inside: int) -> dict:
+    """The least time of the f32 tiled pairwise solve for ``inside`` pairs
+    in the cutoff, on the card's issue rate or its MUFU rate."""
+    issue, mufu = PAIR_ISSUE * inside / LANE_INSTR_PER_S, PAIR_MUFU * inside / MUFU_PER_S
+    return {"bound_ms": 1e3 * max(issue, mufu), "bound_by": "issue" if issue >= mufu else "mufu"}
+
+
+def pair_tiled_issue_ms(tested: int, inside: int) -> float:
+    """The issue time of the instructions the f32 kernel's SASS spends on
+    that work: a diagnostic beside the bound, not a bound."""
+    return 1e3 * (PAIR_TEST_INSTR * tested + PAIR_TERM_INSTR * inside) / LANE_INSTR_PER_S
+
+
+def pair_tiled_readings(model, charge, where: str, timed: bool = True) -> dict:
+    """The tiled pairwise kernel (``csrc/pair_tiled.cu``) against its plain
+    twin on ``model``'s tiling (a rank's share included) and ``charge``:
+    potential and both flags bit-equal in the f32 and the f64 plane, or the
+    run fails. With ``timed``: the launch alone and the whole call (each a
+    graph of calls, CUDA events; the outputs checked again after), the
+    twin's call, the pairs and the bound of the f32 plane's work, the
+    kernel's own issue time, and the seconds all this took."""
+    from akmc_tpu_torch.ops import pairwise as pw
+
+    t0 = time.perf_counter()
+    p, t = model.params, model.tables
+    args = (t.pair_tiling, model._pair_r_tile, t.pos, charge, p.cutoff_radius, p.sigma, p.k)
+    kw = dict(qmax=model.qmax, cand_cap=model.pair_cand_cap)
+    T, S = t.pair_tiling.tile_sites.shape
+    out = {"bitwise_equal_to_twin": True, "tiles": T, "tile_slots": S, "qmax": model.qmax,
+           "cand_cap": min(model.pair_cand_cap, model.qmax),
+           "charged_sites": int((charge != 0).sum())}
+
+    def same(got, want, plane, when=""):
+        flags = ([bool(f) for f in got[1:]], [bool(f) for f in want[1:]])
+        if not torch.equal(got[0], want[0]) or flags[0] != flags[1]:
+            fail(f"the pair_tiled kernel ({plane} plane) differs from its twin on the "
+                 f"{where}{when} at {int((got[0] != want[0]).sum())} sites, max abs "
+                 f"{float((got[0] - want[0]).abs().max()):.3e}; flags {flags}")
+
+    for plane in ("f32", "f64"):
+        f32 = plane == "f32"
+        launch, got = pw.kernel_call(*args, plane_f32=f32, **kw)
+        launch()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = pw.pairwise_potential_tiled_plain(*args, plane_f32=f32, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        same(got, want, plane)
+        if timed:
+            out[f"plain_ms_{plane}"] = start.elapsed_time(end)
+            out[f"kernel_ms_{plane}"] = device_ms(launch, reps=20)
+            out[f"call_ms_{plane}"] = device_ms(lambda: pw.pairwise_potential_tiled(
+                *args, plane_f32=f32, **kw), reps=20)
+            same(got, want, plane, " after its timed launches")
+    print(f"chip_smoke: pair_tiled == twin on the {where} (T={T}, S={S}, "
+          f"{out['charged_sites']} charged sites, f32 and f64 planes)")
+    if timed:
+        tested, inside = pair_tiled_work(*args[:4], p.cutoff_radius, model.qmax,
+                                         model.pair_cand_cap)
+        out.update(ms=out["kernel_ms_f32"], plain_ms=out["plain_ms_f32"],
+                   **pair_tiled_bound(inside), issue_ms=pair_tiled_issue_ms(tested, inside),
+                   pairs_tested=tested, pairs_in_cutoff=inside)
+    out["check_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_pair_tiled(dev, p, lat) -> dict:
+    """The tiled pairwise kernel on the n_yz=24 crossbar, tiled as the model
+    tiles a structure whose pair table does not fit, on the charges of its
+    first superstep: the ``kernels`` line's entry, the paths' readings are
+    added to it."""
+    from akmc_tpu_torch.models.vcm import VCMModel
+
+    model = VCMModel(p, lat, device=dev, rate_normalize=True, pair_table_budget=0.0,
+                     pair_tiling_min_n=0)
+    _, charge = crossbar_state(p, lat, dev)
+    return {"name": "pairwise_potential_tiled", "n_yz": N_YZ,
+            **pair_tiled_readings(model, charge, f"n_yz={N_YZ} crossbar")}
+
+
 def run_tiled(dev):
     """(tiled line, what is wrong with it or None)."""
     from akmc_tpu_torch.models.vcm import VCMModel
@@ -2430,6 +2585,8 @@ def run_tiled(dev):
         return pairwise_potential_tiled(t.pair_tiling, m._pair_r_tile, t.pos, charge, *phys,
                                         qmax=m.qmax, cand_cap=m.pair_cand_cap,
                                         plane_f32=plane_f32)
+
+    kernel = pair_tiled_readings(m, charge, f"n_yz={TILED_N_YZ} crossbar")
 
     def on_the_fly():
         return pairwise_potential(t.pos, charge, *phys, qmax=m.qmax)
@@ -2471,7 +2628,7 @@ def run_tiled(dev):
         "tiles": T, "S": S, "candidate_cap": C, "qmax": m.qmax,
         "charged_sites": int(q_sel.numel()),
         "tiled_plane_elements": T * S * C, "on_the_fly_plane_elements": lat.N * m.qmax,
-        **times,
+        **times, "kernel": kernel,
         "max_abs_tiled_minus_on_the_fly": err64,
         "max_abs_tiled_f32_minus_on_the_fly": err32, "max_abs_potential": scale,
         "shell_ambiguous_sites": int(ambiguous.sum()),
@@ -2479,6 +2636,7 @@ def run_tiled(dev):
         "cg_per_superstep": [r["cg_iterations"] for r in rows],
         "superstep_s": [r["superstep_s"] for r in rows],
         "dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
+        "pair_tiled_launches": counts["pair_tiled_launches"],
         "dia_cg_grid": {"blocks": grid[0], "rows_in_registers": grid[1]} if grid else None,
         "host_syncs_per_superstep": counts["host_syncs"] / len(rows),
         "peak_mem_gb": counts["peak_mem_gb"],
@@ -2640,7 +2798,8 @@ def batched_law(dev) -> dict:
 
 
 def crossbar_kernels(dev, model, state, n_yz: int) -> dict:
-    """Both CUDA kernels on the crossbar's own operator and K system, as its
+    """The DIA kernels on the crossbar's own operator and K system, and the
+    tiled pairwise kernel on its tiling (where the model took it), as its
     first superstep meets them (cold start at CROSSBAR_VD, the charges of
     that superstep's charge update), each held bit-equal to its plain twin
     and timed beside it, the matvec also beside the one-call sparse product:
@@ -2705,7 +2864,9 @@ def crossbar_kernels(dev, model, state, n_yz: int) -> dict:
     cb, readings = cg_readings(dev, op, ks, rtol, k, blocks, False, cg_ms)
     nnz = int((op.diags != 0).sum())
     mb = matvec_bound(D, n, nnz)
+    pair = (pair_tiled_readings(model, charge, where) if t.pair_tiling is not None else None)
     return {
+        "pairwise_potential_tiled": pair,
         "dia_combined_matvec": {
             "n_yz": n_yz, "bitwise_equal_to_twin": True, "max_abs_err": max_abs,
             "ms": mv_ms["kernel"], "plain_ms": mv_ms["plain"], "bound_ms": mb["bound_ms"],
@@ -3202,10 +3363,12 @@ def reset_launches(dev, model):
     """Every launch counter to 0 and the model's solve counts as they stand:
     (k_solves, k_iterations) to count a path's own from."""
     from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.solvers import dia_cg
 
     mv.dia_combined_matvec.launches = 0
     dia_cg.dia_cg_solve.launches = 0
+    pairwise.pairwise_potential_tiled.launches = 0
     dia_cg.reset_iterations_total(dev.type)
     return model.k_solves, model.k_iterations
 
@@ -3214,17 +3377,24 @@ def crossbar_launches(dev, model, steps, since, where="crossbar") -> dict:
     """The kernels' launches since ``reset_launches`` (which returned
     ``since``) against the model's count of K solves: one fused CG and one
     matvec (the conductive-vacancy degrees) per solve, those repeated for a
-    grown cap too, and the iterations the fused kernel counted on the device
-    equal to the model's."""
+    grown cap too, the tiled pairwise kernel once per solve where the model
+    took the tiled path, and the iterations the fused kernel counted on the
+    device equal to the model's."""
     from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.solvers import dia_cg
 
     launches = (mv.dia_combined_matvec.launches, dia_cg.dia_cg_solve.launches)
+    pair_launches = pairwise.pairwise_potential_tiled.launches
     k_solves = model.k_solves - since[0]
     if k_solves < len(steps):
         fail(f"{k_solves} K solves in {len(steps)} supersteps on the {where}")
     if dev.type == "cuda" and launches != (k_solves, k_solves):
         fail(f"the {where} path launched the DIA kernels {launches} times for {k_solves} K solves")
+    tiled = model.tables.pair_tiling is not None
+    if dev.type == "cuda" and pair_launches != (k_solves if tiled else 0):
+        fail(f"the {where} path launched the tiled pairwise kernel {pair_launches} times for "
+             f"{k_solves} K solves (tiled path: {tiled})")
     cg = model.k_iterations - since[1]
     if dev.type == "cuda" and dia_cg.iterations_total(dev.type) != cg:
         fail(f"the fused solves counted {dia_cg.iterations_total(dev.type)} iterations on the "
@@ -3233,7 +3403,8 @@ def crossbar_launches(dev, model, steps, since, where="crossbar") -> dict:
         fail(f"the K solves ran {cg} iterations, the supersteps report "
              f"{sum(r['cg_iterations'] for r in steps)}")
     grid = dia_cg.dia_cg_solve.last_grid
-    return {"dia_launches": launches[0], "dia_cg_launches": launches[1], "k_solves": k_solves,
+    return {"dia_launches": launches[0], "dia_cg_launches": launches[1],
+            "pair_tiled_launches": pair_launches, "k_solves": k_solves,
             "cg_iterations_counted_on_device": dia_cg.iterations_total(dev.type),
             "dia_cg_grid": {"blocks": grid[0], "rows_in_registers": grid[1]} if grid else None}
 
@@ -4018,7 +4189,10 @@ def full_large(dev) -> dict:
     """One full-physics superstep of the disordered stand-in at 124,412
     sites (``LARGE_BANDED_N_YZ``, 8 V, tunnelling live) through the program
     and through the per-loop path, bit-equal: the W blocks' bytes, the energy
-    bounds, ms and host reads of each, the capture and the peak memory."""
+    bounds, ms and host reads of each, the capture and the peak memory; the
+    tiled pairwise kernel launched once a K solve on each path, and held
+    against its twin at this shape."""
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.runtime import synth_deck
     from akmc_tpu_torch.state import make_device_state
 
@@ -4037,12 +4211,26 @@ def full_large(dev) -> dict:
     t0 = time.perf_counter()
     model._capture_full(state0, FP_LARGE_VD, 1)
     capture_s = time.perf_counter() - t0
-    runs = {}
+    runs, pair_launches = {}, {}
+    tiled = model.tables.pair_tiling is not None
     for programmed in (True, False):
         with _per_loop(model, not programmed):
+            pairwise.pairwise_potential_tiled.launches = 0
+            k0 = model.k_solves
             runs[programmed] = _fp_run(model, p, state0, [FP_LARGE_VD])
             timing = dict(model.power_timing, **_power_spans(model))
+            path = "program" if programmed else "per_loop"
+            pair_launches[path] = pairwise.pairwise_potential_tiled.launches
+            if pair_launches[path] != (model.k_solves - k0 if tiled else 0):
+                fail(f"full program at {lat.N} sites, {path}: the tiled pairwise kernel "
+                     f"launched {pair_launches[path]} times for {model.k_solves - k0} K solves "
+                     f"(tiled path: {tiled})")
     _fp_same("124,412 sites: program against loops", runs[False], runs[True])
+    pair = None
+    if tiled:
+        _, charge = crossbar_state(p, lat, dev)
+        pair = {"launches": pair_launches,
+                **pair_tiled_readings(model, charge, f"{lat.N}-site stand-in")}
     out = {
         "n_yz": FP_LARGE_N_YZ, "sites": lat.N, "atoms": model.n_atom, "Vd": FP_LARGE_VD,
         "allocated_before_gb": allocated_before / 1e9,
@@ -4057,6 +4245,7 @@ def full_large(dev) -> dict:
         "wkb_build_ms_loops": timing.get("wkb_build_device_ms", float("nan")),
         "power_solve_ms_loops": timing.get("power_solve_device_ms", float("nan")),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "pair_tiled": pair,
     }
     if not any(b > 1 for b in out["ct_loop_bounds"] or []):
         fail(f"full program at {lat.N} sites: no energy loop ran past one step: {out}")
@@ -4112,6 +4301,7 @@ def run_full(dev):
         "supersteps": len(rows), "events": sum(r["n_events"] for r in rows),
         "model": summary["model"], "k_solves": summary["k_solves"],
         "dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
+        "pair_tiled_launches": counts["pair_tiled_launches"],
         "cg_iterations_counted_on_device": counts["cg_iterations_counted_on_device"],
         "kmc_time_max_rel_vs_golden": dist["kmc_time_max_rel"],
         "I_macro_max_rel_vs_golden": dist["I_macro_max_rel"],
@@ -4325,7 +4515,7 @@ def _first_difference(a: list, b: list) -> str:
 
 def _launches_of(counts: dict, summary: dict) -> dict:
     return {"dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
-            "k_solves": summary["k_solves"]}
+            "pair_tiled_launches": counts["pair_tiled_launches"], "k_solves": summary["k_solves"]}
 
 
 @contextlib.contextmanager
@@ -4555,6 +4745,7 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
     equal to the model's). Then ``lifetime_checks`` on the program's model."""
     from akmc_tpu_torch.models.vcm import VCMModel
     from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.solvers import dia_cg
     from akmc_tpu_torch.state import make_device_state
 
@@ -4571,6 +4762,7 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
         counts0 = dict(model.cb_counts if kind == "cb_edge" else model.step_counts)
         if programmed:
             mv.dia_combined_matvec.launches = dia_cg.dia_cg_solve.launches = 0
+            pairwise.pairwise_potential_tiled.launches = 0
             dia_cg.reset_iterations_total(dev)
             solves0, iters0 = model.k_solves, model.k_iterations
         r = _deck_calls(model, kind, state0, biases)
@@ -4579,6 +4771,7 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
         if programmed:
             launches = {"dia_launches": mv.dia_combined_matvec.launches,
                         "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+                        "pair_tiled_launches": pairwise.pairwise_potential_tiled.launches,
                         "cg_iterations_counted_on_device": dia_cg.iterations_total(dev),
                         "k_solves": model.k_solves - solves0,
                         "k_iterations": model.k_iterations - iters0}
@@ -4608,6 +4801,10 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
             fail(f"{name} fields: the fused CG counted {launches} iterations")
     elif launches["dia_launches"] or launches["dia_cg_launches"]:
         fail(f"{name} {kind}: a DIA kernel was launched: {launches}")
+    tiled = prog.tables.pair_tiling is not None and kind == "fields"
+    if dev.type == "cuda" and launches["pair_tiled_launches"] != (
+            launches["k_solves"] if tiled else 0):
+        fail(f"{name} {kind}: tiled pairwise launches {launches} (tiled path: {tiled})")
     best = {pr: min(runs[pr], key=lambda x: sum(x[0][2])) for pr in (False, True)}
     n = len(biases)
     out = {
@@ -4986,7 +5183,8 @@ def run_driver(dev, sweep_rows):
     if not warm[True]["aot_line"] or warm[False]["aot_line"]:
         problems.append(f"the 'AOT warmup:' line is wrong: {warm[True]['aot_line']!r}, "
                         f"{warm[False]['aot_line']!r}")
-    launches["warmup"] = {k: warm[True][k] for k in ("dia_launches", "dia_cg_launches", "k_solves")}
+    launches["warmup"] = {k: warm[True][k] for k in ("dia_launches", "dia_cg_launches",
+                                                     "pair_tiled_launches", "k_solves")}
     line["warmup"] = {"with": warm[True], "without": warm[False]}
 
     # the deck modes and the CB edge as one program a call, against the
@@ -4996,7 +5194,7 @@ def run_driver(dev, sweep_rows):
     line["programs"] = deck_programs(dev, synth, synth_dir)
     launches["fields_program"] = {
         k: line["programs"]["crossbar_fields"]["launches"][k]
-        for k in ("dia_launches", "dia_cg_launches", "k_solves")}
+        for k in ("dia_launches", "dia_cg_launches", "pair_tiled_launches", "k_solves")}
 
     # the disordered stand-in: --cache-dir twice, the second run reading the file
     cache = os.path.join(DRIVER_DIR, "cache")
@@ -5219,16 +5417,19 @@ def check_row_window(dev, operators) -> dict:
 
 def _reset_counts():
     from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.solvers import dia_cg
 
     mv.dia_combined_matvec.launches = 0
     dia_cg.dia_cg_solve.launches = 0
+    pairwise.pairwise_potential_tiled.launches = 0
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
 
 
 def _rank_counts(summary=None) -> dict:
     from akmc_tpu_torch.ops import dia_matvec as mv
+    from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.solvers import dia_cg
 
     cuda = torch.cuda.is_available()
@@ -5236,6 +5437,7 @@ def _rank_counts(summary=None) -> dict:
         torch.cuda.synchronize()
     out = {"row_window_launches": mv.dia_combined_matvec.launches,
            "dia_cg_launches": dia_cg.dia_cg_solve.launches,
+           "pair_tiled_launches": pairwise.pairwise_potential_tiled.launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
     if summary is not None:
         out.update({k: summary[k] for k in ("k_solves", "k_iterations", "replica_checks",
@@ -5302,6 +5504,10 @@ def _sharded_batched(mesh):
            "kmc_time": float(state.kmc_time), **counts,
            "k_solves": model.k_solves, "k_iterations": model.k_iterations,
            "held_bytes": model.held_bytes()}
+    if dev.type == "cuda" and model.tables.pair_tiling is not None:
+        # the kernel against its twin on this rank's share of the tiles
+        where = "409,600-slot crossbar" + ("" if mesh is None else f", rank {mesh.rank}")
+        pair_tiled_readings(model, state.charge, where, timed=False)
     if mesh is None or mesh.rank == 0:
         out["element"] = state.element.cpu().numpy()
         out["charge"] = state.charge.cpu().numpy()
@@ -5545,12 +5751,18 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
                     and bt["stats"] == one["stats"]):
                 problems.append(f"the {size}-rank batched path differs from one rank's: "
                                 f"{bt['stats']} / {one['stats']}")
+            tiled = bt["describe"]["pairwise"] == "tiled"
             for rk, got in enumerate(per_rank):
                 b = got["batched"]
                 if b["row_window_launches"] != b["k_iterations"] + b["k_solves"]:
                     problems.append(f"rank {rk} of {size}: batched row-window launches "
                                     f"{b['row_window_launches']} != {b['k_iterations']} + "
                                     f"{b['k_solves']}")
+                if dev.type == "cuda" and b["pair_tiled_launches"] != (
+                        b["k_solves"] if tiled else 0):
+                    problems.append(f"rank {rk} of {size}: batched tiled pairwise launches "
+                                    f"{b['pair_tiled_launches']} for {b['k_solves']} K solves "
+                                    f"(tiled path: {tiled})")
             line[f"batched_{size}"] = {
                 "stats": bt["stats"], "wall_s": bt["wall_s"], "one_rank_wall_s": one["wall_s"],
                 "kmc_time": bt["kmc_time"], "describe": bt["describe"],
@@ -5558,6 +5770,8 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
                 "one_rank_peak_mem_gb": one["peak_mem_gb"],
                 "held_bytes": [g["batched"]["held_bytes"] for g in per_rank],
                 "one_rank_held_bytes": one["held_bytes"],
+                "pair_tiled_launches": [g["batched"]["pair_tiled_launches"] for g in per_rank],
+                "one_rank_pair_tiled_launches": one["pair_tiled_launches"],
             }
         # 5. concern groups
         for ratio in () if nccl else ((1, 1),) if size == 2 else ((1, 3),):
@@ -5936,7 +6150,8 @@ def main(argv=None) -> int:
         for name, check in (("dia_matvec", lambda: check_dia_kernel(dev, dia, meta)),
                             ("dia_cg", lambda: check_dia_cg(dev, dia, meta, p, lat)),
                             ("threefry", lambda: check_threefry(dev)),
-                            ("graph_while", lambda: check_graph_while(dev))):
+                            ("graph_while", lambda: check_graph_while(dev)),
+                            ("pair_tiled", lambda: check_pair_tiled(dev, p, lat))):
             kernels.append(check())
             parts.mark(name)
         print("chip_smoke: phase kernels took " + json.dumps(parts), flush=True)
@@ -6020,6 +6235,26 @@ def main(argv=None) -> int:
         for name, line in crossbar_lines(lines):
             kern[name + "_path"] = {"launches": line[key],
                                     **line["kernels_at_this_shape"][kern["name"]]}
+    # the tiled pairwise kernel: launches on each path, counted over that
+    # path alone (one a K solve where the model took the tiled path), and its
+    # readings at the shapes of the paths that run it
+    pair = next((k for k in kernels if k["name"] == "pairwise_potential_tiled"), None)
+    if pair is not None:
+        if "tiled" in lines:
+            pair["launches_tiled_path"] = lines["tiled"]["pair_tiled_launches"]
+            pair["tiled_path"] = lines["tiled"]["kernel"]
+        if "full" in lines:
+            pair["launches_full_path"] = lines["full"]["pair_tiled_launches"]
+            pair["full_large_path"] = lines["full"]["program"]["large_standin"].pop("pair_tiled")
+        if "driver" in lines:
+            pair["launches_driver_path"] = {
+                path: n["pair_tiled_launches"] for path, n in lines["driver"]["launches"].items()}
+        if "sharded" in lines and "batched_4" in lines["sharded"]:
+            pair["launches_sharded_path"] = {
+                "batched_4_ranks": lines["sharded"]["batched_4"]["pair_tiled_launches"]}
+        for name, line in crossbar_lines(lines):
+            pair[name + "_path"] = {"launches": line["pair_tiled_launches"],
+                                    **line["kernels_at_this_shape"][pair["name"]]}
     if kernels:                      # now in the kernels line
         for _, line in crossbar_lines(lines):
             del line["kernels_at_this_shape"]

@@ -286,6 +286,71 @@ def test_pairwise_paths_card_match_cpu(card, plane_f32):
     torch.testing.assert_close(g[5], c[5], rtol=1e-12, atol=1e-18)
 
 
+# the tiled pairwise kernel (csrc/pair_tiled.cu) against its plain twin:
+# (n_yz, oxide slices, charged share, qmax past the charged count, cand_cap,
+# tiles share)
+PAIR_CASES = {
+    "fits": (12, 8, 0.05, 100, None, None),
+    "cap_overflow": (12, 8, 0.05, 100, 16, None),
+    "cap_past_ring": (16, 8, 0.3, 100, 4096, None),     # > 512 candidates a tile
+    "qmax_overflow": (12, 8, 0.05, -20, None, None),
+    "rank_share": (12, 8, 0.05, 100, None, (1, 4)),     # the second of four ranks
+    # a long stack: 40,454 charged sites, so list positions past the
+    # kernel's 32,768-entry window, and tiles with hits in both windows
+    "list_windows": (16, 300, 0.4, 100, 4096, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane_f32", [False, True], ids=["f64", "f32-plane"])
+@pytest.mark.parametrize("case", list(PAIR_CASES))
+def test_pair_tiled_kernel_matches_twin(card, case, plane_f32):
+    """Potential and both flags bit-equal to the twin, one launch a call."""
+    from akmc_tpu_torch.ops import pairwise as pw
+
+    n_yz, oxide, share, extra, cap, part = PAIR_CASES[case]
+    p, lat = build_grid_crossbar(n_yz=n_yz, contact_slices=2, oxide_slices=oxide, ti_slices=2,
+                                 defect_fraction=0.3, vacancy_concentration=0.1, seed=3)
+    pos = np.stack([lat.x, lat.y, lat.z], 1)
+    rng = np.random.default_rng(n_yz)
+    slots = np.nonzero(lat.element0 != int(ELEM.NULL_ELEMENT))[0]
+    m = int(share * len(slots))
+    charge = np.zeros(lat.N, np.int32)
+    charge[rng.choice(slots, m, replace=False)] = rng.choice([2, -2, 1, -1], m)
+    tiling, r_tile = pw.build_pair_tiling(pos, p.cutoff_radius, tile_edge=p.cutoff_radius / 2)
+    if part is not None:
+        T = tiling.tile_sites.shape[0]
+        s0, s1 = T * part[0] // part[1], T * (part[0] + 1) // part[1]
+        tiling = type(tiling)(*(a[s0:s1].clone() for a in tiling))
+    tiling = tiling.to(card)
+    qmax = m + extra
+    args = (tiling, r_tile, torch.tensor(pos, device=card), torch.tensor(charge, device=card),
+            p.cutoff_radius, p.sigma, p.k)
+    kw = dict(qmax=qmax, cand_cap=qmax if cap is None else cap, plane_f32=plane_f32)
+    before = pw.pairwise_potential_tiled.launches
+    got = pw.pairwise_potential_tiled(*args, **kw)
+    assert pw.pairwise_potential_tiled.launches == before + 1
+    want = pw.pairwise_potential_tiled_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
+    assert [bool(f) for f in got[1:]] == [bool(f) for f in want[1:]]
+    assert bool(got[1]) == (case == "qmax_overflow")
+    assert bool(got[2]) == (case == "cap_overflow")
+    assert got[0].abs().max() > 0
+    if case == "rank_share":
+        inside = torch.zeros(lat.N, dtype=torch.bool, device=card)
+        inside[tiling.tile_sites[tiling.tile_sites >= 0]] = True
+        assert bool((got[0][~inside] == 0).all()) and bool((got[0][inside] != 0).any())
+    if case in ("cap_past_ring", "list_windows"):
+        _, qv, q_pos, _, _ = pw._charged_list(args[2], args[3], qmax)
+        sel, cand, _ = pw.tile_candidates(tiling, r_tile, q_pos, qv, p.cutoff_radius,
+                                          kw["cand_cap"])
+        assert int(sel.sum(dim=1).max()) > 512
+        if case == "list_windows":
+            both = ((cand < 32768) & sel).any(dim=1) & ((cand >= 32768) & sel).any(dim=1)
+            assert bool(both.any())
+
+
 # ------------------------------------------------------------------
 # the production event loops: plain PyTorch on both devices, fed the same
 # replayed uniforms. Everything after the draws is deterministic, so the card

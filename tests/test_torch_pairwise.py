@@ -1,4 +1,5 @@
-"""The port's on-the-fly and tiled pairwise paths against akmc_tpu on the CPU.
+"""The port's on-the-fly and tiled pairwise paths against akmc_tpu on the CPU
+(the tiled path here is the plain twin of csrc/pair_tiled.cu).
 
 The same positions and charges go through both packages. The tilings and the
 per-tile candidate lists are integer data and must be equal entry for entry
@@ -167,7 +168,7 @@ def test_pairwise_tiled_matches_akmc_tpu_and_on_the_fly(which, edge, request):
     assert got.abs().max() > 0
     # tiles are independent: blocks of tiles give the same values
     for kw in (dict(tile_block=2), dict(plane_budget=1)):
-        part, _, _ = tpw.pairwise_potential_tiled(*args, qmax=QMAX, cand_cap=QMAX, **kw)
+        part, _, _ = tpw.pairwise_potential_tiled_plain(*args, qmax=QMAX, cand_cap=QMAX, **kw)
         assert torch.equal(part, got)
     # a cap past qmax is clamped to it; a cap too small raises the flag
     assert torch.equal(tpw.pairwise_potential_tiled(*args, qmax=QMAX, cand_cap=10 * QMAX)[0], got)
@@ -205,6 +206,73 @@ def test_pairwise_tiled_f32_plane(which, edge, request):
     np.testing.assert_allclose(got32[sel], np.asarray(want32)[sel], rtol=2e-5, atol=2e-6 * scale)
     np.testing.assert_allclose(got32[sel], fly[sel], rtol=2e-5, atol=2e-6 * scale)
     assert np.abs(got32 - fly).max() > 0          # it is the f32 plane
+
+
+@pytest.mark.parametrize("which,edge", [("toy", 4.0), ("big", 3.05)])
+def test_pairwise_tiled_running_sum(which, edge, request):
+    """Each site's terms are one running sum down the candidate axis, as
+    csrc/pair_tiled.cu adds them: padded candidates past a tile's in-reach
+    entries add exact zeros (a cap of 10 x qmax, clamped to qmax, gives the
+    bits of the smallest cap that fits), and the f32 plane's sum lies within
+    n·2^-23·sum|term| (recursive f32 summation, and an ulp a term) of an f64
+    sum of the same f32 terms taken over every charged site in the cutoff."""
+    p, pos, charge = request.getfixturevalue(which)
+    jt, r_tile = jpw.build_pair_tiling(pos, p.cutoff_radius, tile_edge=edge)
+    tt = convert.pair_tiling(jt)
+    pos_t, q_t = torch.tensor(pos), torch.tensor(charge)
+    _, qv, q_pos, _, _ = tpw._charged_list(pos_t, q_t, QMAX)
+    fit = next(c for c in range(1, QMAX + 1)
+               if not bool(tpw.tile_candidates(tt, r_tile, q_pos, qv, p.cutoff_radius, c)[2]))
+    assert fit < QMAX
+    for f32 in (False, True):
+        tight = tpw.pairwise_potential_tiled(tt, r_tile, pos_t, q_t, *_phys(p), qmax=QMAX,
+                                             cand_cap=fit, plane_f32=f32)
+        wide = tpw.pairwise_potential_tiled(tt, r_tile, pos_t, q_t, *_phys(p), qmax=QMAX,
+                                            cand_cap=10 * QMAX, plane_f32=f32)
+        assert not bool(tight[2]) and not bool(wide[2])
+        assert torch.equal(tight[0], wide[0])
+    got = wide[0]
+
+    f32 = torch.float32
+    qsel = torch.nonzero(q_t).flatten()
+    p32 = pos_t.to(f32)
+    d2 = tpw._d2(*(p32[:, None, a] - p32[qsel][None, :, a] for a in range(3)))
+    cut2 = torch.tensor(p.cutoff_radius ** 2, dtype=torch.float64).to(f32)
+    valid = (d2 < cut2) & (torch.arange(pos.shape[0])[:, None] != qsel[None, :])
+    d = torch.tensor(1e-10, dtype=f32) * torch.sqrt(torch.where(valid, d2, 1.0))
+    inv_sig = torch.tensor(1.0 / (p.sigma * np.sqrt(2.0)), dtype=f32)
+    term = q_t[qsel].to(f32)[None, :] * torch.special.erfc(d * inv_sig) \
+        * torch.tensor(p.k * tpw.Q_E, dtype=f32) / d
+    term = torch.where(valid, term, 0.0).to(torch.float64)
+    ref = term.sum(dim=1)
+    bound = valid.sum(dim=1) * 2.0 ** -23 * term.abs().sum(dim=1)
+    assert ref.abs().max() > 0
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("which,edge", [("toy", 4.0), ("big", 3.05)])
+def test_bucket_walk_finds_the_candidate_lists(which, edge, request):
+    """csrc/pair_tiled.cu's filter in plain Python: a tile tests the entries
+    of the buckets of its row of ``_buckets``' cell table as
+    ``tile_candidates`` does and ranks the hits by list position; that gives
+    ``tile_candidates``' in-reach lists, entry for entry."""
+    p, pos, charge = request.getfixturevalue(which)
+    tt, r_tile = tpw.build_pair_tiling(pos, p.cutoff_radius, tile_edge=edge)
+    _, qv, q_pos, _, _ = tpw._charged_list(torch.tensor(pos), torch.tensor(charge), QMAX)
+    sel, cand, _ = tpw.tile_candidates(tt, r_tile, q_pos, qv, p.cutoff_radius, QMAX)
+    reach = tpw._reach(tt, r_tile, p.cutoff_radius)
+    order, start, H, cells = tpw._buckets(tt, reach, q_pos, qv)
+    assert cells.shape == (tt.tile_center.shape[0], 27)
+    assert bool(((cells >= -1) & (cells < H)).all())
+    qp32 = q_pos.to(torch.float32)
+    for t in range(tt.tile_center.shape[0]):
+        hits = set()
+        for b in cells[t][cells[t] >= 0].tolist():
+            q = order[start[b] : start[b + 1]]
+            d = [tt.tile_center[t].to(torch.float32)[a] - qp32[q, a] for a in range(3)]
+            hits.update(q[tpw._d2(*d) < reach].tolist())
+        assert sorted(hits) == cand[t][sel[t]].tolist()
+    assert sel.any()
 
 
 def test_max_in_reach_count():
