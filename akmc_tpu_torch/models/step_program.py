@@ -584,9 +584,9 @@ class EventsOnlyProgram(SuperstepProgram):
 class CbEdgeProgram(_Program):
     """The conduction-band edge at one bias, ``akmc_tpu``'s ``_cb_jit``
     (``update_cb_edge``, once per bias point): ``solve_cb_edge``'s system
-    and its ``symscaled_cg`` as a while loop, packed as ``[cg_iterations]``
-    and the loop's recordings. ``Vd`` is a 0-d tensor of the program; the
-    element, charge and previous edge are copied in."""
+    and its ``symscaled_cg`` as a while loop (the span ``cb_edge``), packed
+    as ``[cg_iterations]`` and the loop's recordings. ``Vd`` is a 0-d tensor
+    of the program; the element, charge and previous edge are copied in."""
 
     LABEL = "akmc.cb_edge"
 
@@ -609,8 +609,9 @@ class CbEdgeProgram(_Program):
 
         m = self.model
         p, t = m.params, m.tables
-        cb, res = solve_cb_edge(self.element, self.charge, self.cb_prev, t.k_neigh_idx,
-                                t.metal_or_edge, self.Vd, p.high_G * 100000, p.low_G,
-                                p.num_atoms_first_layer, graphs=m.cg_graphs)
+        with profiling.span("cb_edge"):
+            cb, res = solve_cb_edge(self.element, self.charge, self.cb_prev, t.k_neigh_idx,
+                                    t.metal_or_edge, self.Vd, p.high_G * 100000, p.low_G,
+                                    p.num_atoms_first_layer, graphs=m.cg_graphs)
         it = torch.as_tensor(res.iterations, device=self.device).to(torch.float64).reshape(1)
         return {"cb_edge": cb}, it

@@ -34,11 +34,11 @@ too, as ``akmc_tpu`` runs ``_fields_jit``, ``_events_only_jit`` and ``_cb_jit``.
 programs (``superstep``; ``charge``, ``k_solve``, ``pairwise``, ``rates`` in
 ``_fields``; ``key_split``; ``event_loop`` around each loop's while node;
 ``batch.race`` and ``batch.resolve`` in each batch; ``wkb_build``,
-``power_solve`` and ``heat`` under full physics) and the host phases of a
-dispatch (``load``, ``launch``, ``read``, ``unpack``), kept in
-``last_spans``. Switching it captures the programs again: it is part of
-every program's key. Off, nothing is stamped and the programs are the same
-graphs as without spans.
+``power_solve`` and ``heat`` under full physics, ``cb_edge`` around the CB
+edge's solve) and the host phases of a dispatch (``load``, ``launch``,
+``read``, ``unpack``), kept in ``last_spans``. Switching it captures the
+programs again: it is part of every program's key. Off, nothing is stamped
+and the programs are the same graphs as without spans.
 """
 
 from __future__ import annotations
@@ -265,7 +265,7 @@ class VCMModel:
         self.spans = False
         self.last_spans = {}
         self._host_spans = None     # the host phases of the dispatch under way
-        self._loop_table = None     # the per-loop path's span table, made on first use
+        self._loop_tables = {}      # the per-loop path's span tables, made on first use
         # the event loops' programs (ops/device_loop.py): their state tensors
         # and, on a card, their CUDA graphs, captured once per shape
         self.loop_graphs = LoopGraphs()
@@ -767,17 +767,18 @@ class VCMModel:
         return out
 
     @contextlib.contextmanager
-    def _loop_spans(self):
+    def _loop_spans(self, kind: str = "superstep"):
         """A dispatch of the per-loop path as one span ``superstep`` in the
-        model's own table, stamped where the device loops stand, and read
-        once at its end (one more host read, with ``spans`` only) into
-        ``last_spans``. Nothing without ``spans``."""
+        model's own table of ``kind`` (the supersteps', the CB edge's),
+        stamped where the device loops stand, and read once at its end (one
+        more host read, with ``spans`` only) into ``last_spans``. Nothing
+        without ``spans``."""
         if not self.spans:
             yield
             return
-        if self._loop_table is None:
-            self._loop_table = profiling.SpanTable(self.device)
-        table = self._loop_table
+        table = self._loop_tables.get(kind)
+        if table is None:
+            table = self._loop_tables[kind] = profiling.SpanTable(self.device)
         table.reset()
         table.stamp_anchor()
         with profiling.spanning(table), profiling.span("superstep"):
@@ -1348,11 +1349,12 @@ class VCMModel:
             return state.replace(cb_edge=out["cb_edge"])
         self.cb_counts["per_loop"] += 1
         p, t = self.params, self.tables
-        cb, res = solve_cb_edge(
-            state.element, state.charge, state.cb_edge, t.k_neigh_idx, t.metal_or_edge, Vd,
-            p.high_G * 100000, p.low_G, p.num_atoms_first_layer, shard=self._shard("int"),
-            graphs=self.cg_graphs,
-        )
+        with self._loop_spans("cb_edge"), profiling.span("cb_edge"):
+            cb, res = solve_cb_edge(
+                state.element, state.charge, state.cb_edge, t.k_neigh_idx, t.metal_or_edge,
+                Vd, p.high_G * 100000, p.low_G, p.num_atoms_first_layer,
+                shard=self._shard("int"), graphs=self.cg_graphs,
+            )
         self.cb_iterations = res.iterations
         return state.replace(cb_edge=cb)
 

@@ -36,7 +36,7 @@ KINDS = {
                              "superstep")},
     "fields": dict.fromkeys(FIELDS, "superstep"),
     "events_only": {"rates": "superstep", "event_loop": "superstep"},
-    "cb_edge": {},
+    "cb_edge": {"cb_edge": "superstep"},
 }
 
 
