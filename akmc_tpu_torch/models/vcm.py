@@ -1235,9 +1235,9 @@ class VCMModel:
             from akmc_tpu_torch.ops import dia_matvec
             from akmc_tpu_torch.solvers import dia_cg
 
-            timed("cuda_build", lambda: cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL,
-                                                          "graph_while", "threefry",
-                                                          "pair_tiled"]))
+            timed("cuda_build", lambda: cuda_build.build(
+                [dia_matvec._KERNEL, dia_cg._KERNEL, "graph_while", "threefry", "pair_tiled"]
+                + (["wkb_ct"] if full_physics else [])))
             if isinstance(self.kop, DiaK):
                 timed("dia_kernels", lambda: self._empty_dia_solve(state, Vd))
         production = bool(batched) and self.device.type == "cuda" and self._programmed()

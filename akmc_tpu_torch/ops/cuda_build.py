@@ -10,7 +10,12 @@ at once, one ``nvcc`` each.
 ``-fmad=false``: the kernels feed the K-system CG, whose trajectory reacts to
 the last bit of every product (see ``csrc/dia_matvec.cu``), so no multiply-add
 may be contracted behind the source's back; the sources also spell every
-rounding out with intrinsics.
+rounding out with intrinsics. A source in ``FMAD_AS_TORCH`` calls the CUDA
+math library where its twin calls PyTorch's kernels, which nvcc builds with
+its default ``-fmad=true``: the library's ``pow`` rounds otherwise under
+``-fmad=false`` (about four values in a million differ in the last bit), so
+such a source is built as PyTorch is; its own operations are ``_rn``
+intrinsics, which no setting contracts.
 """
 
 from __future__ import annotations
@@ -32,7 +37,16 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",    # registers, shared memory and spills, kept in the build log
 ]
 
+FMAD_AS_TORCH = ("wkb_ct",)
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def flags(name: str) -> list:
+    """``nvcc``'s flags for ``csrc/<name>.cu``."""
+    if name not in FMAD_AS_TORCH:
+        return NVCC_FLAGS
+    return ["-fmad=true" if f == "-fmad=false" else f for f in NVCC_FLAGS]
 
 
 def _nvcc() -> str:
@@ -48,7 +62,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -67,7 +81,7 @@ def build(names: Iterable[str]) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, out, tmp, proc))
     failed = []

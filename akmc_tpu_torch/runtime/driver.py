@@ -210,7 +210,10 @@ def run(
         from akmc_tpu_torch.ops import cuda_build, dia_matvec, pairwise
         from akmc_tpu_torch.solvers import dia_cg
 
-        cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL, pairwise._KERNEL])
+        full = (KMCParameters.from_file(param_file).solve_current
+                and not options["committed_parity"])
+        cuda_build.build([dia_matvec._KERNEL, dia_cg._KERNEL, pairwise._KERNEL]
+                         + (["wkb_ct"] if full else []))
     outs = spawn(run_on_mesh, ranks, str(dev), backend, param_file,
                  dict(options, concern_split=concern_split), timeout=rank_timeout)
     return {**outs[0], "ranks": outs}

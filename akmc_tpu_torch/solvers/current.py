@@ -33,11 +33,14 @@ iterations per CUDA-graph replay, one host read per replay). Its scatters
 vacancy and contact lists hold each atom once and their pads add exact zeros,
 so the device's atomics give the same sum in any order.
 
-The contact-trap energy integral runs its shared energy loop to a bound read
-on the host once per block (the largest eligible pair window): every term past
-a pair's own window is an exact masked zero. The steps are computed a plane of
-several energies at a time and added in ascending order one step at a time,
-as akmc_tpu's loop adds them (Kahan-compensated under ``wkb_f32``).
+The contact-trap block W_ct is, on a card in f64, one launch of the kernel
+``csrc/wkb_ct.cu`` (``wkb_contact_trap_kernel``): each pair's terms summed in
+a register over the pair's own energy window. Its plain twin
+(``wkb_block_plain``), on the CPU and under ``wkb_f32``, runs a chunk's shared energy loop to the chunk's bound
+(the largest eligible pair window): every term past a pair's own window is
+an exact masked zero. The steps are computed a plane of several energies at
+a time and added in ascending order one step at a time, as akmc_tpu's loop
+adds them (Kahan-compensated under ``wkb_f32``). Both give the same bits.
 
 Post-solve (scaled by G0): I_macro over the extraction rail; the per-atom
 dissipated power P_i = sum_j ineg_ij (m_j - m_i) with ineg the forward-current
@@ -46,6 +49,7 @@ matrix (set_ineg, 2353-2379); site power = -alpha * P_i on non-metal atoms.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass, fields
 from typing import NamedTuple, Optional, Tuple
@@ -55,6 +59,7 @@ import torch
 
 from akmc_tpu_torch.config import EV_TO_J, H_BAR
 from akmc_tpu_torch.lattice import ELEM, build_neighbor_list, metal_mask
+from akmc_tpu_torch.ops import cuda_build, device_loop
 from akmc_tpu_torch.ops.compact import compact_mask
 from akmc_tpu_torch.solvers.cg import Operator, addresses, f64_vdot, jacobi_cg, jacobi_cg_plain
 
@@ -296,6 +301,99 @@ def _ct_loop_bound(dE_abs, ok, ne_max: int) -> torch.Tensor:
     return torch.clamp(n, max=int(ne_max))
 
 
+class _WkbCtArgs(ctypes.Structure):
+    """``struct WkbCtArgs`` of ``csrc/wkb_ct.cu``."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in (
+            "pos_a", "pos_b", "cb_a", "cb_b", "mask_a", "mask_b", "idx_a", "idx_b", "lattice",
+            "out", "bounds")),
+        *((name, ctypes.c_longlong) for name in ("R", "C", "chunk", "ne_max")),
+        *((name, ctypes.c_double) for name in (
+            "nn_dist", "tol", "prefac", "E0", "dE_step", "inv_step", "ang")),
+        ("pbc", ctypes.c_int),
+    ]
+
+
+def _wkb_ct_library() -> ctypes.CDLL:
+    """``csrc/wkb_ct.cu``, built and typed on first use."""
+    lib = cuda_build.load("wkb_ct")
+    if lib.wkb_ct_launch.argtypes is None:
+        lib.wkb_ct_launch.argtypes = [ctypes.POINTER(_WkbCtArgs), ctypes.c_void_p]
+        lib.wkb_ct_counts_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.wkb_ct_counts_reset.argtypes = []
+        for fn in (lib.wkb_ct_launch, lib.wkb_ct_counts_read, lib.wkb_ct_counts_reset):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _ct_on_card(pos: torch.Tensor, f32: bool) -> bool:
+    """Whether the integrated block is the kernel's: CUDA tensors and f64
+    blocks. Under ``wkb_f32`` the plain loop stays: its Kahan sum folds even
+    a zero term into the compensation, so it cannot stop at a pair's window."""
+    return pos.is_cuda and not f32
+
+
+def wkb_contact_trap_kernel(w: WkbInputs, a: Sites, b: Sites,
+                            chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The integrated block of rows ``a`` and columns ``b`` (``wkb_block``;
+    its twin ``wkb_block_plain``) in one launch of ``csrc/wkb_ct.cu``: (the f64 block, the (ceil(cols /
+    chunk),) int64 energy-loop bounds of its chunks of ``chunk`` columns),
+    bit-equal to the plain build's block and ``_ct_loop_bound``s. Each
+    launch adds its terms and issued lane-steps to the device's counters
+    (``wkb_ct_counts``)."""
+    from akmc_tpu_torch.ops.dia_matvec import current_raw_stream, require_tensor
+
+    dev = a.pos.device
+    rows, cols = a.pos.shape[0], b.pos.shape[0]
+    for side, sites, n in (("rows", a, rows), ("cols", b, cols)):
+        for name, t, dtype, shape in (("pos", sites.pos, F64, (n, 3)), ("cb", sites.cb, F64, (n,)),
+                                      ("mask", sites.mask, torch.bool, (n,)),
+                                      ("idx", sites.idx, torch.int64, (n,))):
+            require_tensor(f"{side}.{name}", t, dtype, shape, dev)
+    require_tensor("lattice", w.lattice, F64, (3,), dev)
+    out = torch.empty((rows, cols), dtype=F64, device=dev)
+    bounds = torch.full((max(1, -(-cols // chunk)),), min(1, int(w.ne_max)), dtype=torch.int64,
+                        device=dev)
+    dE_step = EV_TO_J * 0.01
+    args = _WkbCtArgs(
+        *(t.data_ptr() for t in (a.pos, b.pos, a.cb, b.cb, a.mask, b.mask, a.idx, b.idx,
+                                 w.lattice, out, bounds)),
+        rows, cols, chunk, int(w.ne_max), w.nn_dist, w.tol, _prefac(w.m_e), EV_TO_J * w.V0,
+        dE_step, 1.0 / dE_step, 1e-10, int(w.pbc),
+    )
+    device_loop.bind(*a, *b, w.lattice, out, bounds)
+    with torch.cuda.device(dev):
+        err = _wkb_ct_library().wkb_ct_launch(ctypes.byref(args),
+                                              current_raw_stream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"wkb_ct kernel launch failed: CUDA error {err}")
+    device_loop.count_launch(wkb_contact_trap_kernel)
+    return out, bounds
+
+
+wkb_contact_trap_kernel.launches = 0   # kernel launches (in a graph: launches as replayed)
+
+
+def wkb_ct_counts(device) -> Tuple[int, int]:
+    """(terms evaluated, lane-steps issued) by ``wkb_contact_trap_kernel`` on
+    ``device`` since ``reset_wkb_ct_counts``: their ratio is the share of
+    the issued lanes that did a term. Waits for the device."""
+    vals = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(device):
+        err = _wkb_ct_library().wkb_ct_counts_read(vals)
+    if err != 0:
+        raise RuntimeError(f"wkb_ct counters: CUDA error {err}")
+    return int(vals[0]), int(vals[1])
+
+
+def reset_wkb_ct_counts(device) -> None:
+    with torch.cuda.device(device):
+        err = _wkb_ct_library().wkb_ct_counts_reset()
+    if err != 0:
+        raise RuntimeError(f"wkb_ct counters: CUDA error {err}")
+
+
 # ---------------------------------------------------------------------------
 # per-superstep assembly (compact pieces, no big matrix)
 # ---------------------------------------------------------------------------
@@ -406,6 +504,94 @@ def _scatter_add(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> to
     return out.index_add(0, idx.clamp(min=0), torch.where(ok, vals, 0.0))
 
 
+class WkbInputs(NamedTuple):
+    """What a build of a W block reads besides its rows and columns."""
+
+    lattice: torch.Tensor
+    pbc: bool
+    nn_dist: float
+    tol: float
+    m_e: float
+    V0: float
+    ne_max: int
+    f32: bool            # the ``wkb_f32`` lever
+
+
+class Sites(NamedTuple):
+    """A W block's rows or columns: positions [Angstrom], CB edges [J], masks
+    (pads and non-vacancies False) and atom indices."""
+
+    pos: torch.Tensor
+    cb: torch.Tensor
+    mask: torch.Tensor
+    idx: torch.Tensor
+
+    def rows(self, s: slice) -> "Sites":
+        return Sites(*(t[s] for t in self))
+
+
+def tunnel_sites(ct: CurrentTables, atom_element: torch.Tensor, atom_cb_edge: torch.Tensor,
+                 vmax: int) -> Tuple[Sites, Sites]:
+    """(vacancies, contacts): the W blocks' rows and columns, the compacted
+    vacancy list (-1 padded to ``vmax``) and the window contacts. Pad slots
+    sit on atom 0 and are masked, so their rows and columns are exact zeros."""
+    vac_idx, vv = compact_mask(atom_element == int(ELEM.VACANCY), vmax)
+    vi, ci = vac_idx.clamp(min=0), ct.contact_idx.clamp(min=0)
+    return (Sites(ct.atom_pos[vi], atom_cb_edge[vi], vv, vac_idx),
+            Sites(ct.atom_pos[ci], atom_cb_edge[ci], ct.contact_idx >= 0, ct.contact_idx))
+
+
+def _wkb_block_direct(w: WkbInputs, a: Sites, b: Sites, integrate: bool,
+                      bounds: list) -> torch.Tensor:
+    dist_m, dist_ang = _pair_dist_m(a.pos, b.pos, w.lattice, w.pbc)
+    dE = torch.abs(a.cb[:, None] - b.cb[None, :])
+    neighbor = dist_ang < w.nn_dist
+    same = a.idx[:, None] == b.idx[None, :]
+    ok = a.mask[:, None] & b.mask[None, :] & ~same & ~neighbor & (dE > w.tol)
+    dE_safe = torch.where(ok, dE, 1.0)
+    if integrate:
+        n_steps = _ct_loop_bound(dE, ok, w.ne_max)
+        bounds.append(n_steps)
+        T = _wkb_contact_trap(dist_m, dE_safe, w.m_e, w.V0, n_steps, mask=ok, f32=w.f32)
+    else:
+        T = _wkb_single(dist_m, dE_safe, w.m_e, w.V0, f32=w.f32)
+    return torch.where(ok, T, 0.0)
+
+
+def wkb_block_plain(w: WkbInputs, a: Sites, b: Sites, integrate: bool,
+                    bounds: list) -> torch.Tensor:
+    """The W block of rows ``a`` and columns ``b`` built from planes
+    (``integrate``: the contact-trap energy integral; each of its energy-loop
+    bounds appended to ``bounds``): the direct build up to 4 B^2 pairs; past
+    it, chunks of B trap columns (integrated: each chunk's energy loop runs
+    to its own pairs' bound, as akmc_tpu's column-chunked build does) or B
+    rows. Every entry equals the direct form's. The CPU's build, the
+    ``wkb_f32`` lever's, and the twin of ``wkb_contact_trap_kernel``."""
+    rows, cols = a.pos.shape[0], b.pos.shape[0]
+    B = _WKB_ROW_BLOCK
+    if rows * cols <= 4 * B * B:
+        return _wkb_block_direct(w, a, b, integrate, bounds)
+    if integrate:
+        return torch.cat([_wkb_block_direct(w, a, b.rows(slice(s, s + B)), True, bounds)
+                          for s in range(0, cols, B)], dim=1)
+    return torch.cat([_wkb_block_direct(w, a.rows(slice(s, s + B)), b, False, bounds)
+                      for s in range(0, rows, B)], dim=0)
+
+
+def wkb_block(w: WkbInputs, a: Sites, b: Sites, integrate: bool, bounds: list) -> torch.Tensor:
+    """The W block of rows ``a`` and columns ``b``, equal to
+    ``wkb_block_plain``'s bit for bit. On a card in f64 the integrated block
+    is one launch of ``wkb_contact_trap_kernel`` over all its columns, which
+    gives the bound of each of the plain build's chunks too."""
+    if integrate and _ct_on_card(a.pos, w.f32):
+        cols, B = b.pos.shape[0], _WKB_ROW_BLOCK
+        direct = a.pos.shape[0] * cols <= 4 * B * B
+        T, chunk_bounds = wkb_contact_trap_kernel(w, a, b, max(1, cols) if direct else B)
+        bounds.extend(chunk_bounds.unbind(0))
+        return T
+    return wkb_block_plain(w, a, b, integrate, bounds)
+
+
 def build_power_system(
     ct: CurrentTables,
     atom_element: torch.Tensor,     # (N_atom,) gathered site elements
@@ -440,62 +626,16 @@ def build_power_system(
     hi = torch.full((), high_G, dtype=F64, device=dev)
     G_nbr = torch.where(valid, torch.where(pair_high, hi, low_G), 0.0)
 
-    is_vac = atom_element == int(ELEM.VACANCY)
-    vac_idx, vv = compact_mask(is_vac, vmax)
-    vi = vac_idx.clamp(min=0)
-
-    cb = atom_cb_edge
-    cidx = ct.contact_idx
-    ci = cidx.clamp(min=0)
-    pos_v = ct.atom_pos[vi]
-    pos_c = ct.atom_pos[ci]
-    bounds = []
-
-    def wkb_block_direct(pos_a, pos_b, cb_a, cb_b, mask_a, mask_b, idx_a, idx_b, integrate):
-        dist_m, dist_ang = _pair_dist_m(pos_a, pos_b, lattice, pbc)
-        dE = torch.abs(cb_a[:, None] - cb_b[None, :])
-        neighbor = dist_ang < nn_dist
-        same = idx_a[:, None] == idx_b[None, :]
-        ok = mask_a[:, None] & mask_b[None, :] & ~same & ~neighbor & (dE > tol)
-        dE_safe = torch.where(ok, dE, 1.0)
-        if integrate:
-            n_steps = _ct_loop_bound(dE, ok, ne_max)
-            bounds.append(n_steps)
-            T = _wkb_contact_trap(dist_m, dE_safe, m_e, V0, n_steps, mask=ok, f32=wkb_f32)
-        else:
-            T = _wkb_single(dist_m, dE_safe, m_e, V0, f32=wkb_f32)
-        return torch.where(ok, T, 0.0)
-
-    def wkb_block(pos_a, pos_b, cb_a, cb_b, mask_a, mask_b, idx_a, idx_b, integrate):
-        """The direct build up to 4 B^2 pairs; past it, chunks of B trap
-        columns (integrated: each chunk's energy loop runs to its own
-        pairs' bound, as akmc_tpu's column-chunked build does) or B rows.
-        Every entry equals the direct form's."""
-        rows, cols = pos_a.shape[0], pos_b.shape[0]
-        B = _WKB_ROW_BLOCK
-        if rows * cols <= 4 * B * B:
-            return wkb_block_direct(pos_a, pos_b, cb_a, cb_b, mask_a, mask_b, idx_a, idx_b,
-                                    integrate)
-        if integrate:
-            return torch.cat([
-                wkb_block_direct(pos_a, pos_b[s:s + B], cb_a, cb_b[s:s + B], mask_a,
-                                 mask_b[s:s + B], idx_a, idx_b[s:s + B], True)
-                for s in range(0, cols, B)
-            ], dim=1)
-        return torch.cat([
-            wkb_block_direct(pos_a[s:s + B], pos_b, cb_a[s:s + B], cb_b, mask_a[s:s + B],
-                             mask_b, idx_a[s:s + B], idx_b, False)
-            for s in range(0, rows, B)
-        ], dim=0)
-
-    ones_c = cidx >= 0   # contact mask (pad slots carry exact-zero rows)
+    vac, con = tunnel_sites(ct, atom_element, atom_cb_edge, vmax)
+    vac_idx, cidx = vac.idx, con.idx
     # this rank's rows of each block (all rows on one device): every entry
     # is the whole block's, whichever rows a build holds
     sv, sc = _mine(shard, "vac", vac_idx.shape[0]), _mine(shard, "con", cidx.shape[0])
-    cb_v, cb_c = cb[vi], cb[ci]
-    W_tt = wkb_block(pos_v[sv], pos_v, cb_v[sv], cb_v, vv[sv], vv, vac_idx[sv], vac_idx, False)
-    W_cc = wkb_block(pos_c[sc], pos_c, cb_c[sc], cb_c, ones_c[sc], ones_c, cidx[sc], cidx, False)
-    W_ct = wkb_block(pos_c[sc], pos_v, cb_c[sc], cb_v, ones_c[sc], vv, cidx[sc], vac_idx, True)
+    w = WkbInputs(lattice, pbc, nn_dist, tol, m_e, V0, ne_max, wkb_f32)
+    bounds = []
+    W_tt = wkb_block(w, vac.rows(sv), vac, False, bounds)
+    W_cc = wkb_block(w, con.rows(sc), con, False, bounds)
+    W_ct = wkb_block(w, con.rows(sc), vac, True, bounds)
 
     # diagonal: all row sums positive (write_to_diag, iterative_solvers_gpu.cu:39-47);
     # the tunnel row sums accumulate in f64 when the blocks are stored f32

@@ -200,17 +200,38 @@ line is printed):
            reads, peak memory. Then the program against the per-loop path in
            turns (loops, program, program, loops), every superstep bit-equal
            (state, stats, the warm start, the stream): FP_SUPERSTEPS on the
-           sweep's crossbar and FP_STANDIN_SUPERSTEPS on the stand-in (and at
-           each WKB energy-loop k of FP_WKB_KS), ms a superstep, host reads,
+           sweep's crossbar and FP_STANDIN_SUPERSTEPS on the stand-in, ms a
+           superstep, host reads,
            capture s, while passes, the card's idle share by CUDA events around
-           the replays; the stand-in with the global and with the local heat
+           the replays, the contact-trap kernel (``csrc/wkb_ct.cu``) launched
+           once a power build on every turn (a program run or a per-loop
+           superstep); the stand-in with the global and with the local heat
            model (delta_t between two supersteps' event times: one steady, one
            transient); FP_SPD supersteps a dispatch against one at a time (one
            read a dispatch), and a batch discarded on a vmax below the
            vacancies; one superstep of the stand-in at 124,412 sites (W-block
            bytes, energy bounds, peak memory; it takes the tiled pairwise
-           path: the kernel launched once a K solve through the program and
-           through the loops, and held against its twin at this shape).
+           path: that kernel and the contact-trap kernel launched once a K
+           solve through the program and through the loops, each held
+           against its twin at this shape). On the driver's sweep the
+           contact-trap kernel launched once a superstep's power build (one
+           a K solve); on the deck programs of the driver phase, never.
+
+7b. wkb_kernel the contact-trap block's kernel (``csrc/wkb_ct.cu``) against
+           its plain twin on the card at ``tsys102k.iv_set``'s shape
+           (portbench's configuration and builder, 12,800 contact rows x
+           3,328 trap slots) and at the disordered stand-in's, each at 8 V
+           on its solved CB edge: W_ct and the chunks' bounds bit-equal, one
+           launch; the launch alone by CUDA events over a graph of launches,
+           the twin's build once, the terms and the lane efficiency from
+           the kernel's counters, the work from the inputs (pairs, terms,
+           terms with a pow) and its issue bound at the SASS counts
+           WKB_TERM_INSTR / WKB_POW_INSTR; the kernel's opcodes and loops
+           from ``cuobjdump -sass`` (the listing in chiprun_out/wkb_ct.sass).
+           Those counts were read from one build (WKB_SASS_READ): a build
+           whose instructions or loops differ fails the phase. The kernels
+           line's ``wkb_contact_trap_kernel`` entry gathers every path's
+           launches and readings.
 
 8. driver  the deck modes and options of the driver, on the sizes above
            (``runtime/synth_deck.py`` writes the deck copies), against
@@ -292,7 +313,10 @@ line is printed):
            times within SHARDED_KMC_RTOL, P_tot within SHARDED_P_TOT_RTOL,
            I_macro within SHARDED_I_MACRO_ATOL, T_bg within 1e-12; against
            the golden's first supersteps: the full phase's bounds; W
-           bytes per rank about a quarter of one rank's), SHARDED_SYNTH_STEPS
+           bytes per rank about a quarter of one rank's; each rank's
+           contact-trap kernel launched once a K solve over its own contact
+           rows, and bit-equal to its twin on its window of the disordered
+           stand-in's contact rows at 8 V), SHARDED_SYNTH_STEPS
            supersteps of the disordered stand-in (against one rank: events, elements and CG
            counts exact, KMC times within SHARDED_SYNTH_KMC_RTOL; against its
            golden: the disordered phase's bounds) and the CG harness (K-class at n = 100,000, T-class at the
@@ -327,14 +351,14 @@ line is printed):
            and host reads, and the peak memory go into its line.
 
 Output: a ``kernels`` JSON line, one JSON line each for ``sweep``,
-``disordered``, ``superstep_graph``, ``tiled``, ``batched``, ``full``, ``driver``, ``sharded`` and
-``flagship``, a ``loops`` line (``loop_turns`` at n_yz=64 and at the
+``disordered``, ``superstep_graph``, ``tiled``, ``batched``, ``full``, ``wkb_kernel``,
+``driver``, ``sharded`` and ``flagship``, a ``loops`` line (``loop_turns`` at n_yz=64 and at the
 flagship), a ``cg_loops`` line (each CG's device loop against its host loop,
 from the disordered and full phases), the card's name and power limit from
 nvidia-smi, and last
 ``{"ok": true, "device": {...}}``. ``--only PHASE[,PHASE]`` (of kernels,
-sweep, disordered, superstep_graph, tiled, batched, full, driver, sharded,
-flagship) runs a
+sweep, disordered, superstep_graph, tiled, batched, full, wkb_kernel, driver,
+sharded, flagship) runs a
 part of it while developing;
 ``--only nccl`` (never run by default) runs the sharded phase's sweep and
 batched path, under the same checks, on 2 and 4 ranks with a card each over
@@ -376,7 +400,8 @@ DECK = os.path.join(HERE, "decks", "iv_sweep_5nm.txt")
 GOLDEN = os.path.join(HERE, "akmc_tpu_torch", "golden", "iv_sweep_5nm_n24.json")
 WORKDIR = os.path.join(HERE, "build", "chip_smoke", "iv_sweep_n24")
 N_YZ = 24
-KERNELS = ("dia_matvec", "dia_cg", "threefry", "pair_tiled")
+KERNELS = ("dia_matvec", "dia_cg", "threefry", "pair_tiled", "wkb_ct")
+SASS_DIR = os.path.join(HERE, "chiprun_out")    # cuobjdump -sass listings of the kernels read
 PLUMBING = ("graph_while",)      # built with the kernels: the superstep graph's while nodes
 MATVEC_RTOL = 1e-12
 CG_BIASES = (1.0, 8.0)           # the deck's first and highest bias
@@ -1024,12 +1049,13 @@ def drive(deck, workdir, **options):
     from akmc_tpu_torch.ops import dia_matvec as mv
     from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.runtime import driver
-    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers import current, dia_cg
 
     shutil.rmtree(workdir, ignore_errors=True)
     mv.dia_combined_matvec.launches = 0
     dia_cg.dia_cg_solve.launches = 0
     pairwise.pairwise_potential_tiled.launches = 0
+    current.wkb_contact_trap_kernel.launches = 0
     dia_cg.reset_iterations_total("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1041,6 +1067,7 @@ def drive(deck, workdir, **options):
         "dia_launches": mv.dia_combined_matvec.launches,
         "dia_cg_launches": dia_cg.dia_cg_solve.launches,
         "pair_tiled_launches": pairwise.pairwise_potential_tiled.launches,
+        "wkb_ct_launches": current.wkb_contact_trap_kernel.launches,
         "cg_iterations_counted_on_device": dia_cg.iterations_total("cuda"),
         "host_syncs": n_syncs(syncs), "host_sync_sites": sync_sites(syncs),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1959,20 +1986,7 @@ def threefry_int_work() -> dict:
     value's share is the integer instructions over the copies (funnel
     shifts / 20). With the card's SM count and highest SM clock
     (``nvidia-smi``) that gives the integer rate of the bound."""
-    from akmc_tpu_torch.ops import cuda_build
-
-    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build._nvcc()),
-                                                     "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path("threefry"))],
-                          capture_output=True, text=True, timeout=120).stdout
-    ops, inside = [], False
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            inside = "threefry_step" in ln
-        elif inside:
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
-            if m:
-                ops.append(m.group(1))
+    ops = [op for _, op, _ in _sass_ops("threefry", "threefry_step")]
     roots = collections.Counter(op.split(".")[0] for op in ops)
     ints = [op for op in ops if op.split(".")[0] in (
         "IADD3", "IADD", "LOP3", "LOP", "SHF", "LEA", "IABS", "ISCADD", "PRMT", "SEL",
@@ -3904,9 +3918,6 @@ def full_cg_loops(dev, model, state) -> dict:
 # the full-physics superstep as one CUDA graph (models/step_program.py::FullProgram)
 FP_SUPERSTEPS = 4               # crossbar supersteps a run in turns: the deck's first biases, two each
 FP_STANDIN_SUPERSTEPS = 2       # the stand-in's, as its golden part
-# energy steps per pass of the WKB integral's while node, beside the turns'
-# own (current.WKB_PASS_STEPS, 4)
-FP_WKB_KS = (1, 16)
 FP_SPD = 4                      # supersteps per dispatch against one at a time
 FP_SPD_CHUNK = 2048             # the rand window of both (superstep_full_multi's default)
 FP_LARGE_N_YZ = LARGE_BANDED_N_YZ   # the stand-in at 124,412 sites: one superstep
@@ -3969,13 +3980,12 @@ def _fp_same(label, a, b) -> None:
                 fail(f"full program {label}: dispatch {i} differs in {f}")
 
 
-def full_turns(dev, model, p, lat, biases, where, wkb_ks=()) -> dict:
+def full_turns(dev, model, p, lat, biases, where) -> dict:
     """The per-loop path and the program in turns (loops, program, program,
     loops) from one state and stream, every superstep bit-equal: ms a
     superstep (cold: the first at a bias, warm: the rest), host reads a
     superstep, capture s, while passes, the nodes' k, and the card's idle
-    share of the program's wall by CUDA events around its replays; with
-    ``wkb_ks`` the program at each energy-loop k (a capture each)."""
+    share of the program's wall by CUDA events around its replays."""
     from akmc_tpu_torch.ops import events as ev
     from akmc_tpu_torch.solvers import cg, current, heat
     from akmc_tpu_torch.state import make_device_state
@@ -3985,10 +3995,12 @@ def full_turns(dev, model, p, lat, biases, where, wkb_ks=()) -> dict:
     prog = model._capture_full(state0, biases[0], 1)
     capture_s = time.perf_counter() - t0
     runs = {False: [], True: []}
+    wkb_launches = {"loops": [], "program": []}
     steps = None
     for programmed in (False, True, True, False):
         with _per_loop(model, not programmed):
             counts0 = dict(model.step_counts)
+            current.wkb_contact_trap_kernel.launches = 0
             r = _fp_run(model, p, state0, biases)
             done = {k: model.step_counts[k] - counts0[k] for k in counts0}
             if programmed:
@@ -3997,6 +4009,14 @@ def full_turns(dev, model, p, lat, biases, where, wkb_ks=()) -> dict:
                     fail(f"full program {where}: the program path ran {done}")
             elif done["per_loop"] != len(biases):
                 fail(f"full program {where}: the per-loop path ran {done}")
+            # the contact-trap kernel: one launch a power build, a build a
+            # program run (redos included) or a per-loop superstep
+            launched = current.wkb_contact_trap_kernel.launches
+            builds = done["runs"] if programmed else done["per_loop"]
+            if dev.type == "cuda" and launched != builds:
+                fail(f"full program {where}: the wkb_ct kernel launched {launched} times for "
+                     f"{builds} power builds ({'program' if programmed else 'per-loop'} path)")
+            wkb_launches["program" if programmed else "loops"].append(launched)
         runs[programmed].append(r)
     ref = runs[False][0]
     for label, r in (("program 1", runs[True][0]), ("program 2", runs[True][1]),
@@ -4042,23 +4062,8 @@ def full_turns(dev, model, p, lat, biases, where, wkb_ks=()) -> dict:
             1.0 - sum(replay_ms) / sum(best[True][2]) if replay_ms else None),
         "per_loop_idle_share": "not measured: its host-driven loops leave no replays to "
                                "bracket",
+        "wkb_ct_launches": wkb_launches,
     }
-    if wkb_ks:
-        out["wkb_k_readings"] = {}
-        saved = current.WKB_PASS_STEPS
-        try:
-            for k in wkb_ks:
-                current.WKB_PASS_STEPS = k
-                t0 = time.perf_counter()
-                model._capture_full(state0, biases[0], 1)
-                cap = time.perf_counter() - t0
-                r = _fp_run(model, p, state0, biases)
-                _fp_same(f"{where}: WKB k = {k}", ref, r)
-                out["wkb_k_readings"][k] = {"ms_per_superstep": sum(r[2]) / len(biases),
-                                            "superstep_ms": r[2], "capture_s": cap}
-                _drop_programs(model)
-        finally:
-            current.WKB_PASS_STEPS = saved
     _drop_programs(model)
     print(f"chip_smoke: full program {where}: " + json.dumps(out))
     return out
@@ -4190,10 +4195,11 @@ def full_large(dev) -> dict:
     sites (``LARGE_BANDED_N_YZ``, 8 V, tunnelling live) through the program
     and through the per-loop path, bit-equal: the W blocks' bytes, the energy
     bounds, ms and host reads of each, the capture and the peak memory; the
-    tiled pairwise kernel launched once a K solve on each path, and held
-    against its twin at this shape."""
+    tiled pairwise kernel and the contact-trap kernel launched once a K
+    solve on each path, and each held against its twin at this shape."""
     from akmc_tpu_torch.ops import pairwise
     from akmc_tpu_torch.runtime import synth_deck
+    from akmc_tpu_torch.solvers import current
     from akmc_tpu_torch.state import make_device_state
 
     wd = SYNTH_DIR + f"_full_n{FP_LARGE_N_YZ}"
@@ -4211,20 +4217,26 @@ def full_large(dev) -> dict:
     t0 = time.perf_counter()
     model._capture_full(state0, FP_LARGE_VD, 1)
     capture_s = time.perf_counter() - t0
-    runs, pair_launches = {}, {}
+    runs, pair_launches, wkb_launches = {}, {}, {}
     tiled = model.tables.pair_tiling is not None
     for programmed in (True, False):
         with _per_loop(model, not programmed):
             pairwise.pairwise_potential_tiled.launches = 0
+            current.wkb_contact_trap_kernel.launches = 0
             k0 = model.k_solves
             runs[programmed] = _fp_run(model, p, state0, [FP_LARGE_VD])
             timing = dict(model.power_timing, **_power_spans(model))
             path = "program" if programmed else "per_loop"
             pair_launches[path] = pairwise.pairwise_potential_tiled.launches
-            if pair_launches[path] != (model.k_solves - k0 if tiled else 0):
+            wkb_launches[path] = current.wkb_contact_trap_kernel.launches
+            k_solves = model.k_solves - k0
+            if pair_launches[path] != (k_solves if tiled else 0):
                 fail(f"full program at {lat.N} sites, {path}: the tiled pairwise kernel "
-                     f"launched {pair_launches[path]} times for {model.k_solves - k0} K solves "
+                     f"launched {pair_launches[path]} times for {k_solves} K solves "
                      f"(tiled path: {tiled})")
+            if wkb_launches[path] != k_solves:
+                fail(f"full program at {lat.N} sites, {path}: the wkb_ct kernel launched "
+                     f"{wkb_launches[path]} times for {k_solves} K solves")
     _fp_same("124,412 sites: program against loops", runs[False], runs[True])
     pair = None
     if tiled:
@@ -4247,6 +4259,8 @@ def full_large(dev) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "pair_tiled": pair,
     }
+    out["wkb_ct"] = {"launches": wkb_launches,
+                     **wkb_kernel_readings(model, state, FP_LARGE_VD, f"{lat.N}-site stand-in")}
     if not any(b > 1 for b in out["ct_loop_bounds"] or []):
         fail(f"full program at {lat.N} sites: no energy loop ran past one step: {out}")
     _drop_programs(model)
@@ -4277,6 +4291,9 @@ def run_full(dev):
                                       committed_parity=False, dia_pallas=True)
     while_launches = device_loop.while_loop.launches
     check_launches("full", summary, rows, counts)
+    if counts["wkb_ct_launches"] != summary["k_solves"]:
+        fail(f"the full path launched the wkb_ct kernel {counts['wkb_ct_launches']} times for "
+             f"{summary['k_solves']} supersteps' builds (one a K solve)")
     step_counts = dict(models[0].step_counts)
     sweep_lifetime = lifetime_checks(dev, models[0], "full sweep")
     cb_counts = dict(models[0].cb_counts)
@@ -4302,6 +4319,7 @@ def run_full(dev):
         "model": summary["model"], "k_solves": summary["k_solves"],
         "dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
         "pair_tiled_launches": counts["pair_tiled_launches"],
+        "wkb_ct_launches": counts["wkb_ct_launches"],
         "cg_iterations_counted_on_device": counts["cg_iterations_counted_on_device"],
         "kmc_time_max_rel_vs_golden": dist["kmc_time_max_rel"],
         "I_macro_max_rel_vs_golden": dist["I_macro_max_rel"],
@@ -4473,8 +4491,7 @@ def run_full(dev):
     model, _ = full_model(synth, dev, synth_dir=synth_dir)
     p = model.params
     prog["standin"] = full_turns(dev, model, p, model.lat,
-                                 list(p.V_switch[:1]) * FP_STANDIN_SUPERSTEPS, "stand-in",
-                                 wkb_ks=FP_WKB_KS)
+                                 list(p.V_switch[:1]) * FP_STANDIN_SUPERSTEPS, "stand-in")
     del model
     torch.cuda.empty_cache()
     prog["standin_heating"] = standin_heating(dev, synth, synth_dir,
@@ -4485,6 +4502,212 @@ def run_full(dev):
     line["part_s"] = times
     print("chip_smoke: phase full took " + json.dumps(times), flush=True)
     return line, "; ".join(problems) or None
+
+
+# ---------------------------------------------------------------------------
+# the contact-trap block's kernel (csrc/wkb_ct.cu)
+# ---------------------------------------------------------------------------
+WKB_VD = 8.0                       # tsys102k.iv_set's top bias: its longest windows
+WKB_DIR = os.path.join(HERE, "build", "chip_smoke", "wkb_synth")
+# H100 SXM: 132 SMs, each with 4 x 16 f64 lanes, at 1,980 MHz; each of the 4
+# partitions issues one warp instruction a clock (LANE_INSTR_PER_S), an f64
+# one holding the partition's f64 lanes two clocks
+F64_LANE_INSTR_PER_S = 132 * 64 * 1.98e9
+# What a term issues in this kernel's SASS (cuobjdump -sass, nvcc 12.9, the
+# -fmad=true build; wkb_kernel's "sass" entry has the loops): every term 76
+# instructions, 20 of them f64 (the table reads, the window test, E2, the
+# select, the exp: a range reduction and a degree-11 polynomial, the sum);
+# a term with E2 > 0 183 more, 86 of them f64 (pow's special-case tests and
+# its out-of-line log and exp in extended precision, 159 of the call's 171)
+WKB_TERM_INSTR, WKB_TERM_F64 = 76, 20
+WKB_POW_INSTR, WKB_POW_F64 = 183, 86
+# The build those counts were read from: the kernel's instructions and each
+# of its loops' (instructions, f64 instructions), as wkb_ct_sass parses them.
+# A build that differs leaves the counts unchecked: the phase then fails,
+# until they are read again from the new listing.
+WKB_SASS_READ = (1096, ((88, 18), (127, 31), (318, 58), (7, 0), (7, 0)))
+
+
+def _is_f64(op: str) -> bool:
+    """Whether a SASS opcode issues to the f64 pipe."""
+    root = op.split(".")[0]
+    return root in ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "DSET") or (
+        root in ("F2F", "I2F", "F2I", "FRND") and "F64" in op)
+
+
+def _sass_ops(name: str, function: str) -> list:
+    """(address, opcode, branch target or None) of each instruction of
+    ``function`` in ``cuobjdump -sass`` of ``csrc/<name>.cu``'s library (the
+    whole listing is kept in chiprun_out/<name>.sass)."""
+    from akmc_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(cuda_build._nvcc()),
+                                                     "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120).stdout
+    os.makedirs(SASS_DIR, exist_ok=True)
+    with open(os.path.join(SASS_DIR, f"{name}.sass"), "w") as f:
+        f.write(sass)
+    ops, inside = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = function in ln
+        elif inside:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", ln)
+            if m:
+                tgt = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2) == "BRA" else None
+                ops.append((int(m.group(1), 16), m.group(2), int(tgt.group(1), 16) if tgt else None))
+    return ops
+
+
+def wkb_ct_sass() -> dict:
+    """The kernel's own SASS: its opcodes, and those of its loops (each
+    backward branch and the instructions back to its target), f64 ones
+    apart (they issue to the f64 pipe, 16 lanes a partition)."""
+    ops = _sass_ops("wkb_ct", "wkb_ct")
+    loops = []
+    for addr, op, tgt in ops:
+        if tgt is not None and tgt < addr:
+            body = [o for a, o, _ in ops if tgt <= a <= addr]
+            loops.append({"from": hex(tgt), "to": hex(addr), "instructions": len(body),
+                          "f64": sum(map(_is_f64, body)),
+                          "mufu": sum(o.startswith("MUFU") for o in body)})
+    parsed = (len(ops), tuple((x["instructions"], x["f64"]) for x in loops))
+    return {"instructions": len(ops), "f64_instructions": sum(_is_f64(o) for _, o, _ in ops),
+            "opcodes": dict(collections.Counter(o.split(".")[0] for _, o, _ in ops).most_common()),
+            "loops": loops, "sass_file": "chiprun_out/wkb_ct.sass",
+            "source": "cuobjdump -sass of the built library",
+            "term_counts_read_from_this_build": parsed == WKB_SASS_READ}
+
+
+def wkb_ct_work(w, con, vac, rows: int = 1024) -> dict:
+    """The block's work from its inputs (the kernel's formulas, in row
+    blocks on the card): eligible pairs, terms (each pair's steps below its
+    bound with iv < dE) and terms with E2 > 0 (a pow each)."""
+    from akmc_tpu_torch.config import EV_TO_J
+    from akmc_tpu_torch.solvers import current
+
+    step, E0 = EV_TO_J * 0.01, EV_TO_J * w.V0
+    pairs = terms = pow_terms = 0
+    for s in range(0, con.pos.shape[0], rows):
+        a = con.rows(slice(s, s + rows))
+        _, d = current._pair_dist_m(a.pos, vac.pos, w.lattice, w.pbc)
+        dE = (a.cb[:, None] - vac.cb[None, :]).abs()
+        ok = (a.mask[:, None] & vac.mask[None, :] & (a.idx[:, None] != vac.idx[None, :])
+              & ~(d < w.nn_dist) & (dE > w.tol))
+        n = torch.clamp(torch.ceil(dE / step), max=w.ne_max)
+        # steps with E0 + iv <= dE: E2 <= 0, no pow
+        low = torch.clamp(torch.floor((dE - E0) / step) + 1, min=0)
+        pairs += int(ok.sum())
+        terms += int(torch.where(ok, n, 0.0).sum())
+        pow_terms += int(torch.where(ok, torch.clamp(n - low, min=0), 0.0).sum())
+    return {"pairs": pairs, "terms": terms, "pow_terms": pow_terms}
+
+
+def wkb_ct_bound(work: dict) -> dict:
+    """The least issue time of the block's terms at this kernel's SASS
+    counts (every term, and the more a pow costs), on all four partitions'
+    issue or on the f64 lanes, whichever is longer."""
+    terms, pows = work["terms"], work["pow_terms"]
+    issue = (WKB_TERM_INSTR * terms + WKB_POW_INSTR * pows) / LANE_INSTR_PER_S
+    f64 = (WKB_TERM_F64 * terms + WKB_POW_F64 * pows) / F64_LANE_INSTR_PER_S
+    return {"bound_ms": 1e3 * max(issue, f64), "bound_by": "issue" if issue >= f64 else "f64",
+            "issue_ms": 1e3 * issue, "f64_ms": 1e3 * f64}
+
+
+def wkb_kernel_readings(model, state, Vd: float, where: str, rows=None,
+                        timed: bool = True) -> dict:
+    """The kernel against its plain twin (``current.wkb_block_plain``) on
+    ``model``'s integrated block at ``Vd`` (the CB edge solved there), or on
+    the contact rows ``rows`` (a rank's window, ``Mesh.split``): the block
+    and its chunks' bounds bit-equal and one launch, or the run fails; the
+    terms and the lane efficiency from the kernel's counters. ``timed``: the
+    launch alone by CUDA events over a graph of launches, the twin's build
+    once, the work and the bound."""
+    from akmc_tpu_torch.solvers import current
+
+    t0 = time.perf_counter()
+    dev, p, ct = model.device, model.params, model.current_tables
+    state = model.update_cb_edge(state, Vd)
+    vac, con = current.tunnel_sites(ct, state.element[ct.atom_ind], state.cb_edge[ct.atom_ind],
+                                    model.vmax)
+    if rows is not None:
+        con = con.rows(slice(*rows))
+    w = current.WkbInputs(model._lattice_t, bool(p.pbc), p.nn_dist, p.q * 0.01, p.m_e, p.V0,
+                          model.ne_max, False)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    twin_bounds = []
+    start.record()
+    twin = current.wkb_block_plain(w, con, vac, True, twin_bounds)
+    end.record()
+    torch.cuda.synchronize()
+    twin_ms = start.elapsed_time(end)
+    current.reset_wkb_ct_counts(dev)
+    before = current.wkb_contact_trap_kernel.launches
+    bounds = []
+    got = current.wkb_block(w, con, vac, True, bounds)
+    torch.cuda.synchronize()
+    launches = current.wkb_contact_trap_kernel.launches - before
+    terms, issued = current.wkb_ct_counts(dev)
+    tb, kb = [int(b) for b in twin_bounds], [int(b) for b in bounds]
+    if launches != 1 or tb != kb or not torch.equal(got, twin):
+        fail(f"the wkb_ct kernel differs from its twin on the {where}: {launches} launches, "
+             f"bounds {kb} / {tb}, {int((got != twin).sum())} entries differ, max abs "
+             f"{float((got - twin).abs().max()):.3e}")
+    del twin
+    out = {"rows": con.pos.shape[0], "cols": vac.pos.shape[0], "Vd": Vd, "ct_bounds": kb,
+           "bitwise_equal_to_twin": True, "launches": launches,
+           "terms_counted": terms, "lane_steps_issued": issued,
+           "lane_efficiency": terms / max(1, issued)}
+    if rows is not None:
+        out["row_window"] = list(rows)
+    if timed:
+        ms = device_ms(lambda: current.wkb_block(w, con, vac, True, []), reps=5)
+        again = current.wkb_block(w, con, vac, True, [])
+        if not torch.equal(again, got):
+            fail(f"the wkb_ct kernel's block changed over its timed launches on the {where}")
+        work = wkb_ct_work(w, con, vac)
+        bound = wkb_ct_bound(work)
+        out.update(ms=ms, twin_ms=twin_ms, work=work, **bound,
+                   share_of_bound=bound["bound_ms"] / ms)
+    out["check_s"] = time.perf_counter() - t0
+    print(f"chip_smoke: wkb_ct == twin on the {where} ({out['rows']} x {out['cols']}, "
+          f"bounds {kb}): " + (f"{out['ms']:.3f} ms, twin {twin_ms:.1f} ms, " if timed else "")
+          + f"lane efficiency {out['lane_efficiency']:.4f}", flush=True)
+    return out
+
+
+def run_wkb_kernel(dev):
+    """(wkb_kernel line, None): the kernel against its twin at
+    ``tsys102k.iv_set``'s shape (portbench's configuration and builder, 8 V)
+    and at the stand-in's, timed; its SASS; the issue bound of the terms."""
+    from akmc_tpu_torch.runtime import synth_deck
+
+    from portbench import harness
+
+    times = PartTimes()
+    line = {"sass": wkb_ct_sass()}
+    problem = None
+    if not line["sass"]["term_counts_read_from_this_build"]:
+        problem = (f"the wkb_ct build's SASS ({line['sass']['instructions']} instructions, "
+                   f"loops {[(x['instructions'], x['f64']) for x in line['sass']['loops']]}) is "
+                   f"not the one WKB_TERM_INSTR / WKB_POW_INSTR were read from "
+                   f"{WKB_SASS_READ}: read them again from chiprun_out/wkb_ct.sass")
+    config, traffic = harness.load("configs", "tsys102k"), harness.load("traffic", "iv_set")
+    setup = harness.module("builders", config["builder"]).build(
+        config, dev, config["model"], traffic.get("params", {}))
+    times.mark("tsys102k_build")
+    line["tsys102k"] = wkb_kernel_readings(setup.model, setup.state0, WKB_VD, "tsys102k stack")
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    times.mark("tsys102k")
+    synth = synth_deck.write_synth_deck(DECK, WKB_DIR, N_YZ)
+    model, state = full_model(synth, dev, synth_dir=WKB_DIR)
+    line["standin"] = wkb_kernel_readings(model, state, WKB_VD, "stand-in")
+    times.mark("standin")
+    line["part_s"] = times
+    return line, problem
 
 
 # ---------------------------------------------------------------------------
@@ -4515,7 +4738,8 @@ def _first_difference(a: list, b: list) -> str:
 
 def _launches_of(counts: dict, summary: dict) -> dict:
     return {"dia_launches": counts["dia_launches"], "dia_cg_launches": counts["dia_cg_launches"],
-            "pair_tiled_launches": counts["pair_tiled_launches"], "k_solves": summary["k_solves"]}
+            "pair_tiled_launches": counts["pair_tiled_launches"],
+            "wkb_ct_launches": counts["wkb_ct_launches"], "k_solves": summary["k_solves"]}
 
 
 @contextlib.contextmanager
@@ -4746,7 +4970,7 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
     from akmc_tpu_torch.models.vcm import VCMModel
     from akmc_tpu_torch.ops import dia_matvec as mv
     from akmc_tpu_torch.ops import pairwise
-    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers import current, dia_cg
     from akmc_tpu_torch.state import make_device_state
 
     kw = model_kw or {}
@@ -4763,6 +4987,7 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
         if programmed:
             mv.dia_combined_matvec.launches = dia_cg.dia_cg_solve.launches = 0
             pairwise.pairwise_potential_tiled.launches = 0
+            current.wkb_contact_trap_kernel.launches = 0
             dia_cg.reset_iterations_total(dev)
             solves0, iters0 = model.k_solves, model.k_iterations
         r = _deck_calls(model, kind, state0, biases)
@@ -4772,6 +4997,7 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
             launches = {"dia_launches": mv.dia_combined_matvec.launches,
                         "dia_cg_launches": dia_cg.dia_cg_solve.launches,
                         "pair_tiled_launches": pairwise.pairwise_potential_tiled.launches,
+                        "wkb_ct_launches": current.wkb_contact_trap_kernel.launches,
                         "cg_iterations_counted_on_device": dia_cg.iterations_total(dev),
                         "k_solves": model.k_solves - solves0,
                         "k_iterations": model.k_iterations - iters0}
@@ -4805,6 +5031,8 @@ def deck_turns(dev, name, p, lat, kind, biases, model_kw=None) -> dict:
     if dev.type == "cuda" and launches["pair_tiled_launches"] != (
             launches["k_solves"] if tiled else 0):
         fail(f"{name} {kind}: tiled pairwise launches {launches} (tiled path: {tiled})")
+    if launches["wkb_ct_launches"]:
+        fail(f"{name} {kind}: the wkb_ct kernel was launched without a power build: {launches}")
     best = {pr: min(runs[pr], key=lambda x: sum(x[0][2])) for pr in (False, True)}
     n = len(biases)
     out = {
@@ -5184,7 +5412,8 @@ def run_driver(dev, sweep_rows):
         problems.append(f"the 'AOT warmup:' line is wrong: {warm[True]['aot_line']!r}, "
                         f"{warm[False]['aot_line']!r}")
     launches["warmup"] = {k: warm[True][k] for k in ("dia_launches", "dia_cg_launches",
-                                                     "pair_tiled_launches", "k_solves")}
+                                                     "pair_tiled_launches", "wkb_ct_launches",
+                                                     "k_solves")}
     line["warmup"] = {"with": warm[True], "without": warm[False]}
 
     # the deck modes and the CB edge as one program a call, against the
@@ -5194,7 +5423,8 @@ def run_driver(dev, sweep_rows):
     line["programs"] = deck_programs(dev, synth, synth_dir)
     launches["fields_program"] = {
         k: line["programs"]["crossbar_fields"]["launches"][k]
-        for k in ("dia_launches", "dia_cg_launches", "pair_tiled_launches", "k_solves")}
+        for k in ("dia_launches", "dia_cg_launches", "pair_tiled_launches", "wkb_ct_launches",
+                  "k_solves")}
 
     # the disordered stand-in: --cache-dir twice, the second run reading the file
     cache = os.path.join(DRIVER_DIR, "cache")
@@ -5418,11 +5648,12 @@ def check_row_window(dev, operators) -> dict:
 def _reset_counts():
     from akmc_tpu_torch.ops import dia_matvec as mv
     from akmc_tpu_torch.ops import pairwise
-    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers import current, dia_cg
 
     mv.dia_combined_matvec.launches = 0
     dia_cg.dia_cg_solve.launches = 0
     pairwise.pairwise_potential_tiled.launches = 0
+    current.wkb_contact_trap_kernel.launches = 0
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
 
@@ -5430,7 +5661,7 @@ def _reset_counts():
 def _rank_counts(summary=None) -> dict:
     from akmc_tpu_torch.ops import dia_matvec as mv
     from akmc_tpu_torch.ops import pairwise
-    from akmc_tpu_torch.solvers import dia_cg
+    from akmc_tpu_torch.solvers import current, dia_cg
 
     cuda = torch.cuda.is_available()
     if cuda:
@@ -5438,6 +5669,7 @@ def _rank_counts(summary=None) -> dict:
     out = {"row_window_launches": mv.dia_combined_matvec.launches,
            "dia_cg_launches": dia_cg.dia_cg_solve.launches,
            "pair_tiled_launches": pairwise.pairwise_potential_tiled.launches,
+           "wkb_ct_launches": current.wkb_contact_trap_kernel.launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
     if summary is not None:
         out.update({k: summary[k] for k in ("k_solves", "k_iterations", "replica_checks",
@@ -5514,6 +5746,21 @@ def _sharded_batched(mesh):
     return out
 
 
+def _sharded_wkb_rows(mesh):
+    """The contact-trap kernel against its twin on this rank's window of the
+    disordered stand-in's contact rows at 8 V, cut as the sharded power
+    build cuts them (``Mesh.split``), untimed."""
+    from akmc_tpu_torch.runtime import synth_deck
+
+    wd = os.path.join(SHARDED_DIR, f"wkb_rows_{mesh.rank}")
+    synth = synth_deck.write_synth_deck(DECK, wd, N_YZ)
+    model, state = full_model(synth, mesh.device, synth_dir=wd)
+    window = mesh.split(int(model.current_tables.contact_idx.shape[0]))[mesh.rank]
+    return wkb_kernel_readings(model, state, WKB_VD,
+                               f"stand-in's rows of rank {mesh.rank} of {mesh.size}",
+                               rows=window, timed=False)
+
+
 def _concern_fields(mesh, ratio):
     """Item 5's fields: ``ConcernGroups.fields`` on the sweep's first state at
     the deck's first bias, and (rank 0) the sequential ``_fields`` of a second,
@@ -5562,6 +5809,8 @@ def sharded_rank(mesh, parts):
             out[name] = _sharded_drive(mesh, **kw)
         elif name == "batched":
             out[name] = _sharded_batched(mesh)
+        elif name == "wkb_rows":
+            out[name] = _sharded_wkb_rows(mesh)
         elif name.startswith("concern_fields"):
             out[name] = _concern_fields(mesh, **kw)
         elif name.startswith("harness"):
@@ -5678,6 +5927,7 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
                 ("full", {"workdir": os.path.join(SHARDED_DIR, "full_4"),
                           "synthesize_crossbar": N_YZ, "committed_parity": False,
                           "max_supersteps": SHARDED_FULL_STEPS}),
+                ("wkb_rows", {}),
                 ("synth", {"workdir": os.path.join(SHARDED_DIR, "synth_4"), "deck": synth,
                            "max_supersteps": SHARDED_SYNTH_STEPS}),
                 *concern_part((1, 3)),
@@ -5823,6 +6073,14 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
     if bad or bad_g:
         problems.append(f"4-rank full physics: against one rank {bad[:3]}, against the golden "
                         f"{bad_g[:3]}")
+    # the contact-trap kernel: one launch a K solve on every rank (each over
+    # its own contact rows), and bit-equal to its twin on each rank's window
+    # of the stand-in's rows (asserted on the rank)
+    for rk, got in enumerate(per_rank):
+        f = got["full"]
+        if f["wkb_ct_launches"] != f["k_solves"]:
+            problems.append(f"rank {rk} of 4: full-physics wkb_ct launches "
+                            f"{f['wkb_ct_launches']} for {f['k_solves']} K solves")
     w_per = [sum(g["full"]["held_bytes"].get(k, 0) for k in ("W_tt", "W_ct", "W_cc"))
              for g in per_rank]
     line["full_4"] = {
@@ -5839,6 +6097,9 @@ def run_sharded(dev, sweep_rows, sweep_held, device=None, backend="gloo"):
         "rows_bit_equal": _strip_rows(fu["rows"]) == _strip_rows(refs["full_rows"]),
         "power_cg_iterations": [r["power_cg_iterations"] for r in fu["rows"]],
         "one_rank_power_cg_iterations": [r["power_cg_iterations"] for r in refs["full_rows"]],
+        "wkb_ct_launches": [g["full"]["wkb_ct_launches"] for g in per_rank],
+        "k_solves": [g["full"]["k_solves"] for g in per_rank],
+        "wkb_ct_row_windows": [g["wkb_rows"] for g in per_rank],
         "bounds": {"I_macro_atol": SHARDED_I_MACRO_ATOL, "P_tot_rtol": SHARDED_P_TOT_RTOL,
                    "kmc_rtol": SHARDED_KMC_RTOL, "T_bg_rtol": SHARDED_T_BG_RTOL},
     }
@@ -6103,7 +6364,7 @@ def crossbar_lines(lines):
 
 
 PHASES = ("kernels", "sweep", "disordered", "superstep_graph", "production_graph", "tiled",
-          "batched", "full", "driver", "sharded", "flagship")
+          "batched", "full", "wkb_kernel", "driver", "sharded", "flagship")
 OPT_IN = ("nccl", "schedules", "profiler_fault")   # run only when --only names them
 LIFETIME_PHASES = ("superstep_graph", "production_graph", "full", "driver")
 
@@ -6171,6 +6432,7 @@ def main(argv=None) -> int:
                           dev, [int(n) for n in args.crossbar_n_yz.split(",")],
                           sweep_rows or None)),
                       ("full", lambda: run_full(dev)),
+                      ("wkb_kernel", lambda: run_wkb_kernel(dev)),
                       ("driver", lambda: run_driver(dev, sweep_rows or None)),
                       ("sharded", lambda: run_sharded(dev, sweep_rows or None, sweep_held)),
                       ("nccl", lambda: run_sharded(dev, sweep_rows or None, sweep_held,
@@ -6255,9 +6517,39 @@ def main(argv=None) -> int:
         for name, line in crossbar_lines(lines):
             pair[name + "_path"] = {"launches": line["pair_tiled_launches"],
                                     **line["kernels_at_this_shape"][pair["name"]]}
+    # the contact-trap kernel: launches on each path that builds the power
+    # system, counted over that path alone (one a power build: a K solve, a
+    # program run or a per-loop superstep; none on the deck programs), and
+    # its readings against the twin at the shapes of the paths that run it
+    wkb = {"name": "wkb_contact_trap_kernel"}
+    if "full" in lines:
+        full, prog = lines["full"], lines["full"]["program"]
+        wkb["launches_full_path"] = full["wkb_ct_launches"]
+        wkb["k_solves_full_path"] = full["k_solves"]
+        wkb["launches_full_turns"] = {
+            "sweep_crossbar": prog["sweep_crossbar"]["wkb_ct_launches"],
+            "standin": prog["standin"]["wkb_ct_launches"],
+            **{f"standin_heat_{kind}": prog["standin_heating"][kind]["wkb_ct_launches"]
+               for kind in ("global", "local")}}
+        wkb["full_large_path"] = prog["large_standin"].pop("wkb_ct")
+    if "wkb_kernel" in lines:
+        wkb["wkb_kernel_phase"] = {
+            where: {k: lines["wkb_kernel"][where][k] for k in (
+                "rows", "cols", "launches", "bitwise_equal_to_twin", "ms", "lane_efficiency")}
+            for where in ("tsys102k", "standin")}
+    if "driver" in lines:
+        wkb["launches_driver_path"] = {
+            path: n.get("wkb_ct_launches") for path, n in lines["driver"]["launches"].items()}
+    if "sharded" in lines and "full_4" in lines["sharded"]:
+        f4 = lines["sharded"]["full_4"]
+        wkb["launches_sharded_path"] = {"full_4_ranks": f4["wkb_ct_launches"],
+                                        "k_solves": f4["k_solves"]}
+        wkb["sharded_row_windows"] = f4.pop("wkb_ct_row_windows")
     if kernels:                      # now in the kernels line
         for _, line in crossbar_lines(lines):
             del line["kernels_at_this_shape"]
+    if len(wkb) > 1:
+        kernels.append(wkb)
     # the device loops against their plain loops: one line for both widths
     loops = {name: line.pop("loops") for name, line in crossbar_lines(lines) if "loops" in line}
     if loops:
